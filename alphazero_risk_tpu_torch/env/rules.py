@@ -96,7 +96,8 @@ def tables(device: torch.device) -> Tables:
 def _check_cfg(cfg: Config) -> None:
     if not cfg.simple_cards:
         raise NotImplementedError(
-            "the port runs the simple-cards rules only (simple_cards=True)")
+            "the port runs the simple-cards rules only (simple_cards=True): "
+            "full cards come with a later slice of the port")
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,12 @@ Libraries go to ``build/kernels/`` beside the package (listed in
 ``.gitignore``), named by a hash of the source and the flags, so an edited
 source is rebuilt and a stale library is never loaded.
 
+The common flags include ``--fmad=false``: kernels whose float results are
+held bit for bit against a plain PyTorch version must round every product
+and sum separately, as PyTorch does.  A kernel without that need
+(``fmad=True``) is built with the compiler's default contraction; its
+flags, and so its library name, differ from the others'.
+
 Every ``Kernel`` counts its launches in ``launches``, a plain integer that
 grows by one where the kernel is launched and nowhere else.  The C entry
 point returns ``cudaGetLastError()`` and a nonzero code raises.
@@ -55,8 +61,11 @@ def ptr(t: torch.Tensor | None) -> int | None:
 class Kernel:
     """One CUDA source, its C entry point and its launch count."""
 
-    def __init__(self, name: str, source: str, symbol: str, argtypes):
+    def __init__(self, name: str, source: str, symbol: str, argtypes,
+                 fmad: bool = False):
         self.name = name
+        self.flags = [f for f in NVCC_FLAGS
+                      if not (fmad and f == "--fmad=false")]
         self.source = CSRC / source
         self.symbol = symbol
         self.argtypes = list(argtypes) + [P]   # + the stream
@@ -67,7 +76,7 @@ class Kernel:
     @property
     def library(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes()
-                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+                           + " ".join(self.flags).encode()).hexdigest()[:12]
         return BUILD_DIR / f"lib{self.source.stem}_{h}.so"
 
     def start_build(self) -> subprocess.Popen | None:
@@ -77,7 +86,7 @@ class Kernel:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = self.library.with_suffix(f".{os.getpid()}.tmp")
         return subprocess.Popen(
-            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
+            [nvcc_path(), *self.flags, "-o", str(tmp), str(self.source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
     def finish_build(self, proc: subprocess.Popen | None) -> None:
@@ -123,7 +132,25 @@ MCTS_BACKUP = Kernel(
     "mcts_backup", "mcts_backup.cu", "az_mcts_backup",
     [P] * 8 + [I, I, I])
 
-ALL = (CONV3X3_I8, MCTS_DESCEND, MCTS_BACKUP)
+# x, w, bias, residual, out, M, Cin, Cout
+CONV3X3_BF16 = Kernel(
+    "conv3x3_bf16", "conv_bf16.cu", "az_conv3x3_bf16",
+    [P, P, P, P, P, I, I, I], fmad=True)
+
+# h, 10 head weights, legal, probs, value, logits, B, C, V
+HEADS_EVAL = Kernel(
+    "heads_eval", "heads_softmax.cu", "az_heads_eval",
+    [P] * 15 + [I, I, I], fmad=True)
+
+# 14 tree state fields, 9 tree arrays, root, 14 source state fields, term,
+# node_value, legal, prior, exp_n, exp_a, exp_o, cur, leaf_v, leaf_p, B, N,
+# root_mode
+TREE_WRITE = Kernel(
+    "write_nodes", "tree_write.cu", "az_write_nodes",
+    [P] * 48 + [I, I, I])
+
+ALL = (CONV3X3_I8, MCTS_DESCEND, MCTS_BACKUP, CONV3X3_BF16, HEADS_EVAL,
+       TREE_WRITE)
 
 
 def build_all() -> None:

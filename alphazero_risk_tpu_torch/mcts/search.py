@@ -5,22 +5,28 @@ PUCT, sampling battle outcomes from ``OUTCOME_PROBS``, expands one node,
 evaluates the network on the [B] leaf batch, and backs the value up with
 sign flips only across player changes (alphazero_mcts.cpp:363-375).
 
-Two kernels carry the simulation on the card:
+Three kernels carry the simulation on the card:
 
 - K2 (``csrc/mcts_descend.cu``, ``descend``): the whole descent, PUCT
   select and outcome sampling included, one thread per game;
+- K6 (``csrc/tree_write.cu``, ``write_nodes``): the new node's state and
+  tree entries, the child link, ``next_free`` and the leaf select; also the
+  root write of ``init_tree``;
 - K3 (``csrc/mcts_backup.cu``, ``backup``): the sign-flip backup.
 
-On CPU tensors both take their plain PyTorch versions (``_descend_plain``,
-``_backup_plain``), which follow the JAX code step by step.  The expansion
-(rules transition, legality, network) stays plain PyTorch.
+On CPU tensors they take their plain PyTorch versions (``_descend_plain``,
+``_write_nodes_plain``, ``_backup_plain``), which follow the JAX code step
+by step.  The rules transition, legality and the terminal value of the
+expansion stay plain PyTorch.
 
 Randomness is explicit: ``search`` takes its chance noise as a tensor
 ``gumbel[S, max_depth, B, 3]``; outcome o at depth d of simulation s is
 ``argmax(log(p + 1e-30) + gumbel[s, d])``, which is how
 ``jax.random.categorical`` samples.  ``draw_gumbel`` draws it from a
-generator.  The tree arrays are updated in place (each search owns its
-tree).  Tree reuse and root Dirichlet noise are not ported yet.
+generator.  Root Dirichlet noise (``cfg.use_dirichlet_noise``) takes one
+uniform tensor ``noise_u[B, 43]`` (``draw_noise_uniform``).  The tree arrays
+are updated in place (each search owns its tree).  Tree reuse is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import dataclasses
 import functools
 from typing import Callable, NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from .. import kernels
@@ -113,29 +120,125 @@ def _terminal_value(status: torch.Tensor, player: torch.Tensor):
                        torch.where(status == player, 1.0, -1.0)).to(F32)
 
 
-def init_tree(root: GameState, cfg: Config, eval_fn: EvalFn) -> Tree:
+def _state_fields(state: GameState):
+    return [getattr(state, f.name) for f in dataclasses.fields(GameState)]
+
+
+def _write_nodes_plain(tree: Tree, src: GameState, term: torch.Tensor,
+                       node_value: torch.Tensor, legal: torch.Tensor,
+                       probs: torch.Tensor, path: Descent | None):
+    """The node write in plain PyTorch: masked index writes, field by
+    field, as the JAX ``.at[].set`` chain."""
+    b, n = tree.player.shape
+    rows = _rows(b, tree.player.device)
+    if path is None:
+        expanding = torch.ones((b,), dtype=torch.bool,
+                               device=tree.player.device)
+        idx = torch.zeros((b,), dtype=torch.long, device=tree.player.device)
+    else:
+        root_done = tree.terminal[rows, tree.root.long()]
+        expanding = (path.exp_n >= 0) & ~root_done
+        en = path.exp_n.clamp(min=0).long()
+        idx = torch.where(expanding, tree.next_free, 0).clamp(
+            max=n - 1).long()
+
+    def write(dst, val):
+        m = expanding.reshape((b,) + (1,) * (val.dim() - 1))
+        dst[rows, idx] = torch.where(m, val, dst[rows, idx])
+
+    tree_map(write, tree.states, src)
+    write(tree.expanded, torch.ones_like(expanding))
+    write(tree.terminal, term)
+    write(tree.value, node_value)
+    write(tree.player, src.cur_player)
+    write(tree.legal, legal)
+    write(tree.prior, probs)
+    if path is None:
+        return None
+    write(tree.parent, en.to(I32))
+    cidx = (rows, en, path.exp_a.long(), path.exp_o.long())
+    tree.children[cidx] = torch.where(expanding, idx.to(I32),
+                                      tree.children[cidx])
+    tree.next_free += expanding.to(I32)
+    leaf_v = torch.where(expanding, node_value,
+                         tree.value[rows, path.cur.long()])
+    leaf_p = torch.where(expanding, src.cur_player,
+                         tree.player[rows, path.cur.long()]).to(I32)
+    return leaf_v, leaf_p
+
+
+def write_nodes(tree: Tree, src: GameState, term: torch.Tensor,
+                node_value: torch.Tensor, legal: torch.Tensor,
+                probs: torch.Tensor, path: Descent | None = None):
+    """Write one node per game into the tree, in place (kernel K6).
+
+    With ``path`` (one simulation's descent): a game is expanding when
+    ``path.exp_n >= 0`` and its root is not terminal.  Its node
+    ``idx = min(next_free, N - 1)`` receives the state ``src`` with
+    ``term``, ``node_value``, ``legal`` and ``probs``; its parent's child
+    link and ``next_free`` follow.  Other games write nothing.  Returns
+    ``(leaf_v [B] f32, leaf_p [B] i32)``: the new node's value and mover
+    when expanding, else those of ``path.cur``.  Without ``path`` the same
+    fields go to node 0 of every game (the root write) and nothing is
+    returned.
+
+    CPU tensors take ``_write_nodes_plain``; CUDA tensors launch the kernel
+    (no fallback).
+    """
+    if tree.visit.device.type == "cpu":
+        return _write_nodes_plain(tree, src, term, node_value, legal, probs,
+                                  path)
+    b, n = tree.player.shape
+    dev = tree.player.device
+    arrays = (tree.expanded, tree.terminal, tree.value, tree.player,
+              tree.parent, tree.legal, tree.prior, tree.children,
+              tree.next_free, tree.root)
+    ins = (*_state_fields(src), term, node_value, legal, probs)
+    if path is None:
+        idxs, outs = (None,) * 4, (None, None)
+    else:
+        idxs = (path.exp_n, path.exp_a, path.exp_o, path.cur)
+        outs = (torch.empty((b,), dtype=F32, device=dev),
+                torch.empty((b,), dtype=I32, device=dev))
+    every = (*_state_fields(tree.states), *arrays, *ins,
+             *(t for t in idxs if t is not None))
+    kernels.require_cuda(*every)
+    for t, s in zip(_state_fields(tree.states), _state_fields(src)):
+        if t.dtype != s.dtype or tuple(t.shape) != (b, n) + tuple(
+                s.shape[1:]):
+            raise ValueError("write_nodes: tree and source states differ "
+                             "in type or shape")
+    if (term.dtype != torch.bool or node_value.dtype != F32
+            or legal.dtype != torch.bool or probs.dtype != F32
+            or tuple(probs.shape) != (b, NUM_ACTIONS)
+            or tuple(legal.shape) != (b, NUM_ACTIONS)):
+        raise ValueError("write_nodes takes bool term and legal [B,43] and "
+                         "f32 node_value and probs [B,43]")
+    P = kernels.ptr
+    kernels.TREE_WRITE.launch(
+        *(P(t) for t in _state_fields(tree.states)), *(P(t) for t in arrays),
+        *(P(t) for t in ins), *(P(t) for t in idxs), *(P(t) for t in outs),
+        b, n, int(path is None))
+    return None if path is None else outs
+
+
+def _empty_tree(root: GameState, cfg: Config) -> Tree:
+    """The tree arrays of a search over ``root``'s games, with no node
+    written yet."""
     b, n, dev = root.batch_size, cfg.num_nodes, root.device
 
     def nodes(x):
-        out = torch.zeros((b, n) + tuple(x.shape[1:]), dtype=x.dtype,
-                          device=dev)
-        out[:, 0] = x
-        return out
+        return torch.zeros((b, n) + tuple(x.shape[1:]), dtype=x.dtype,
+                           device=dev)
 
-    legal0 = rules.legal_actions(root, cfg)
-    probs0, value0 = eval_fn(root, legal0)
-    status0 = rules.game_status(root, cfg)
-    term0 = status0 != STATUS_NOT_ENDED
     return Tree(
         states=tree_map(nodes, root),
-        expanded=nodes(torch.ones((b,), dtype=torch.bool, device=dev)),
-        terminal=nodes(term0),
-        value=nodes(torch.where(
-            term0, _terminal_value(status0, root.cur_player),
-            value0.to(F32))),
-        player=nodes(root.cur_player),
-        legal=nodes(legal0),
-        prior=nodes(probs0.to(F32)),
+        expanded=torch.zeros((b, n), dtype=torch.bool, device=dev),
+        terminal=torch.zeros((b, n), dtype=torch.bool, device=dev),
+        value=torch.zeros((b, n), dtype=F32, device=dev),
+        player=torch.zeros((b, n), dtype=I32, device=dev),
+        legal=torch.zeros((b, n, NUM_ACTIONS), dtype=torch.bool, device=dev),
+        prior=torch.zeros((b, n, NUM_ACTIONS), dtype=F32, device=dev),
         visit=torch.zeros((b, n, NUM_ACTIONS), dtype=I32, device=dev),
         wsum=torch.zeros((b, n, NUM_ACTIONS), dtype=F32, device=dev),
         parent=torch.full((b, n), -1, dtype=I32, device=dev),
@@ -144,6 +247,26 @@ def init_tree(root: GameState, cfg: Config, eval_fn: EvalFn) -> Tree:
         next_free=torch.ones((b,), dtype=I32, device=dev),
         root=torch.zeros((b,), dtype=I32, device=dev),
     )
+
+
+def root_inputs(root: GameState, cfg: Config, eval_fn: EvalFn):
+    """What ``write_nodes`` writes into node 0: ``(state, term, value,
+    legal, prior)`` of the root, contiguous."""
+    legal0 = rules.legal_actions(root, cfg)
+    probs0, value0 = eval_fn(root, legal0)
+    status0 = rules.game_status(root, cfg)
+    term0 = status0 != STATUS_NOT_ENDED
+    value0 = torch.where(term0, _terminal_value(status0, root.cur_player),
+                         value0.to(F32))
+    return (tree_map(lambda x: x.contiguous(), root), term0.contiguous(),
+            value0.contiguous(), legal0.contiguous(),
+            probs0.to(F32).contiguous())
+
+
+def init_tree(root: GameState, cfg: Config, eval_fn: EvalFn) -> Tree:
+    tree = _empty_tree(root, cfg)
+    write_nodes(tree, *root_inputs(root, cfg, eval_fn))
+    return tree
 
 
 def _puct_select(tree: Tree, n: torch.Tensor, cfg: Config) -> torch.Tensor:
@@ -302,18 +425,13 @@ def backup(tree: Tree, path: Descent, leaf_v: torch.Tensor,
                                path.pn.shape[1])
 
 
-def simulate_once(tree: Tree, gumbel: torch.Tensor, cfg: Config,
-                  eval_fn: EvalFn) -> Tree:
-    """One simulation for every game; ``gumbel`` [max_depth, B, 3]."""
-    b = tree.player.shape[0]
-    rows = _rows(b, tree.player.device)
-    path = descend(tree, gumbel, cfg)
-
-    root_done = tree.terminal[rows, tree.root.long()]
-    expanding = (path.exp_n >= 0) & ~root_done
+def expansion_inputs(tree: Tree, path: Descent, cfg: Config,
+                     eval_fn: EvalFn):
+    """What ``write_nodes`` writes for one simulation: ``(child state,
+    term, node value, legal, prior)`` of the node each game would expand,
+    contiguous.  Plain PyTorch: the rules transition, legality, the
+    network and the terminal value."""
     en = path.exp_n.clamp(min=0).long()
-
-    # ---- expansion ----
     parent = _gather_state(tree.states, en)
     child_state = rules.step_with_outcome(parent, path.exp_a, path.exp_o,
                                           cfg)
@@ -324,32 +442,17 @@ def simulate_once(tree: Tree, gumbel: torch.Tensor, cfg: Config,
     node_value = torch.where(
         term, _terminal_value(status, child_state.cur_player),
         value_c.to(F32))
+    return (tree_map(lambda x: x.contiguous(), child_state),
+            term.contiguous(), node_value.contiguous(), legal_c.contiguous(),
+            probs_c.to(F32).contiguous())
 
-    idx = torch.where(expanding, tree.next_free, 0).clamp(
-        max=cfg.num_nodes - 1).long()
 
-    def write(dst, src):
-        m = expanding.reshape((b,) + (1,) * (src.dim() - 1))
-        dst[rows, idx] = torch.where(m, src, dst[rows, idx])
-
-    tree_map(write, tree.states, child_state)
-    write(tree.expanded, torch.ones_like(expanding))
-    write(tree.terminal, term)
-    write(tree.value, node_value)
-    write(tree.player, child_state.cur_player)
-    write(tree.parent, en.to(I32))
-    write(tree.legal, legal_c)
-    write(tree.prior, probs_c.to(F32))
-    cidx = (rows, en, path.exp_a.long(), path.exp_o.long())
-    tree.children[cidx] = torch.where(expanding, idx.to(I32),
-                                      tree.children[cidx])
-    tree.next_free += expanding.to(I32)
-
-    # ---- leaf value, backup ----
-    leaf_v = torch.where(expanding, node_value,
-                         tree.value[rows, path.cur.long()])
-    leaf_p = torch.where(expanding, child_state.cur_player,
-                         tree.player[rows, path.cur.long()]).to(I32)
+def simulate_once(tree: Tree, gumbel: torch.Tensor, cfg: Config,
+                  eval_fn: EvalFn) -> Tree:
+    """One simulation for every game; ``gumbel`` [max_depth, B, 3]."""
+    path = descend(tree, gumbel, cfg)
+    leaf_v, leaf_p = write_nodes(
+        tree, *expansion_inputs(tree, path, cfg, eval_fn), path)
     backup(tree, path, leaf_v.contiguous(), leaf_p.contiguous())
     return tree
 
@@ -363,14 +466,84 @@ def draw_gumbel(generator: torch.Generator, cfg: Config, batch: int,
     return (-torch.log(-torch.log(u))).to(device)
 
 
+NOISE_U_MIN, NOISE_U_MAX = 1e-7, 1.0 - 1e-4
+
+
+@functools.lru_cache(maxsize=4)
+def _gamma_log_quantiles(alpha: float, n: int = 2048):
+    """Log-quantile table of Gamma(alpha) on a log-uniform grid: root noise
+    needs iid Gamma(0.3) draws, and one interpolation in a 2048-point
+    inverse-CDF table in log-log space gives them from uniforms (the
+    quantile function is nearly linear there for small u, so the low tail
+    that dominates alpha=0.3 stays accurate).  Returns float32 numpy
+    arrays ``(log u grid, log quantile)``."""
+    from scipy.stats import gamma as sp_gamma
+
+    lu = np.linspace(np.log(NOISE_U_MIN), np.log(NOISE_U_MAX), n)
+    q = sp_gamma.ppf(np.exp(lu), a=alpha)
+    return lu.astype(np.float32), np.log(q).astype(np.float32)
+
+
+def _interp(x: torch.Tensor, xp: torch.Tensor,
+            fp: torch.Tensor) -> torch.Tensor:
+    """``jnp.interp``: piecewise linear, constant outside the grid."""
+    i = torch.searchsorted(xp, x.contiguous(), right=True).clamp(
+        1, xp.shape[0] - 1)
+    df = fp[i] - fp[i - 1]
+    dx = xp[i] - xp[i - 1]
+    f = fp[i - 1] + ((x - xp[i - 1]) / dx) * df
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)
+
+
+def sample_dirichlet_noise(u: torch.Tensor, legal: torch.Tensor,
+                           alpha: float = 0.3) -> torch.Tensor:
+    """Dirichlet(alpha) over the legal subset of each row, from uniforms
+    ``u`` [B, 43] in ``[NOISE_U_MIN, NOISE_U_MAX)``: independent
+    Gamma(alpha) draws renormalized over the legal entries."""
+    lu, lq = (torch.from_numpy(a).to(u.device)
+              for a in _gamma_log_quantiles(float(alpha)))
+    g = torch.exp(_interp(torch.log(u), lu, lq))
+    g = torch.where(legal, g, 0.0)
+    return g / g.sum(-1, keepdim=True).clamp(min=1e-30)
+
+
+def _apply_root_noise(tree: Tree, u: torch.Tensor, cfg: Config) -> Tree:
+    """Sampled Dirichlet noise blended into the root prior only (the
+    constant blend of ``_puct_select`` applies at every node besides)."""
+    rows = _rows(tree.root.shape[0], tree.root.device)
+    r = tree.root.long()
+    noise = sample_dirichlet_noise(u, tree.legal[rows, r])
+    tree.prior[rows, r] = ((1.0 - cfg.noise_eps) * tree.prior[rows, r]
+                           + cfg.noise_eps * noise)
+    return tree
+
+
+def draw_noise_uniform(generator: torch.Generator, batch: int,
+                       device) -> torch.Tensor:
+    """[B, 43] uniforms in ``[NOISE_U_MIN, NOISE_U_MAX)`` for the root
+    noise of one ``search``."""
+    u = torch.rand((batch, NUM_ACTIONS), generator=generator,
+                   device=generator.device)
+    return (NOISE_U_MIN + u * (NOISE_U_MAX - NOISE_U_MIN)).to(device)
+
+
 def search(root: GameState, gumbel: torch.Tensor, cfg: Config,
-           eval_fn: EvalFn) -> SearchResult:
+           eval_fn: EvalFn, noise_u: torch.Tensor | None = None
+           ) -> SearchResult:
     """Run ``cfg.mcts_simulations`` sims for every game in the batch;
-    ``gumbel`` [S, max_depth, B, 3] is the chance noise of the search."""
-    if cfg.use_dirichlet_noise or cfg.tree_reuse:
+    ``gumbel`` [S, max_depth, B, 3] is the chance noise of the search and
+    ``noise_u`` [B, 43] the uniforms of the root Dirichlet noise (needed
+    with ``cfg.use_dirichlet_noise``)."""
+    if cfg.tree_reuse:
         raise NotImplementedError(
-            "root Dirichlet noise and tree reuse are not ported yet")
+            "tree reuse is not ported yet: it comes with a later slice of "
+            "the port")
     tree = init_tree(root, cfg, eval_fn)
+    if cfg.use_dirichlet_noise:
+        if noise_u is None:
+            raise ValueError("use_dirichlet_noise needs noise_u [B, 43]")
+        tree = _apply_root_noise(tree, noise_u, cfg)
     for s in range(cfg.mcts_simulations):
         tree = simulate_once(tree, gumbel[s], cfg, eval_fn)
     rows = _rows(root.batch_size, root.device)

@@ -13,10 +13,14 @@ epilogue fused (``conv3x3_i8``).  On CPU tensors ``conv3x3_i8`` computes the
 same function in plain PyTorch: the conv exactly in float64, the epilogue
 in float32 in the JAX order.
 
-The bf16 stem and trunk convs stay ``F.conv2d``: a float32 conv on
-bf16-rounded inputs and weights, which is what JAX computes with
-``preferred_element_type=float32`` (a bf16 cuDNN conv would round its
-output to bf16 instead).  The heads run in float32.
+The bf16 stem and trunk convs run on kernel K4 (``csrc/conv_bf16.cu``,
+``conv3x3_bf16``): bf16-rounded inputs and weights, float32 accumulation
+(what JAX computes with ``preferred_element_type=float32``), with the bias,
+the residual add and the ReLU fused.  The heads and the legal-masked softmax
+run on kernel K5 (``csrc/heads_softmax.cu``, ``heads_eval``), in float32.
+On CPU tensors both wrappers compute the same functions in plain PyTorch
+(``_conv_bf16`` with its elementwise epilogue; ``_heads`` and
+``torch.softmax``).
 """
 
 from __future__ import annotations
@@ -69,9 +73,9 @@ def fold_params(net: AZNet, cfg: Config) -> Dict[str, torch.Tensor]:
     d1_w, d1_b = dense(net.value_dense1)
     d2_w, d2_b = dense(net.value_dense2)
     return {
-        "stem_w": stem_w.to(BF16),
+        "stem_w": stem_w.to(BF16).contiguous(),
         "stem_b": stem_b.to(F32),
-        "trunk_w": torch.stack(trunk_w).to(BF16),
+        "trunk_w": torch.stack(trunk_w).to(BF16).contiguous(),
         "trunk_b": torch.stack(trunk_b).to(F32),
         "pol_w": pol_w[0, 0].contiguous(),     # [C, 2]
         "pol_b": pol_b.to(F32),
@@ -101,9 +105,48 @@ def _conv_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1)
 
 
+def _conv3x3_bf16_plain(x, w, bias, residual=None):
+    v = _conv_bf16(x, w) + bias
+    if residual is not None:
+        v = v + residual
+    return torch.relu(v)
+
+
+def conv3x3_bf16(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                 residual: torch.Tensor | None = None) -> torch.Tensor:
+    """One bf16 conv with its fused epilogue (kernel K4).
+
+    x [B,7,6,Cin] f32 NHWC (rounded to bf16 inside), w [3,3,Cin,Cout] bf16
+    HWIO, bias [Cout] f32, residual [B,7,6,Cout] f32 or None.  Returns
+    ``relu(conv(x, w) + bias [+ residual])`` as f32 NHWC.
+
+    CPU tensors take the plain PyTorch version; CUDA tensors launch the
+    kernel (no fallback).
+    """
+    if x.device.type == "cpu":
+        return _conv3x3_bf16_plain(x, w, bias, residual)
+    extra = [] if residual is None else [residual]
+    kernels.require_cuda(x, w, bias, *extra)
+    b, cin, cout = x.shape[0], x.shape[-1], w.shape[-1]
+    if x.dtype != F32 or w.dtype != BF16 or bias.dtype != F32 or tuple(
+            w.shape) != (3, 3, cin, cout) or tuple(bias.shape) != (cout,):
+        raise ValueError("conv3x3_bf16 takes f32 NHWC x, bf16 HWIO w and "
+                         "f32 bias")
+    if tuple(x.shape[1:3]) != (7, 6) or cout % 64:
+        raise ValueError("conv3x3_bf16 takes a 7x6 board and Cout % 64 == 0")
+    out = torch.empty((b, 7, 6, cout), dtype=F32, device=x.device)
+    if residual is not None and (residual.dtype != F32
+                                 or residual.shape != out.shape):
+        raise ValueError("conv3x3_bf16 residual must be f32 [B,7,6,Cout]")
+    P = kernels.ptr
+    kernels.CONV3X3_BF16.launch(P(x), P(w), P(bias), P(residual), P(out),
+                                b * BOARD, cin, cout)
+    return out
+
+
 def _stem(folded, x):
     """x [B,7,6,F] -> [B,7,6,C] f32 (post-ReLU)."""
-    return torch.relu(_conv_bf16(x, folded["stem_w"]) + folded["stem_b"])
+    return conv3x3_bf16(x.contiguous(), folded["stem_w"], folded["stem_b"])
 
 
 def _conv_i8_plain(q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -180,8 +223,8 @@ def _trunk_xla_bf16(folded, h):
     w, b = folded["trunk_w"], folded["trunk_b"]
     for l in range(w.shape[0]):
         x = h
-        y = torch.relu(_conv_bf16(x, w[l, 0]) + b[l, 0])
-        h = torch.relu(_conv_bf16(y, w[l, 1]) + b[l, 1] + x)
+        y = conv3x3_bf16(x, w[l, 0], b[l, 0])
+        h = conv3x3_bf16(y, w[l, 1], b[l, 1], residual=x)
     return h
 
 
@@ -228,9 +271,9 @@ def calibrate_trunk(folded: Dict[str, Any], feats: torch.Tensor,
     for l in range(w.shape[0]):
         x = h
         scales.append(x.abs().amax())
-        y = torch.relu(_conv_bf16(x, w[l, 0]) + b[l, 0])
+        y = conv3x3_bf16(x, w[l, 0], b[l, 0])
         scales.append(y.abs().amax())
-        h = torch.relu(_conv_bf16(y, w[l, 1]) + b[l, 1] + x)
+        h = conv3x3_bf16(y, w[l, 1], b[l, 1], residual=x)
     act_max = torch.stack(scales).reshape(-1, 2)
     act_s = torch.clamp(act_max * margin, min=1e-6) / 127.0
     return {**folded, "act_s": act_s.to(F32)}
@@ -249,25 +292,98 @@ def _heads(folded, h):
     return logits, torch.tanh(v).squeeze(-1)
 
 
+_HEAD_KEYS = ("pol_w", "pol_b", "pol_dense_w", "pol_dense_b", "val_w",
+              "val_b", "val_d1_w", "val_d1_b", "val_d2_w", "val_d2_b")
+
+
+def _heads_eval_plain(folded, h, legal):
+    logits, value = _heads(folded, h)
+    neg_inf = torch.tensor(float("-inf"), device=logits.device)
+    probs = torch.softmax(torch.where(legal, logits, neg_inf), dim=-1)
+    return probs, value, logits
+
+
+def heads_eval(folded: Dict[str, Any], h: torch.Tensor,
+               legal: torch.Tensor):
+    """The heads and the eval epilogue on the trunk output (kernel K5).
+
+    h [B,42,C] f32, legal [B,43] bool.  Returns ``(probs [B,43], value [B],
+    logits [B,43])``: ``_heads`` and ``softmax(where(legal, logits, -inf))``,
+    all f32.  A row with no legal action gives NaN probabilities.
+
+    CPU tensors take the plain PyTorch version; CUDA tensors launch the
+    kernel (no fallback).
+    """
+    if h.device.type == "cpu":
+        return _heads_eval_plain(folded, h, legal)
+    ws = [folded[k] for k in _HEAD_KEYS]
+    kernels.require_cuda(h, legal, *ws)
+    b, cells, c = h.shape
+    v = folded["val_d1_w"].shape[1]
+    if h.dtype != F32 or cells != BOARD or legal.dtype != torch.bool or tuple(
+            legal.shape) != (b, 43) or any(w.dtype != F32 for w in ws):
+        raise ValueError("heads_eval takes f32 h [B,42,C], bool legal "
+                         "[B,43] and f32 head weights")
+    if (tuple(folded["pol_w"].shape) != (c, 2)
+            or tuple(folded["val_w"].shape) != (c, 1)
+            or tuple(folded["pol_dense_w"].shape) != (2 * BOARD, 43)
+            or tuple(folded["val_d1_w"].shape) != (BOARD, v)):
+        raise ValueError("heads_eval: head weight shapes do not fit h")
+    probs = torch.empty((b, 43), dtype=F32, device=h.device)
+    logits = torch.empty((b, 43), dtype=F32, device=h.device)
+    value = torch.empty((b,), dtype=F32, device=h.device)
+    P = kernels.ptr
+    kernels.HEADS_EVAL.launch(P(h), *(P(w) for w in ws), P(legal), P(probs),
+                              P(value), P(logits), b, c, v)
+    return probs, value, logits
+
+
+def _trunk_out(folded, x, int8):
+    """Stem and trunk: x [B,7,6,F] -> [B,42,C] f32."""
+    h = _stem(folded, x)
+    h = _trunk_xla_int8(folded, h) if int8 else _trunk_xla_bf16(folded, h)
+    return h.reshape(h.shape[0], BOARD, -1)
+
+
 @torch.no_grad()
 def apply_folded(folded: Dict[str, Any], x: torch.Tensor, *,
                  int8: bool = False):
     """Forward pass on folded params.  x [B,7,6,F] -> (logits, value)."""
-    h = _stem(folded, x)
-    h = _trunk_xla_int8(folded, h) if int8 else _trunk_xla_bf16(folded, h)
-    h = h.reshape(h.shape[0], BOARD, -1)
-    return _heads(folded, h)
+    h = _trunk_out(folded, x, int8)
+    legal = torch.ones((h.shape[0], 43), dtype=torch.bool, device=h.device)
+    _, value, logits = heads_eval(folded, h, legal)
+    return logits, value
 
 
 def make_fast_eval_fn(cfg: Config, *, int8: bool = False):
     """MCTS eval_fn over folded params: ``eval_fn(folded, state, legal) ->
     (probs [B,43] legal-masked softmax, value [B])``."""
 
+    @torch.no_grad()
     def eval_fn(folded, state, legal):
-        logits, value = apply_folded(folded, featurize(state, cfg), int8=int8)
-        neg_inf = torch.tensor(float("-inf"), device=logits.device)
-        probs = torch.softmax(torch.where(legal, logits, neg_inf), dim=-1)
+        h = _trunk_out(folded, featurize(state, cfg), int8)
+        probs, value, _ = heads_eval(folded, h, legal)
         return probs, value
+
+    return eval_fn
+
+
+def make_fast_paired_eval_fn(cfg: Config, *, int8: bool = False):
+    """Two-model eval_fn over folded params for gating arenas:
+    ``eval_fn(folded_a, folded_b, use_a, state, legal)`` scores each game's
+    leaf with the root mover's own network.  The heads run once per net and
+    the rows are selected afterwards, which equals selecting the logits
+    first: the softmax is row-wise."""
+
+    @torch.no_grad()
+    def eval_fn(folded_a, folded_b, use_a, state, legal):
+        feats = featurize(state, cfg)
+        pa, va, _ = heads_eval(folded_a, _trunk_out(folded_a, feats, int8),
+                               legal)
+        pb, vb, _ = heads_eval(folded_b, _trunk_out(folded_b, feats, int8),
+                               legal)
+        return (torch.where(use_a[:, None], pa, pb),
+                torch.where(use_a, va, vb))
 
     return eval_fn
 

@@ -1,10 +1,16 @@
-"""AlphaZero residual network for the 7x6 Risk board image (eval mode).
+"""AlphaZero residual network for the 7x6 Risk board image.
 
 Port of ``alphazero_risk_tpu/models/resnet.py``: a 3x3 conv + BN + ReLU
 stem, N residual blocks [conv-BN-ReLU-conv-BN-add-ReLU], a 2-filter policy
 head to 43 logits and a 1-filter value head through a dense hidden layer to
-tanh.  Inference only: BatchNorm always uses its running statistics
-(eps 1e-3, as in the JAX net).
+tanh.  BatchNorm has Flax's semantics, by hand (eps 1e-3, momentum 0.99):
+in ``eval()`` mode it uses its running statistics; in ``train()`` mode it
+normalizes with the batch mean and the biased batch variance, computed in
+float32 as ``E[x^2] - E[x]^2``, and updates the running statistics in place
+as ``0.99 * old + 0.01 * batch`` (Flax keeps the biased variance there too;
+``nn.BatchNorm2d`` would store the unbiased one).  The ``nn.BatchNorm2d``
+modules only hold the parameters and buffers; their own forward is not
+used.  The forward is differentiable in both modes.
 
 Layout at the public boundary is the JAX package's: ``forward`` takes NHWC
 ``[B, 7, 6, F]`` features and the policy and value heads flatten their
@@ -39,13 +45,28 @@ def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     return _bf16(F.conv2d(_bf16(x), w, padding=conv.padding))
 
 
-def _bn(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
-    """Flax BatchNorm at inference: (x - mean) * (rsqrt(var + eps) * scale)
-    + bias, in float32, rounded to bf16."""
+BN_MOMENTUM = 0.99
+
+
+def _bn(bn: nn.BatchNorm2d, x: torch.Tensor,
+        training: bool | None = None) -> torch.Tensor:
+    """Flax BatchNorm: (x - mean) * (rsqrt(var + eps) * scale) + bias, in
+    float32, rounded to bf16.  In training mode (``training``, or the
+    module's own mode when it is None) mean and var are the batch's, and the
+    running statistics are updated in place."""
     shape = (1, -1, 1, 1)
-    mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
-    y = (x - bn.running_mean.view(shape)) * mul.view(shape) + \
-        bn.bias.view(shape)
+    if bn.training if training is None else training:
+        mean = x.mean(dim=(0, 2, 3))
+        var = ((x * x).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
+        with torch.no_grad():
+            bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean
+                                  + (1 - BN_MOMENTUM) * mean)
+            bn.running_var.copy_(BN_MOMENTUM * bn.running_var
+                                 + (1 - BN_MOMENTUM) * var)
+    else:
+        mean, var = bn.running_mean, bn.running_var
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    y = (x - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)
     return _bf16(y)
 
 
@@ -62,9 +83,10 @@ class ResBlock(nn.Module):
         self.conv_b = nn.Conv2d(filters, filters, 3, padding=1, bias=False)
         self.bn_b = nn.BatchNorm2d(filters, eps=1e-3, momentum=0.01)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.relu(_bn(self.bn_a, _conv(self.conv_a, x)))
-        y = _bn(self.bn_b, _conv(self.conv_b, y))
+    def forward(self, x: torch.Tensor,
+                training: bool | None = None) -> torch.Tensor:
+        y = torch.relu(_bn(self.bn_a, _conv(self.conv_a, x), training))
+        y = _bn(self.bn_b, _conv(self.conv_b, y), training)
         return torch.relu(_bf16(y + x))
 
 
@@ -87,15 +109,17 @@ class AZNet(nn.Module):
         self.value_dense2 = nn.Linear(value_hidden, 1)
         self.eval()
 
-    def forward(self, x: torch.Tensor):
-        """x [B, 7, 6, F] NHWC -> (logits [B, 43] f32, value [B] f32)."""
+    def forward(self, x: torch.Tensor, training: bool | None = None):
+        """x [B, 7, 6, F] NHWC -> (logits [B, 43] f32, value [B] f32).
+        ``training`` picks the BatchNorm mode for this call (None: the
+        module's own ``train()``/``eval()`` mode)."""
         x = _bf16(x).permute(0, 3, 1, 2)               # NCHW view of NHWC
-        x = torch.relu(_bn(self.stem_bn, _conv(self.stem_conv, x)))
+        x = torch.relu(_bn(self.stem_bn, _conv(self.stem_conv, x), training))
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, training)
 
         def head(conv, bn):
-            h = torch.relu(_bn(bn, _conv(conv, x)))
+            h = torch.relu(_bn(bn, _conv(conv, x), training))
             return h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)  # (pos, ch)
 
         logits = _dense(self.policy_dense, head(self.policy_conv,

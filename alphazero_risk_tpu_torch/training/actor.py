@@ -1,19 +1,22 @@
-"""Evaluation actor: batched MCTS against the ScriptPlayer.
+"""Self-play / evaluation actors driving MCTS over batched games.
 
-Port of the versus path of ``alphazero_risk_tpu/training/actor.py``
-(``run_episodes`` with ``az_seats=(True, False)``, ``opponent=OPP_SCRIPT``,
-argmax moves, no sample records): every micro-step, opponent movers are
-fast-forwarded to their next AlphaZero turn, then one batched MCTS over
-all B games picks each AlphaZero move.
+Port of ``alphazero_risk_tpu/training/actor.py``: every micro-move, one
+batched MCTS over all B games produces policies; games whose mover is a
+scripted or random opponent step with their own policy instead.  When
+opponent records are not needed, opponent movers are fast-forwarded to
+their next AlphaZero turn before each search.
+
+Sample records are compact state snapshots (not expanded feature images):
+the replay buffer stores what ``NNInputData`` stores in the reference
+(alphazero_nn_data.h:70-96) and features are rebuilt at training time.
 
 Randomness is explicit.  ``run_episodes`` takes a ``draws`` object that
-hands out, per step, the search's Gumbel noise, the dice of the AlphaZero
-move and the opponent's ``u``/dice of each fast-forward iteration.
+hands out, per step, the search's Gumbel noise and root-noise uniforms, the
+Gumbel noise of a sampled move, the dice of the AlphaZero move and the
+opponent's ``u``/dice (of the step, and of each fast-forward iteration).
 ``GeneratorDraws`` draws them from a ``torch.Generator``; a test can hand in
-the numbers another implementation drew.
-
-Self-play, sampled moves, the random opponent and sample records come with
-the training slice.
+the numbers another implementation drew.  Tree reuse across moves is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -21,17 +24,91 @@ from __future__ import annotations
 from typing import NamedTuple, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from ..agents import script_agent
+from ..agents import random_agent, script_agent
 from ..agents.common import draw_step_randoms
-from ..config import Config, STATUS_NOT_ENDED
+from ..config import Config, NUM_ACTIONS, NUM_LANDS, STATUS_NOT_ENDED
 from ..env import rules
 from ..env.featurize import featurize
 from ..env.state import GameState, tree_select
 from ..mcts import search as mcts
 from ..models.resnet import AZNet
 
-OPP_SCRIPT = 1          # the JAX package's opponent code
+OPP_AZ = 0              # the JAX package's opponent codes
+OPP_SCRIPT = 1
+OPP_RANDOM = 2
+
+I8, I16, I32 = torch.int8, torch.int16, torch.int32
+F16, F32 = torch.float16, torch.float32
+
+
+class SampleBatch(NamedTuple):
+    """Compact per-micro-decision training record ([T, B, ...] stacked)."""
+
+    owner: torch.Tensor            # int8 [.., 42]
+    army: torch.Tensor             # int8 [.., 42]
+    cur_player: torch.Tensor       # int8
+    phase: torch.Tensor            # int8
+    round: torch.Tensor            # int16
+    reinforcements: torch.Tensor   # int16
+    attacks_during_turn: torch.Tensor  # int16
+    can_draw_card: torch.Tensor    # bool
+    policy: torch.Tensor           # float16 [.., 43] (MCTS visit shares
+    #                                need ~10 bits)
+    value: torch.Tensor            # float32 (z, filled after game end)
+    valid: torch.Tensor            # bool: mover was recording and game live
+
+
+def state_of_samples(s: SampleBatch, cfg: Config) -> GameState:
+    """Rebuild a GameState (for featurize) from flat sample records."""
+    n, dev = s.owner.shape[0], s.owner.device
+    z = torch.zeros((n,), dtype=I32, device=dev)
+    return GameState(
+        owner=s.owner.to(I32),
+        army=s.army.to(I32),
+        phase=s.phase.to(I32),
+        round=s.round.to(I32),
+        cur_player=s.cur_player.to(I32),
+        reinforcements=s.reinforcements.to(I32),
+        cards=torch.zeros((n, 2), dtype=I32, device=dev),
+        card_sets_played=z,
+        mob_from=z - 1,
+        mob_to=z - 1,
+        can_draw_card=s.can_draw_card,
+        attacks_during_turn=s.attacks_during_turn.to(I32),
+        player_cards=torch.zeros((n, 2, NUM_LANDS), dtype=torch.bool,
+                                 device=dev),
+        drawn_cards=torch.zeros((n, NUM_LANDS), dtype=torch.bool,
+                                device=dev),
+    )
+
+
+def features_of_samples(s: SampleBatch, cfg: Config) -> torch.Tensor:
+    return featurize(state_of_samples(s, cfg), cfg)
+
+
+def _record(state: GameState, pi: torch.Tensor,
+            valid: torch.Tensor) -> SampleBatch:
+    return SampleBatch(
+        owner=state.owner.to(I8),
+        army=state.army.to(I8),
+        cur_player=state.cur_player.to(I8),
+        phase=state.phase.to(I8),
+        round=state.round.to(I16),
+        reinforcements=state.reinforcements.to(I16),
+        attacks_during_turn=state.attacks_during_turn.to(I16),
+        can_draw_card=state.can_draw_card,
+        policy=pi.to(F16),
+        value=torch.zeros((state.batch_size,), dtype=F32,
+                          device=state.device),
+        valid=valid,
+    )
+
+
+def _masked_softmax(logits: torch.Tensor, legal: torch.Tensor):
+    neg_inf = torch.tensor(float("-inf"), device=logits.device)
+    return torch.softmax(torch.where(legal, logits, neg_inf), dim=-1)
 
 
 def make_eval_fn(net: AZNet, cfg: Config):
@@ -40,9 +117,24 @@ def make_eval_fn(net: AZNet, cfg: Config):
     @torch.no_grad()
     def eval_fn(state: GameState, legal: torch.Tensor):
         logits, value = net(featurize(state, cfg))
-        neg_inf = torch.tensor(float("-inf"), device=logits.device)
-        probs = torch.softmax(torch.where(legal, logits, neg_inf), dim=-1)
-        return probs, value
+        return _masked_softmax(logits, legal), value
+
+    return eval_fn
+
+
+def make_paired_eval_fn(net_a: AZNet, net_b: AZNet, cfg: Config):
+    """eval_fn(state, legal, use_a) evaluating two plain networks, selected
+    per game: one shared tree search serves an arena of model A vs model B
+    (the reference runs one network per player group instead,
+    alphazero_gpu_cluster.cpp:105-160)."""
+
+    @torch.no_grad()
+    def eval_fn(state: GameState, legal: torch.Tensor, use_a: torch.Tensor):
+        feats = featurize(state, cfg)
+        la, va = net_a(feats)
+        lb, vb = net_b(feats)
+        logits = torch.where(use_a[:, None], la, lb)
+        return _masked_softmax(logits, legal), torch.where(use_a, va, vb)
 
     return eval_fn
 
@@ -66,71 +158,168 @@ class GeneratorDraws:
         """[S, max_depth, B, 3] chance noise of the step's search."""
         return mcts.draw_gumbel(self.gen, self.cfg, self.batch, self.device)
 
+    def root_noise(self) -> torch.Tensor:
+        """[B, 43] uniforms of the search's root Dirichlet noise."""
+        return mcts.draw_noise_uniform(self.gen, self.batch, self.device)
+
+    def pick(self) -> torch.Tensor:
+        """[B, 43] Gumbel noise of the sampled move choice."""
+        u = torch.rand((self.batch, NUM_ACTIONS), generator=self.gen,
+                       device=self.gen.device)
+        u = u.clamp(min=torch.finfo(F32).tiny)
+        return (-torch.log(-torch.log(u))).to(self.device)
+
     def az_dice(self) -> torch.Tensor:
         """[B, 5] dice of the AlphaZero move."""
         return rules.roll_dice(self.gen, self.batch).to(self.device)
 
+    def opp(self):
+        """(u [B,4], dice [B,5]) of the step's opponent move."""
+        return draw_step_randoms(self.gen, self.batch, self.device)
+
 
 class ActorOutput(NamedTuple):
     state: GameState
+    samples: SampleBatch            # [T, B, ...]
     status: torch.Tensor            # [B]
     carry: script_agent.ScriptCarry  # opponent carry (chunking)
     prev_player: torch.Tensor       # mover of last step
-    az_decisions: torch.Tensor      # 0-d: searches made for live games
+    az_decisions: torch.Tensor      # 0-d: searches made for live AZ movers
+
+
+def _opponent_step(kind: int, state, carry, reset, u, dice, cfg):
+    """Returns (state, carry, (action43, record_mask))."""
+    if kind == OPP_SCRIPT:
+        return script_agent.script_step_recorded(state, carry, reset, u,
+                                                 dice, cfg)
+    if kind == OPP_RANDOM:
+        s, info = random_agent.random_step_recorded(state, u, dice, cfg)
+        return s, carry, info
+    raise ValueError(kind)
 
 
 def run_episodes(eval_fn, state0: GameState, draws, cfg: Config,
-                 num_steps: int, opponent: int = OPP_SCRIPT,
-                 az_seats: Tuple[bool, bool] = (True, False),
-                 sample_moves: bool = False, record_all: bool = False,
+                 num_steps: int, opponent: int = OPP_AZ,
+                 az_seats: Tuple[bool, bool] = (True, True),
+                 sample_moves: bool = True, record_all: bool = True,
+                 paired_eval: bool = False,
                  carry_in=None, prev_in=None) -> ActorOutput:
-    """Advance B games ``num_steps`` AlphaZero micro-decisions.
+    """Advance B games ``num_steps`` micro-decisions.
 
-    ``eval_fn(state, legal) -> (probs, value)`` is closed over the weights;
-    ``carry_in``/``prev_in`` resume a chunked run.  Only the evaluation
-    path is ported: AlphaZero in seat 0 against the ScriptPlayer, argmax
-    moves, no records, so opponent movers are always fast-forwarded.
+    ``carry_in``/``prev_in`` resume a chunked run (the trainer drives
+    episodes in bounded chunks and stops when every game has ended).
+
+    ``eval_fn(state, legal) -> (probs, value)`` is closed over the weights.
+    ``az_seats[p]``: seat p is MCTS-driven; other seats use ``opponent``.
+    ``sample_moves``: temperature-threshold sampling (training) vs argmax
+    (evaluation), reference alphazero_trainer.cpp:99-106.
+    ``record_all``: record opponent micro-decisions too (one-hot policy),
+    like reference ``Player::addTrainingSample`` (player.cpp:9-17).
+    ``paired_eval``: ``eval_fn(state, legal, use_a)`` with use_a = the
+    *root* mover is seat 0; each seat's MCTS evaluates every leaf with its
+    own network, as in the reference arena.
+
+    When opponent records are not needed (``record_all=False``), opponent
+    movers are fast-forwarded to their next AZ turn before each search, so
+    no MCTS compute is spent on games an opponent is moving in.
     """
-    if (opponent != OPP_SCRIPT or tuple(az_seats) != (True, False)
-            or sample_moves or record_all):
+    if cfg.tree_reuse:
         raise NotImplementedError(
-            "only the AlphaZero-vs-ScriptPlayer evaluation path is ported")
+            "tree reuse is not ported yet: it comes with a later slice of "
+            "the port")
     b, dev = state0.batch_size, state0.device
+    both_az = az_seats[0] and az_seats[1]
+    fast_forward = not both_az and not record_all
     state = state0
     carry = script_agent.init_carry(b, dev) if carry_in is None else carry_in
-    prev = (torch.full((b,), -1, dtype=torch.int32, device=dev)
+    prev = (torch.full((b,), -1, dtype=I32, device=dev)
             if prev_in is None else prev_in)
     decisions = torch.zeros((), dtype=torch.int64, device=dev)
+    records = []
+
+    def az_mask_of(st):
+        return torch.where(st.cur_player == 0, az_seats[0], az_seats[1])
 
     def az_turn_or_done(st):
-        az = torch.where(st.cur_player == 0, az_seats[0], az_seats[1])
-        return az | (rules.game_status(st, cfg) != STATUS_NOT_ENDED)
+        return az_mask_of(st) | (rules.game_status(st, cfg)
+                                 != STATUS_NOT_ENDED)
 
     for _ in range(num_steps):
         draws.begin_step()
-        # fast-forward opponent movers to their next AlphaZero turn
-        while True:
-            waiting = az_turn_or_done(state)
-            if bool(waiting.all()):
-                break
-            u, dice = draws.ff()
-            reset = state.cur_player != prev
-            s2, c2, _ = script_agent.script_step_recorded(
-                state, carry, reset, u, dice, cfg)
-            moving = ~waiting
-            prev = torch.where(moving, state.cur_player, prev)
-            state = tree_select(moving, s2, state)
-            carry = tree_select(moving, c2, carry)
+        if fast_forward:
+            while True:
+                waiting = az_turn_or_done(state)
+                if bool(waiting.all()):
+                    break
+                u, dice = draws.ff()
+                reset = state.cur_player != prev
+                s2, c2, _ = _opponent_step(opponent, state, carry, reset, u,
+                                           dice, cfg)
+                moving = ~waiting
+                prev = torch.where(moving, state.cur_player, prev)
+                state = tree_select(moving, s2, state)
+                carry = tree_select(moving, c2, carry)
 
         live = rules.game_status(state, cfg) == STATUS_NOT_ENDED
         mover = state.cur_player
-        res = mcts.search(state, draws.gumbel(), cfg, eval_fn)
-        action = mcts.pick_move(res, state, cfg, sample=False)
+        az_mask = az_mask_of(state)
+
+        # --- AZ path: batched MCTS + visit-count policy ---
+        if paired_eval:
+            use_a = mover == 0
+            efn = lambda s, m: eval_fn(s, m, use_a)  # noqa: E731
+        else:
+            efn = eval_fn
+        noise_u = draws.root_noise() if cfg.use_dirichlet_noise else None
+        res = mcts.search(state, draws.gumbel(), cfg, efn, noise_u=noise_u)
+        action = mcts.pick_move(res, state, cfg, sample_moves,
+                                draws.pick() if sample_moves else None)
         s_az = rules.step(state, action, draws.az_dice(), cfg)
-        # After the fast-forward every live game is at an AlphaZero turn,
-        # so the opponent branch of the JAX step body is never selected.
-        state = tree_select(live, s_az, state)
+
+        # --- opponent path ---
+        if both_az or fast_forward:
+            # after the fast-forward every live game is at an AZ turn, so
+            # the opponent's step would never be selected
+            nstate, n_carry = s_az, carry
+            pi = res.pi
+            rec_valid = live & az_mask
+        else:
+            reset = state.cur_player != prev
+            u, dice = draws.opp()
+            s_opp, n_carry, (opp_action, opp_rec) = _opponent_step(
+                opponent, state, carry, reset, u, dice, cfg)
+            nstate = tree_select(az_mask, s_az, s_opp)
+            n_carry = tree_select(az_mask | ~live, carry, n_carry)
+            # AZ movers contribute the MCTS pi; opponents one-hot actions
+            opp_pi = F.one_hot(opp_action.long(), NUM_ACTIONS).to(F32)
+            pi = torch.where(az_mask[:, None], res.pi, opp_pi)
+            rec_valid = live & (az_mask | opp_rec)
+        records.append(_record(state, pi, rec_valid))
+
+        state = tree_select(live, nstate, state)
+        carry = n_carry
         prev = mover
-        decisions += live.sum()
-    return ActorOutput(state=state, status=rules.game_status(state, cfg),
-                       carry=carry, prev_player=prev, az_decisions=decisions)
+        decisions += (live & az_mask).sum()
+
+    samples = SampleBatch(*(torch.stack(x) for x in zip(*records)))
+    return ActorOutput(state=state, samples=samples,
+                       status=rules.game_status(state, cfg), carry=carry,
+                       prev_player=prev, az_decisions=decisions)
+
+
+def backfill_values(samples: SampleBatch, status: torch.Tensor,
+                    final_round: torch.Tensor | None = None,
+                    round_weighted: bool = False) -> SampleBatch:
+    """Game-outcome value targets: z = +-1 from each sample's player
+    perspective, 0 on draw/unfinished (reference
+    ``NNTrainDataStorage::updateValues``, alphazero_nn_data.cpp:51-65).
+    With ``round_weighted`` (reference ROUND_WEIGHTED_VALUE), early-game
+    samples are discounted by round/final_round."""
+    won = status[None, :] == samples.cur_player.to(I32)
+    decided = (status[None, :] == 0) | (status[None, :] == 1)
+    z = torch.where(decided, torch.where(won, 1.0, -1.0), 0.0)
+    if round_weighted and final_round is not None:
+        w = (samples.round.to(F32)
+             / final_round.clamp(min=1)[None, :]).clamp(max=1.0)
+        z = z * w
+    return samples._replace(value=z.to(F32))

@@ -1,0 +1,147 @@
+"""Learner: loss, optimizer, and epoch training.
+
+Port of ``alphazero_risk_tpu/training/learner.py`` (reference
+``alphazero_nn.cpp:351-410``): shuffled minibatch Adam epochs over the
+replay buffer, loss = softmax-CE(policy) + MSE(value) + 1e-3 L2
+(``build_graph.py:92-103``).
+
+The train state is an ``AZNet`` (parameters and BatchNorm running
+statistics, updated in place by a training-mode forward) with its Adam
+optimizer.  ``torch.optim.Adam`` at its defaults is optax's ``adam``: b1
+0.9, b2 0.999, eps 1e-8 outside the root, bias-corrected.  The L2 term is
+part of the loss (``l2_coeff * sum(w**2)``), not weight decay.  The
+network's convolutions and products go to PyTorch's own, as the JAX learner
+leaves them to XLA.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional
+
+import torch
+from torch import nn
+
+from ..config import Config
+from ..device import resolve_device
+from ..models.resnet import AZNet, build_network
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int
+    net: AZNet
+    opt: torch.optim.Adam
+
+
+def create_train_state(cfg: Config, seed: int = 0,
+                       device="cuda") -> TrainState:
+    net = build_network(cfg, resolve_device(device), seed=seed)
+    return train_state_of(net, cfg)
+
+
+def train_state_of(net: AZNet, cfg: Config, step: int = 0) -> TrainState:
+    """A fresh train state (zero Adam moments) around ``net``."""
+    opt = torch.optim.Adam(net.parameters(), lr=cfg.learning_rate,
+                           betas=(0.9, 0.999), eps=1e-8)
+    return TrainState(step=step, net=net, opt=opt)
+
+
+def kernel_parameters(net: AZNet):
+    """The conv and dense kernels: what the L2 term regularizes (BatchNorm
+    scales and all biases are not, as in the reference)."""
+    return [m.weight for m in net.modules()
+            if isinstance(m, (nn.Conv2d, nn.Linear))]
+
+
+def l2_penalty(net: AZNet) -> torch.Tensor:
+    """tf.keras.regularizers.l2 semantics: sum(w**2) over conv/dense
+    kernels."""
+    return sum(torch.sum(torch.square(w.to(torch.float32)))
+               for w in kernel_parameters(net))
+
+
+def loss_fn(net: AZNet, cfg: Config, batch: Dict[str, torch.Tensor]):
+    """Training-mode forward and the three loss terms.  Returns
+    ``(total, aux)``; the BatchNorm running statistics of ``net`` move as a
+    side effect."""
+    logits, value = net(batch["features"], training=True)
+    logp = torch.log_softmax(logits, dim=-1)
+    pi_loss = -(batch["policy"] * logp).sum(-1).mean()
+    v_loss = torch.mean(torch.square(value - batch["value"]))
+    l2 = cfg.l2_coeff * l2_penalty(net)
+    total = pi_loss + v_loss + l2
+    return total, {"pi_loss": pi_loss, "v_loss": v_loss, "l2": l2}
+
+
+def update(state: TrainState, cfg: Config, batch: Dict[str, torch.Tensor]):
+    """One Adam step on one minibatch, in place on ``state``."""
+    state.opt.zero_grad(set_to_none=True)
+    total, aux = loss_fn(state.net, cfg, batch)
+    total.backward()
+    state.opt.step()
+    state.step += 1
+    return state, {"loss": total.detach(), "pi_loss": aux["pi_loss"].detach(),
+                   "v_loss": aux["v_loss"].detach()}
+
+
+def make_epoch_fn(cfg: Config, prepare_batch: Optional[Callable] = None):
+    """One epoch = shuffle + one update per minibatch.
+
+    Mirrors reference ``AlphaZeroNN::train`` (alphazero_nn.cpp:351-410):
+    per-epoch reshuffle, ``N // batch_size`` batches (remainder dropped),
+    returns the epoch's mean losses as 0-d tensors, and under
+    ``first_pi_loss`` the policy loss of its first minibatch (taken before
+    that minibatch's update).
+
+    ``epoch(state, data, generator=None, perm=None)``: ``data`` is a dict of
+    ``[N, ...]`` tensors; ``perm`` ([N] int64) gives the shuffle explicitly,
+    otherwise it is drawn from ``generator``.  ``prepare_batch(data, idx)
+    -> {features, policy, value}`` lets callers keep the replay compact and
+    expand feature planes per minibatch.
+    """
+    if prepare_batch is None:
+        def prepare_batch(data, idx):
+            return {k: v[idx] for k, v in data.items()}
+
+    def epoch(state: TrainState, data: Dict[str, Any],
+              generator: torch.Generator | None = None,
+              perm: torch.Tensor | None = None):
+        first = next(iter(data.values()))
+        n, dev = first.shape[0], first.device
+        nb = n // cfg.batch_size
+        if perm is None:
+            perm = torch.randperm(n, generator=generator,
+                                  device=generator.device)
+        perm = perm[: nb * cfg.batch_size].to(dev).reshape(
+            nb, cfg.batch_size)
+        nan = torch.tensor(float("nan"), device=dev)
+        sums: Dict[str, torch.Tensor] = {}
+        first = nan
+        for i, idx in enumerate(perm):
+            state, m = update(state, cfg, prepare_batch(data, idx))
+            if i == 0:
+                first = m["pi_loss"]
+            for k, v in m.items():
+                sums[k] = sums[k] + v if k in sums else v
+        keys = ("loss", "pi_loss", "v_loss")
+        return state, {**{k: sums[k] / nb if nb else nan for k in keys},
+                       "first_pi_loss": first}
+
+    return epoch
+
+
+def make_predict_fn(cfg: Config):
+    """Batched inference with invalid-move masking + renormalization
+    (reference ``NNOutputData::normalize``, alphazero_nn_data.cpp:3-27)."""
+
+    @torch.no_grad()
+    def predict(net: AZNet, features: torch.Tensor,
+                legal_mask: torch.Tensor):
+        logits, value = net(features)
+        neg_inf = torch.tensor(float("-inf"), device=logits.device)
+        probs = torch.softmax(torch.where(legal_mask, logits, neg_inf),
+                              dim=-1)
+        return probs, value
+
+    return predict

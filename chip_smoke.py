@@ -9,23 +9,43 @@ when all of them pass):
 2. build: compiles the port's kernels (one nvcc per source, in parallel);
 3. kernels: each kernel against its plain PyTorch version on the card,
    with times, bounds and the library yardstick.  First at the shapes of
-   the main path: one search as ``Trainer.play`` runs it (64 games, 32
-   sims, the flagship's int8 eval) grows a tree; K1 runs on the flagship's
+   the main paths: one search as ``run_episodes`` runs it (64 games in
+   lockstep, the batch of the training phase's self-play; 32 sims, the
+   flagship's int8 eval) grows a tree; K1 runs on the flagship's
    quantized block-0 weights at B=64 on that search's last leaf batch, and
-   K2/K3 on the tree it leaves.  Then at larger shapes: K1 at B=1024, and
-   K2/K3 on trees over 256 games grown by plain-version simulations;
+   K2/K3 on the tree it leaves.  K4 runs on the same leaf batch as the
+   stem (Cin=13) and as the two convs of block 0 (C=256, the second with
+   the residual); K5 on that batch's trunk output with its legal mask; K6
+   writes the node of one more simulation into that tree, and the roots of
+   a fresh one.  Every kernel is then held again (comparison only) at the
+   other batches the two paths launch (the play slice's 32 games, the
+   arena's 16, the benchmark's 4 and 2: ``PATH_BATCHES``), on the first
+   games of the same leaf batch, tree and roots; at 16, 4 and 2 games the
+   conv kernels' last row tile is partial.  Then at larger shapes: K1 at
+   B=1024, and K2/K3 on trees over 256 games grown by plain-version
+   simulations;
 4. slice: the flagship 20x256 net, int8 fast path, 32 simulations, plays
-   64 mirrored games against the ScriptPlayer to the end through
-   ``Trainer.play`` (the main path, launch counts read around it), checks
-   the int8 and bf16 forwards against the plain network on a small input,
-   then runs a short bf16 pass.
+   32 mirrored games against the ScriptPlayer to the end through
+   ``Trainer.play`` (the first main path, launch counts read around it),
+   checks the int8 and bf16 forwards against the plain network on a small
+   input, then runs a short bf16 pass;
+5. train: one iteration of ``Trainer.train`` from the flagship weights at
+   full width (the second main path, launch counts read around it):
+   self-play of 64 mirrored games with sampled moves, root noise and
+   records on the int8 fast path, replay trim, learner epochs at batch
+   size 512 on the 20x256 net, the gate arena with the paired eval, accept
+   or revert, the benchmark matches, checkpoint and meta.  Simulations,
+   game counts and the micro-step cap are cut (``TRAIN``), the width is
+   not.  Then ``latest`` is reloaded and its folded evaluation compared
+   with the in-memory one, and the replay npz is read back.
 
-The line before the last is a JSON object with one entry per kernel; the
+The line before the card's is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -34,10 +54,28 @@ from pathlib import Path
 
 FLAGSHIP = Path(__file__).resolve().parent / "artifacts" / \
     "params-20block-r4-best.npz"
-GAMES = 64
+ROOT = Path(__file__).resolve().parent
+WORK = ROOT / "build" / "chip_smoke"      # checkpoints, replay, logs
+GAMES = 64          # lockstep games of the kernel checks and of self-play
+PLAY_GAMES = 32     # games of the play slice
 SIMS = 32
+# the training phase: depth cut, width kept
+TRAIN = dict(mcts_simulations=8, train_iteration_games=GAMES, epochs=2,
+             batch_size=512, compare_games=16, arena_early_stop_min_games=8,
+             benchmark_games_random=2, benchmark_games_script=4,
+             max_game_steps=640, actor_chunk_steps=64,
+             use_dirichlet_noise=True)
+# every lockstep batch the two main paths launch the kernels at: self-play,
+# the play slice, the arena and the two benchmark matches.  Timed at GAMES;
+# the others are held against the plain versions only.
+PATH_BATCHES = sorted({PLAY_GAMES, TRAIN["compare_games"],
+                       TRAIN["benchmark_games_script"],
+                       TRAIN["benchmark_games_random"]} - {GAMES},
+                      reverse=True)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, data sheet
 INT8_OPS_PER_S = 1979e12      # dense int8 tensor-core peak, data sheet
+BF16_OPS_PER_S = 989e12       # dense bf16 tensor-core peak, data sheet
+F32_OPS_PER_S = 67e12         # float32 outside the tensor cores, data sheet
 
 
 def log(*a):
@@ -62,6 +100,47 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def device_ms(fn, kernel: str, reps: int = 20):
+    """Mean device time in ms of the CUDA kernel whose name contains
+    ``kernel`` over ``reps`` calls of ``fn``, read from a torch.profiler
+    trace.  ``time_ms`` times the wrapper's call back to back, so for a
+    kernel of a few microseconds it reads the host's call cost; this reads
+    the kernel alone.  None when the trace holds no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if kernel in e.key and e.self_device_time_total > 0]
+    if not rows:
+        return None
+    return (sum(e.self_device_time_total for e in rows)
+            / sum(e.count for e in rows) / 1e3)
+
+
+@contextlib.contextmanager
+def full_float32():
+    """cuDNN's float32 convolutions without TF32 inside the block; the
+    process-wide flag is put back on leaving it, so every later phase runs
+    in the mode PyTorch gives the port's users."""
+    import torch
+    was = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = was
+
+
+def fmt_ms(t):
+    return "not measured" if t is None else f"{t:.4f} ms"
 
 
 def bound_ms(nbytes: float, ops: float, ops_rate: float):
@@ -135,9 +214,22 @@ def tree_to(tree, dev):
     return type(tree)(**out)
 
 
-def check_k1(folded, feats):
+def slice_tree(tree, n):
+    """The first ``n`` games of ``tree`` (every array leads with the game
+    axis), as contiguous copies."""
+    import dataclasses
+    from alphazero_risk_tpu_torch.env.state import GameState, tree_map
+    return type(tree)(**{
+        f.name: (tree_map(lambda x: x[:n].contiguous(), getattr(tree, f.name))
+                 if isinstance(getattr(tree, f.name), GameState)
+                 else getattr(tree, f.name)[:n].contiguous())
+        for f in dataclasses.fields(tree)})
+
+
+def check_k1(folded, feats, timed=True):
     """K1 against its plain version on the leaf features ``feats``: the
-    first block's conv_a and conv_b.  Returns the timed entry fields."""
+    first block's conv_a and conv_b.  Returns the timed entry fields, or
+    None (the comparison alone) when ``timed`` is false."""
     import torch
     import torch.nn.functional as F
     from alphazero_risk_tpu_torch.models import fast_infer as FI
@@ -178,6 +270,8 @@ def check_k1(folded, feats):
         fail(f"K1 requantized output differs by {dq} at B={B}")
     log(f"K1 conv3x3_i8 B={B} C={C}: acc exact, h max abs err {err:.3g}, "
         f"q max diff {dq}, |acc| max {int(acc_b.abs().max())}")
+    if not timed:
+        return None
 
     def run_a():
         FI.conv3x3_i8(*a_args, inv_s_next=inv[0, 1], want_h=False)
@@ -197,6 +291,7 @@ def check_k1(folded, feats):
 
     ms_a = time_ms(run_a, 50)
     ms_b = time_ms(run_b, 50)
+    dev_b = device_ms(run_b, "conv3x3_i8_kernel")
     plain = time_ms(plain_b, 3, warmup=1)
     lib = time_ms(library, 50)
     ops = 2.0 * M * 9 * C * C
@@ -206,18 +301,21 @@ def check_k1(folded, feats):
     bms_a, _ = bound_ms(nbytes_a, ops, INT8_OPS_PER_S)
     log(f"K1 B={B} conv_a variant: {ms_a:.4f} ms (bound {bms_a:.5f} ms); "
         f"conv_b variant: {ms_b:.4f} ms (bound {bms:.5f} ms, {by}, "
-        f"{ms_b / bms:.1f}x); plain {plain:.3f} ms; bf16 F.conv2d "
-        f"{lib:.4f} ms; {ops / ms_b / 1e9:.1f} TOP/s")
-    return {"max_abs_err": err, "ms": ms_b, "plain_ms": plain,
+        f"{ms_b / bms:.1f}x; kernel alone {fmt_ms(dev_b)}); plain "
+        f"{plain:.3f} ms; bf16 F.conv2d {lib:.4f} ms; "
+        f"{ops / ms_b / 1e9:.1f} TOP/s")
+    return {"max_abs_err": err, "ms": ms_b, "device_ms": dev_b,
+            "plain_ms": plain,
             "bound_ms": bms, "bound_by": by, "library_ms": lib,
             "ms_conv_a": ms_a, "bound_ms_conv_a": bms_a,
             "shape": f"B={B} C={C}"}
 
 
-def check_k2_k3(tree, gum, cfg, dev):
+def check_k2_k3(tree, gum, cfg, dev, timed=True):
     """K2 and K3 against their plain versions on ``tree`` with one
     simulation's noise ``gum`` [max_depth, B, 3].  Returns the timed entry
-    fields of each."""
+    fields of each, or None (the comparison alone) when ``timed`` is
+    false."""
     import torch
     from alphazero_risk_tpu_torch.config import PH_ATTACK, SKIP_ACTION
     from alphazero_risk_tpu_torch.mcts import search as S
@@ -258,6 +356,8 @@ def check_k2_k3(tree, gum, cfg, dev):
     flips = int(((path.pp[:, 1:] != path.pp[:, :-1]) & on_path[:, 1:]).sum())
     log(f"K3 mcts_backup {shape}: visit equal, wsum max abs err {err3:.3g}; "
         f"{flips} player changes along the paths")
+    if not timed:
+        return None
 
     # data-dependent bytes: what this descent and backup actually touch
     rows = torch.arange(B, device=dev)[:, None]
@@ -273,17 +373,227 @@ def check_k2_k3(tree, gum, cfg, dev):
 
     ms2 = time_ms(lambda: S.descend(tree, gum, cfg), 50)
     ms3 = time_ms(lambda: S.backup(tree, path, leaf_v, leaf_p), 50)
+    dev2 = device_ms(lambda: S.descend(tree, gum, cfg),
+                     "mcts_descend_kernel")
+    dev3 = device_ms(lambda: S.backup(tree, path, leaf_v, leaf_p),
+                     "mcts_backup_kernel")
     plain2 = time_ms(lambda: S._descend_plain(tree, gum, cfg), 5)
     plain3 = time_ms(lambda: S._backup_plain(tree, path, leaf_v, leaf_p), 20)
-    log(f"K2 {shape}: {ms2:.4f} ms (bound {k2_bound:.5f} ms) plain "
-        f"{plain2:.3f} ms; K3: {ms3:.4f} ms (bound {k3_bound:.5f} ms) "
-        f"plain {plain3:.3f} ms")
-    return ({"max_abs_err": err2, "ms": ms2, "plain_ms": plain2,
+    log(f"K2 {shape}: {ms2:.4f} ms (kernel alone {fmt_ms(dev2)}; bound "
+        f"{k2_bound:.5f} ms) plain {plain2:.3f} ms; K3: {ms3:.4f} ms "
+        f"(kernel alone {fmt_ms(dev3)}; bound {k3_bound:.6f} ms) plain "
+        f"{plain3:.3f} ms")
+    return ({"max_abs_err": err2, "ms": ms2, "device_ms": dev2,
+             "plain_ms": plain2,
              "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
              "shape": shape},
-            {"max_abs_err": err3, "ms": ms3, "plain_ms": plain3,
+            {"max_abs_err": err3, "ms": ms3, "device_ms": dev3,
+             "plain_ms": plain3,
              "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None,
              "shape": shape})
+
+
+def check_k4(folded, feats, timed=True):
+    """K4 against its plain version at the main path's B on the leaf
+    features ``feats``: as the stem (Cin=13), as block 0's first conv
+    (C=256) and as its second conv with the residual.  Returns the timed
+    entry fields: the stem's at the top (the shape the int8 main paths
+    launch), the trunk variants under ``conv_a`` and ``conv_b``; or None
+    (the comparison alone) when ``timed`` is false."""
+    import torch
+    import torch.nn.functional as F
+    from alphazero_risk_tpu_torch.models import fast_infer as FI
+
+    # the plain version is a float32 cuDNN conv on bf16-valued inputs;
+    # it is held and timed in full float32 (bf16 values are exact in TF32
+    # too, so the flag moves its time, not its result)
+    w, b = folded["trunk_w"], folded["trunk_b"]
+    feats = feats.contiguous()
+    with full_float32():
+        h = FI._conv3x3_bf16_plain(feats, folded["stem_w"], folded["stem_b"])
+        y = FI._conv3x3_bf16_plain(h, w[0, 0], b[0, 0])
+    variants = {
+        "stem": (feats, folded["stem_w"], folded["stem_b"], None),
+        "conv_a": (h, w[0, 0], b[0, 0], None),
+        "conv_b": (y, w[0, 1], b[0, 1], h),
+    }
+    out = {}
+    for name, args in variants.items():
+        x, wt, bias, res = args
+        got = FI.conv3x3_bf16(*args)
+        with full_float32():
+            ref = FI._conv3x3_bf16_plain(*args)
+        torch.cuda.synchronize()
+        # Tolerance: bf16 x bf16 products are exact in float32, so kernel
+        # and plain differ by the order of the float32 sums only: 1e-5 of
+        # the largest output.
+        err, top = float((got - ref).abs().max()), float(ref.abs().max())
+        if not err <= 1e-5 * top:
+            fail(f"K4 {name} differs from the plain conv: max abs err "
+                 f"{err} against max |out| {top}")
+        m, cin, cout = x.shape[0] * 42, x.shape[-1], wt.shape[-1]
+        if not timed:
+            log(f"K4 conv3x3_bf16 {name} B={x.shape[0]} Cin={cin} "
+                f"Cout={cout}: max abs err {err:.3g} (max |out| {top:.3g})")
+            continue
+        xb = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+        wb = wt.permute(3, 2, 0, 1).contiguous()
+        ms = time_ms(lambda: FI.conv3x3_bf16(*args), 50)
+        dev = device_ms(lambda: FI.conv3x3_bf16(*args),
+                        "conv3x3_bf16_kernel")
+        with full_float32():
+            plain = time_ms(lambda: FI._conv3x3_bf16_plain(*args), 20)
+        lib = time_ms(lambda: F.conv2d(xb, wb, padding=1), 50)
+        nbytes = (m * cin * 4 + 9 * cin * cout * 2 + cout * 4
+                  + m * cout * 4 * (2 if res is not None else 1))
+        ops = 2.0 * m * 9 * cin * cout
+        bms, by = bound_ms(nbytes, ops, BF16_OPS_PER_S)
+        log(f"K4 conv3x3_bf16 {name} B={x.shape[0]} Cin={cin} Cout={cout}: "
+            f"max abs err {err:.3g} (max |out| {top:.3g}); {ms:.4f} ms "
+            f"(bound {bms:.5f} ms, {by}, {ms / bms:.1f}x; kernel alone "
+            f"{fmt_ms(dev)}); plain {plain:.4f} ms; bf16 F.conv2d "
+            f"{lib:.4f} ms; {ops / ms / 1e9:.2f} TFLOP/s")
+        out[name] = {"max_abs_err": err, "ms": ms, "device_ms": dev,
+                     "plain_ms": plain,
+                     "bound_ms": bms, "bound_by": by, "library_ms": lib,
+                     "shape": f"B={x.shape[0]} Cin={cin} Cout={cout}"}
+    if not timed:
+        return None
+    return {**out["stem"], "conv_a": out["conv_a"], "conv_b": out["conv_b"]}
+
+
+def check_k5(folded, h, legal, timed=True):
+    """K5 against its plain version on the trunk output ``h`` [B,42,C] of a
+    leaf batch with its legal mask.  Returns the timed entry fields, or
+    None (the comparison alone) when ``timed`` is false."""
+    import torch
+    from alphazero_risk_tpu_torch.models import fast_infer as FI
+
+    h, legal = h.contiguous(), legal.contiguous()
+    probs, value, logits = FI.heads_eval(folded, h, legal)
+    rp, rv, rl = FI._heads_eval_plain(folded, h, legal)
+    torch.cuda.synchronize()
+    # Tolerance: float32 sums in another order and CUDA's expf and tanhf
+    # against PyTorch's: 1e-5 of the largest logit (at least 1e-5) on the
+    # logits, 1e-5 absolute on the value and the probabilities.
+    top = max(float(rl.abs().max()), 1.0)
+    e_l = float((logits - rl).abs().max())
+    e_v = float((value - rv).abs().max())
+    e_p = float((probs - rp).abs().max())
+    if not (e_l <= 1e-5 * top and e_v <= 1e-5 and e_p <= 1e-5):
+        fail(f"K5 differs from the plain heads: logits {e_l} (max |logit| "
+             f"{top}), value {e_v}, probs {e_p}")
+    if bool((probs[~legal] != 0).any()) or not torch.allclose(
+            probs.sum(-1), torch.ones_like(value), atol=1e-5):
+        fail("K5 probabilities are not a distribution over the legal moves")
+    b, _, c = h.shape
+    v = folded["val_d1_w"].shape[1]
+    if not timed:
+        log(f"K5 heads_eval B={b} C={c} V={v}: max abs err logits {e_l:.3g} "
+            f"value {e_v:.3g} probs {e_p:.3g}")
+        return None
+    wbytes = sum(folded[k].numel() * 4 for k in FI._HEAD_KEYS)
+    nbytes = h.numel() * 4 + wbytes + legal.numel() + b * (43 * 2 + 1) * 4
+    ops = 2.0 * b * (42 * c * 3 + 84 * 43 + 42 * v + v)
+    bms, by = bound_ms(nbytes, ops, F32_OPS_PER_S)
+    ms = time_ms(lambda: FI.heads_eval(folded, h, legal), 50)
+    dev = device_ms(lambda: FI.heads_eval(folded, h, legal),
+                    "heads_eval_kernel")
+    plain = time_ms(lambda: FI._heads_eval_plain(folded, h, legal), 20)
+    err = max(e_l, e_v, e_p)
+    log(f"K5 heads_eval B={b} C={c} V={v}: max abs err logits {e_l:.3g} "
+        f"value {e_v:.3g} probs {e_p:.3g}; legal per row "
+        f"{float(legal.sum(-1).float().mean()):.1f}; {ms:.4f} ms (bound "
+        f"{bms:.5f} ms, {by}, {ms / bms:.1f}x; kernel alone {fmt_ms(dev)}); "
+        f"plain {plain:.4f} ms")
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev,
+            "plain_ms": plain,
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "shape": f"B={b} C={c} V={v}"}
+
+
+def clone_tree(tree):
+    import dataclasses
+    import torch
+    from alphazero_risk_tpu_torch.env.state import GameState, tree_map
+    return type(tree)(**{
+        f.name: (tree_map(torch.clone, getattr(tree, f.name))
+                 if isinstance(getattr(tree, f.name), GameState)
+                 else getattr(tree, f.name).clone())
+        for f in dataclasses.fields(tree)})
+
+
+def trees_differ(a, b):
+    """Name of the first tree array (or state field) that differs."""
+    import dataclasses
+    import torch
+    from alphazero_risk_tpu_torch.env.state import GameState
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, GameState):
+            for sf in dataclasses.fields(GameState):
+                if not torch.equal(getattr(x, sf.name), getattr(y, sf.name)):
+                    return f"states.{sf.name}"
+        elif not torch.equal(x, y):
+            return f.name
+    return None
+
+
+def check_k6(tree, gum, root, cfg, eval_fn, timed=True):
+    """K6 against its plain version: the node write of one more simulation
+    on a clone of ``tree`` (the descent, child states, legality and network
+    outputs of a real simulation), and the root write of a fresh tree over
+    ``root``.  Pure copies: every array must be equal.  Returns the timed
+    entry fields, or None (the comparison alone) when ``timed`` is false."""
+    import torch
+    from alphazero_risk_tpu_torch.mcts import search as S
+
+    tree, ref = clone_tree(tree), clone_tree(tree)
+    b, n = tree.player.shape
+    path = S.descend(tree, gum, cfg)
+    ins = S.expansion_inputs(tree, path, cfg, eval_fn)
+    lv, lp = S.write_nodes(tree, *ins, path)
+    rv, rp = S._write_nodes_plain(ref, *ins, path)
+    torch.cuda.synchronize()
+    if not (torch.equal(lv, rv) and torch.equal(lp, rp)):
+        fail("K6 leaf value or player differs from the plain write")
+    bad = trees_differ(tree, ref)
+    if bad:
+        fail(f"K6 tree array {bad} differs from the plain write")
+    root_done = tree.terminal[torch.arange(b, device=lv.device),
+                              tree.root.long()]
+    expanding = int(((path.exp_n >= 0) & ~root_done).sum())
+    rins = S.root_inputs(root, cfg, eval_fn)
+    kt, pt = S._empty_tree(root, cfg), S._empty_tree(root, cfg)
+    S.write_nodes(kt, *rins)
+    S._write_nodes_plain(pt, *rins, None)
+    torch.cuda.synchronize()
+    bad = trees_differ(kt, pt)
+    if bad:
+        fail(f"K6 root write: tree array {bad} differs from the plain write")
+    if not timed:
+        log(f"K6 write_nodes B={b} N={n}: all arrays equal (the expansion "
+            f"write, {expanding}/{b} games expanding, and the root write)")
+        return None
+    # bytes of the games that expand: each input read once and written
+    # once into the node, plus the indices, the link and the leaf outputs
+    node_bytes = sum(t[0].numel() * t.element_size()
+                     for t in (*S._state_fields(ins[0]), *ins[1:]))
+    nbytes = expanding * (2 * node_bytes + 8 + 4 + 4) + b * (4 * 4 + 1 + 8 + 8)
+    bms, by = bound_ms(nbytes, 0.0, 1.0)
+    ms = time_ms(lambda: S.write_nodes(tree, *ins, path), 50)
+    plain = time_ms(lambda: S._write_nodes_plain(ref, *ins, path), 10)
+    ms_root = time_ms(lambda: S.write_nodes(kt, *rins), 50)
+    dev = device_ms(lambda: S.write_nodes(tree, *ins, path),
+                    "write_nodes_kernel")
+    log(f"K6 write_nodes B={b} N={n}: all arrays equal (the expansion "
+        f"write, {expanding}/{b} games expanding, and the root write); "
+        f"{ms:.4f} ms (bound {bms:.6f} ms, {by}; kernel alone "
+        f"{fmt_ms(dev)}); plain {plain:.3f} ms; root write {ms_root:.4f} ms")
+    return {"max_abs_err": 0.0, "ms": ms, "device_ms": dev,
+            "plain_ms": plain,
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "ms_root": ms_root, "shape": f"B={b} N={n}"}
 
 
 def plain_grown_tree(states, cfg, dev):
@@ -355,9 +665,11 @@ def phase_kernels(cfg, dev):
     """Load and fold the flagship, then hold each kernel against its plain
     version on the card.  Returns (trainer, kernel entries)."""
     import torch
+    from alphazero_risk_tpu_torch.env import rules
     from alphazero_risk_tpu_torch.env.featurize import featurize
     from alphazero_risk_tpu_torch.env.state import tree_map
     from alphazero_risk_tpu_torch.mcts import search as S
+    from alphazero_risk_tpu_torch.models import fast_infer as FI
     from alphazero_risk_tpu_torch.training.checkpoints import load_params_npz
     from alphazero_risk_tpu_torch.training.trainer import Trainer
 
@@ -382,10 +694,30 @@ def phase_kernels(cfg, dev):
     leaves = tree_map(lambda x: x[rows, (mtree.next_free - 1).long()],
                       mtree.states)
     with torch.inference_mode():
-        k1 = check_k1(folded, featurize(leaves, cfg))
+        lfeats = featurize(leaves, cfg)
+        k1 = check_k1(folded, lfeats)
         mgum = S.draw_gumbel(torch.Generator(device=dev).manual_seed(6),
                              cfg, GAMES, dev)[0]
         k2, k3 = check_k2_k3(mtree, mgum, cfg, dev)
+        k4 = check_k4(folded, lfeats)
+        llegal = rules.legal_actions(leaves, cfg)
+        k5 = check_k5(folded, FI._trunk_out(folded, lfeats, True), llegal)
+        k6 = check_k6(mtree, mgum, tree_map(
+            lambda x: x[:GAMES].contiguous(), states), cfg,
+            trainer._eval_fn())
+        # the other batches the main paths launch: the first nb games of
+        # the same leaf batch, tree and roots, comparison only
+        for nb in PATH_BATCHES:
+            nfeats = lfeats[:nb].contiguous()
+            ngum = mgum[:, :nb].contiguous()
+            check_k1(folded, nfeats, timed=False)
+            check_k2_k3(slice_tree(mtree, nb), ngum, cfg, dev, timed=False)
+            check_k4(folded, nfeats, timed=False)
+            check_k5(folded, FI._trunk_out(folded, nfeats, True),
+                     llegal[:nb], timed=False)
+            check_k6(slice_tree(mtree, nb), ngum, tree_map(
+                lambda x: x[:nb].contiguous(), states), cfg,
+                trainer._eval_fn(), timed=False)
         # the larger shapes: K1 at B=1024, K2/K3 over 256 games
         k1["b1024"] = check_k1(folded, featurize(states, cfg))
         gum = S.draw_gumbel(torch.Generator(device=dev).manual_seed(6), cfg,
@@ -402,6 +734,15 @@ def phase_kernels(cfg, dev):
         {"name": "mcts_backup", "route": "cuda",
          "source": "alphazero_risk_tpu_torch/csrc/mcts_backup.cu",
          "replaces": "alphazero_risk_tpu/mcts/search.py:259", **k3},
+        {"name": "conv3x3_bf16", "route": "cuda",
+         "source": "alphazero_risk_tpu_torch/csrc/conv_bf16.cu",
+         "replaces": "alphazero_risk_tpu/models/fast_infer.py:101", **k4},
+        {"name": "heads_eval", "route": "cuda",
+         "source": "alphazero_risk_tpu_torch/csrc/heads_softmax.cu",
+         "replaces": "alphazero_risk_tpu/models/fast_infer.py:215", **k5},
+        {"name": "write_nodes", "route": "cuda",
+         "source": "alphazero_risk_tpu_torch/csrc/tree_write.cu",
+         "replaces": "alphazero_risk_tpu/mcts/search.py:229", **k6},
     ]
     check_forward(trainer, states, cfg)
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
@@ -442,7 +783,7 @@ def profile_window(trainer, games, steps=1):
             f"{e.key[:70]}")
 
 
-def phase_slice(trainer, entries, games=GAMES):
+def phase_slice(trainer, entries, games=PLAY_GAMES):
     """The main path (Trainer.play, int8, to the end), then a short bf16
     pass.  Fills each entry's main-path launch count."""
     from alphazero_risk_tpu_torch import kernels
@@ -490,16 +831,215 @@ def phase_slice(trainer, entries, games=GAMES):
         fail("bf16 pass did not play its games")
 
 
+def phase_train(base, entries):
+    """One iteration of ``Trainer.train`` at full width from the flagship
+    weights, then the reload and read-back checks.  Fills each entry's
+    ``launches_train``."""
+    import numpy as np
+    import torch
+    from alphazero_risk_tpu_torch import kernels
+    from alphazero_risk_tpu_torch.env.featurize import featurize
+    from alphazero_risk_tpu_torch.env.state import new_game
+    from alphazero_risk_tpu_torch.models import fast_infer as FI
+    from alphazero_risk_tpu_torch.training.replay import FIELDS, ReplayBuffer
+    from alphazero_risk_tpu_torch.training.trainer import Trainer
+
+    dev = base.device
+    cfg = base.cfg.replace(**TRAIN)
+    sims = cfg.mcts_simulations
+    log(f"train: {json.dumps(TRAIN)} at {cfg.blocks}x{cfg.filters}, "
+        f"value_hidden {cfg.value_hidden}")
+    trainer = Trainer(cfg, seed=3, device=dev)
+    trainer.load_weights(base.net)
+    trainer.folded()
+    stats0 = {k: v.clone() for k, v in
+              trainer.train_state.net.state_dict().items()}
+
+    # per-phase seconds, launch counts and step counts, read around the
+    # trainer's own phase methods
+    phases, trained = {}, [None]
+
+    def watch(name):
+        fn = getattr(trainer, name)
+
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            c0, s0 = kernels.counts(), dict(trainer.play_stats)
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            p = phases.setdefault(name, {"seconds": 0.0, "launches": {},
+                                         "stats": {}})
+            p["seconds"] += time.perf_counter() - t0
+            for k, v in kernels.counts().items():
+                p["launches"][k] = p["launches"].get(k, 0) + v - c0[k]
+            for k in ("steps", "paired_steps", "folds", "az_decisions"):
+                p["stats"][k] = (p["stats"].get(k, 0)
+                                 + trainer.play_stats[k] - s0[k])
+            p["result"] = out
+            if name == "train_epochs":
+                trained[0] = {k: v.clone() for k, v in
+                              trainer.train_state.net.state_dict().items()}
+            return out
+
+        setattr(trainer, name, wrapped)
+
+    for name in ("generate_selfplay", "train_epochs", "gate", "benchmark"):
+        watch(name)
+
+    # every record the actors hand to the replay buffer
+    valid_seen, added = [0], [0]
+    extend = trainer.replay.extend_from_actor
+
+    def counted(samples, status, final_round=None):
+        n = extend(samples, status, final_round=final_round)
+        valid_seen[0] += int(samples.valid.sum())
+        added[0] += n
+        return n
+
+    trainer.replay.extend_from_actor = counted
+
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    trainer.train(iterations=1, resume=False)
+    if "benchmark" not in phases:
+        # the gate rejected the candidate: train() skips the benchmark
+        # then, so run it here on the reverted weights
+        log("train: gate rejected the candidate; benchmark run directly")
+        trainer.benchmark()
+    torch.cuda.synchronize()
+    counts = kernels.counts()
+    log(f"train: one iteration (with the benchmark) in "
+        f"{time.perf_counter() - t0:.1f} s; launches {counts}")
+    for name, p in phases.items():
+        log(f"train phase {name}: {p['seconds']:.1f} s, steps "
+            f"{p['stats']}, launches {p['launches']}")
+
+    with open(WORK / "log" / "events.jsonl") as f:
+        events = [json.loads(line) for line in f]
+    sp = next(e for e in events if e["kind"] == "selfplay")
+    imp = next(e for e in events if e["kind"] == "improvement")
+    bench = next(e for e in events if e["kind"] == "benchmark")
+    accepted = bool(phases["gate"]["result"])
+    log(f"train: self-play {sp['games']} games, {sp['finished']} ended "
+        f"inside {cfg.max_game_steps} micro-steps, {sp['samples']} "
+        f"records; arena new {imp['new_wins']} old {imp['old_wins']} draws "
+        f"{imp['draws']} -> {'accepted' if accepted else 'reverted'}; "
+        f"benchmark vs random {json.dumps(bench['vs_random'])} vs script "
+        f"{json.dumps(bench['vs_script'])}")
+    if sp["games"] != cfg.train_iteration_games:
+        fail("self-play did not play its games")
+    if 2 * sp["finished"] < sp["games"]:
+        fail(f"fewer than half of the self-play games ended: {sp}")
+
+    # records: every valid record was stored, nothing else
+    n = len(trainer.replay)
+    if not (n == added[0] == valid_seen[0] and n >= sp["samples"] > 0):
+        fail(f"replay holds {n} samples, actors handed over {added[0]}, "
+             f"valid records {valid_seen[0]}")
+    z = trainer.replay.data["value"]
+    log(f"train: replay {n} samples, z=+1 {int((z > 0).sum())} z=-1 "
+        f"{int((z < 0).sum())} z=0 {int((z == 0).sum())}")
+    if not ((z > 0).any() and (z < 0).any()):
+        fail("no decided game among the records")
+
+    # learner: finite losses, policy loss below the first batch's
+    log(f"train: epochs {json.dumps(trainer.epoch_log)}")
+    ep = trainer.epoch_log
+    if len(ep) != cfg.epochs or not all(
+            np.isfinite(e["pi_loss"]) and np.isfinite(e["v_loss"])
+            for e in ep):
+        fail(f"epoch losses: {ep}")
+    if not ep[-1]["pi_loss"] < ep[0]["first_pi_loss"]:
+        fail(f"policy loss did not fall: first batch "
+             f"{ep[0]['first_pi_loss']}, last epoch {ep[-1]['pi_loss']}")
+    if trainer.train_state.step != cfg.epochs * (
+            sp["samples"] // cfg.batch_size):
+        fail(f"learner took {trainer.train_state.step} steps over "
+             f"{sp['samples']} samples")
+    # the learner's weights as the epochs left them (a rejected gate
+    # reverts the live ones afterwards)
+    sd = trained[0]
+    if not all(bool(torch.isfinite(v).all()) for v in sd.values()):
+        fail("non-finite parameter after training")
+    moved = [k for k, v in sd.items() if "running" in k
+             and not torch.equal(v, stats0[k])]
+    if len(moved) != 2 * (3 + 2 * cfg.blocks):
+        fail(f"running statistics moved in {len(moved)} places only")
+    if any(torch.equal(v, stats0[k]) for k, v in sd.items()
+           if k.endswith("conv.weight") or "conv_" in k):
+        fail("training left a conv kernel unchanged")
+
+    # launch counts against the step and simulation counts
+    st = {k: sum(p["stats"].get(k, 0) for p in phases.values())
+          for k in ("steps", "paired_steps", "folds")}
+    evals = (st["steps"] + st["paired_steps"]) * (sims + 1)
+    blocks2 = 2 * cfg.blocks
+    want = {"conv3x3_bf16": evals + st["folds"] * (1 + blocks2),
+            "heads_eval": evals, "conv3x3_i8": evals * blocks2,
+            "write_nodes": st["steps"] * (sims + 1),
+            "mcts_descend": st["steps"] * sims,
+            "mcts_backup": st["steps"] * sims}
+    log(f"train: {st['steps']} lockstep searches ({st['paired_steps']} "
+        f"paired), {st['folds']} folds; expected launches {want}")
+    if want != counts:
+        fail(f"launch counts {counts} differ from the expected {want}")
+    for k in kernels.ALL:
+        if counts[k.name] <= 0:
+            fail(f"kernel {k.name} was not launched by the training phase")
+    for e in entries:
+        e["launches_train"] = counts[e["name"]]
+
+    # checkpoints and meta; latest reloaded into a fresh trainer folds to
+    # the same evaluation as the in-memory learner
+    meta = trainer.ckpt.load_meta()
+    if not (trainer.ckpt.exists("latest") and meta
+            and meta["iteration"] == 1
+            and trainer.ckpt.exists("best") == accepted):
+        fail(f"checkpoints or meta missing: meta {meta}")
+    fresh = Trainer(cfg, seed=4, device=dev)
+    fresh.train_state = fresh.ckpt.restore("latest", fresh.train_state)
+    states = new_game(64, generator=torch.Generator(device=dev)
+                      .manual_seed(9), device=dev)
+    x = featurize(states, cfg)
+    la, va = FI.apply_folded(trainer._fold(trainer.train_state.net), x,
+                             int8=True)
+    lb, vb = FI.apply_folded(fresh._fold(fresh.train_state.net), x,
+                             int8=True)
+    torch.cuda.synchronize()
+    if not (torch.equal(la, lb) and torch.equal(va, vb)
+            and bool(torch.isfinite(la).all())):
+        fail("the reloaded 'latest' evaluates differently from the "
+             "in-memory learner")
+    if fresh.train_state.step != trainer.train_state.step:
+        fail("the reloaded 'latest' lost its step count")
+    back = ReplayBuffer(cfg)
+    if not back.load(trainer._replay_path()) or len(back) != n or any(
+            not np.array_equal(back.data[k], trainer.replay.data[k])
+            or back.data[k].dtype != trainer.replay.data[k].dtype
+            for k in FIELDS):
+        fail("the replay npz does not read back equal")
+    log(f"train: latest reloaded (step {fresh.train_state.step}) and "
+        f"evaluates equal on 64 states; replay npz read back equal "
+        f"({n} samples)")
+    return phases
+
+
 def main():
     t_start = time.perf_counter()
     card = phase_device()
     phase_build()
     import torch
     from alphazero_risk_tpu_torch.config import Config
-    cfg = Config(mcts_simulations=SIMS, fast_infer=True, fast_infer_int8=True)
+    import shutil
+    shutil.rmtree(WORK, ignore_errors=True)
+    cfg = Config(mcts_simulations=SIMS, fast_infer=True, fast_infer_int8=True,
+                 checkpoint_dir=str(WORK / "checkpoints"),
+                 data_dir=str(WORK / "data"), log_dir=str(WORK / "log"))
     trainer, entries = phase_kernels(cfg, torch.device("cuda"))
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     phase_slice(trainer, entries)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    phase_train(trainer, entries)
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": entries}))
     print(card)

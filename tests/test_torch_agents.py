@@ -109,3 +109,57 @@ def test_summarize_matches():
     out = summarize(MatchResult(status=torch.from_numpy(status), rounds=None,
                                 steps=0, started_by=torch.from_numpy(started)))
     assert out == ref
+
+
+@pytest.mark.parametrize("seed,cfg", [
+    (0, Config()),
+    (1, Config(limit_attack_moves=True, fast_attack_mobilization=False)),
+])
+def test_random_step_bit_exact(seed, cfg):
+    """The RandomPlayer under the ``u[B,4]`` / ``dice[B,5]`` contract:
+    state, recorded action and record mask bit-identical after every step,
+    through all six phases."""
+    from alphazero_risk_tpu.agents import random_agent as JRA
+    from alphazero_risk_tpu_torch.agents import random_agent as TRA
+    b, steps = 8, 400
+    jc = jconfig.Config(**dataclasses.asdict(cfg))
+    rng = np.random.default_rng(seed + 10)
+    js = j_new_game(jax.random.PRNGKey(seed), b)
+    ts = TS.GameState(**{f.name: _port(getattr(js, f.name))
+                         for f in dataclasses.fields(TS.GameState)})
+    jstep = jax.jit(JRA.random_step_recorded, static_argnums=3)
+    phases = set()
+    for t in range(steps):
+        u = rng.random((b, 4)).astype(np.float32)
+        dice = rng.integers(1, 7, (b, 5)).astype(np.int32)
+        phases.update(np.asarray(js.phase).tolist())
+        js, (ja, jr) = jstep(js, jnp.asarray(u), jnp.asarray(dice), jc)
+        ts2 = TRA.random_step(ts, torch.from_numpy(u),
+                              torch.from_numpy(dice), cfg)
+        ts, (ta, tr) = TRA.random_step_recorded(
+            ts, torch.from_numpy(u), torch.from_numpy(dice), cfg)
+        for f in dataclasses.fields(TS.GameState):
+            np.testing.assert_array_equal(
+                getattr(ts, f.name).numpy(), np.asarray(getattr(js, f.name)),
+                err_msg=f"step {t} field {f.name}")
+            assert torch.equal(getattr(ts, f.name), getattr(ts2, f.name))
+        assert ta.dtype == torch.int32
+        np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
+        np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
+    assert phases == set(range(6)), phases
+
+
+@pytest.mark.parametrize("agents", [(0, 1), (1, 1), (1, 0)])
+def test_play_match_to_the_end(agents):
+    """``play_match`` with script and random seats: every game ends, and
+    the tallies add up."""
+    from alphazero_risk_tpu_torch.agents import driver as TD
+    gen = torch.Generator().manual_seed(agents[0] * 2 + agents[1])
+    state = TD.mirrored_initial_states(4, generator=gen, device="cpu")
+    res = TD.play_match(gen, state, agents[0], agents[1], Config(), 4000)
+    out = TD.summarize(res)
+    assert out["games"] == 4 and out["unfinished"] == 0
+    assert out["p0_wins"] + out["p1_wins"] + out["draws"] == 4
+    assert 0 < res.steps < 4000
+    if agents == (0, 1):         # the ScriptPlayer beats the RandomPlayer
+        assert out["p0_wins"] >= 3

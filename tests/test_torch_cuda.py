@@ -106,3 +106,104 @@ def test_play_launches_every_kernel(cuda):
     res = trainer.play(A.OPP_SCRIPT, 4)
     assert res["unfinished"] == 0
     assert all(n > 0 for n in kernels.counts().values()), kernels.counts()
+
+
+@pytest.mark.parametrize("cin,cout,residual", [(13, 64, False),
+                                               (64, 64, False),
+                                               (128, 256, True)])
+def test_conv3x3_bf16_matches_plain(cuda, cin, cout, residual):
+    g = torch.Generator(device=cuda).manual_seed(cin)
+    x = torch.randn((5, 7, 6, cin), generator=g, device=cuda)
+    w = (torch.randn((3, 3, cin, cout), generator=g, device=cuda)
+         / (9 * cin) ** 0.5).to(torch.bfloat16)
+    b = torch.randn(cout, generator=g, device=cuda)
+    res = (torch.randn((5, 7, 6, cout), generator=g, device=cuda)
+           if residual else None)
+    out = FI.conv3x3_bf16(x, w, b, res)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False     # the reference in full f32
+    try:
+        ref = FI._conv3x3_bf16_plain(x, w, b, res)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    # bf16 x bf16 products are exact in float32: only the order of the
+    # float32 sums differs, 1e-5 of the largest output
+    tol = 1e-5 * float(ref.abs().max())
+    assert float((out - ref).abs().max()) <= tol
+
+
+def test_heads_eval_matches_plain(cuda):
+    cfg = Config(blocks=1, filters=64, value_hidden=48)
+    trainer = Trainer(cfg, seed=3, device=cuda)
+    folded = trainer.folded()
+    g = torch.Generator(device=cuda).manual_seed(4)
+    h = torch.randn((9, 42, 64), generator=g, device=cuda).relu()
+    legal = torch.rand((9, 43), generator=g, device=cuda) < 0.4
+    legal[0] = True
+    legal[1] = False            # no legal action: NaN row in both
+    probs, value, logits = FI.heads_eval(folded, h, legal)
+    rp, rv, rl = FI._heads_eval_plain(folded, h, legal)
+    # float32 sums in another order, expf and tanhf: 1e-5 absolute
+    torch.testing.assert_close(logits, rl, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(value, rv, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(probs, rp, rtol=1e-5, atol=1e-6,
+                               equal_nan=True)
+    assert torch.isnan(probs[1]).all() and torch.isnan(rp[1]).all()
+
+
+def _clone_tree(tree):
+    return type(tree)(**{
+        f.name: (tree_map(torch.clone, getattr(tree, f.name))
+                 if isinstance(getattr(tree, f.name), GameState)
+                 else getattr(tree, f.name).clone())
+        for f in dataclasses.fields(tree)})
+
+
+def _assert_trees_equal(a, b):
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, GameState):
+            for sf in dataclasses.fields(GameState):
+                assert torch.equal(getattr(x, sf.name), getattr(y, sf.name)), \
+                    sf.name
+        else:
+            assert torch.equal(x, y), f.name
+
+
+def test_write_nodes_matches_plain(cuda):
+    cfg = Config(mcts_simulations=6, max_depth=10)
+    root = played_roots(64, 120, seed=5)
+    gum = S.draw_gumbel(torch.Generator().manual_seed(2), cfg, 64, "cpu")
+    cpu_tree = S.search(root, gum, cfg, uniform_eval).tree
+    # root write: the tree init_tree builds on the card against the CPU's
+    croot = tree_map(lambda x: x.to(cuda), root)
+    _assert_trees_equal(_to(S.init_tree(root, cfg, uniform_eval), cuda),
+                        S.init_tree(croot, cfg, uniform_eval))
+    # expansion write on a grown tree
+    tree = _to(cpu_tree, cuda)
+    path = S.descend(tree, gum[1].to(cuda), cfg)
+    ref_tree = _clone_tree(tree)
+    args = (*S.expansion_inputs(tree, path, cfg, uniform_eval), path)
+    lv, lp = S.write_nodes(tree, *args)
+    rv, rp = S._write_nodes_plain(ref_tree, *args)
+    assert bool((path.exp_n >= 0).any())
+    assert torch.equal(lv, rv) and torch.equal(lp, rp)
+    _assert_trees_equal(tree, ref_tree)
+
+
+def test_train_iteration_launches_every_kernel(cuda, tmp_path):
+    cfg = Config(blocks=2, filters=64, value_hidden=16, mcts_simulations=4,
+                 max_depth=8, env_batch_per_device=4, fast_infer=True,
+                 fast_infer_int8=True, batch_size=32,
+                 train_iteration_games=4, compare_games=4, epochs=1,
+                 benchmark_games_random=2, benchmark_games_script=2,
+                 max_game_steps=256, samples_storage_min_batches=2,
+                 samples_storage_max_batches=64,
+                 checkpoint_dir=str(tmp_path / "ck"),
+                 data_dir=str(tmp_path / "data"),
+                 log_dir=str(tmp_path / "log"))
+    trainer = Trainer(cfg, seed=0, device=cuda)
+    kernels.reset_counts()
+    trainer.train(iterations=1, resume=False)
+    assert all(n > 0 for n in kernels.counts().values()), kernels.counts()
+    assert trainer.ckpt.exists("latest")

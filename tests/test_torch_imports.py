@@ -65,3 +65,82 @@ def test_entry_points_need_a_card_or_cpu(name, monkeypatch, capsys):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fn("cuda")
     fn("cpu")
+
+
+def test_import_builds_and_loads_nothing():
+    """Importing every module of the port compiles no kernel, loads no
+    library and imports no ``triton``; each kernel's source is in the tree
+    and defines its entry point."""
+    import importlib
+    import pkgutil
+    import sys
+
+    import alphazero_risk_tpu_torch as pkg
+    names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                   pkg.__name__ + ".")]
+    for name in names:
+        importlib.import_module(name)
+    for mod in ("training.learner", "training.replay", "training.trainer",
+                "agents.random_agent", "utils.logging", "cli"):
+        assert f"{pkg.__name__}.{mod}" in names
+    assert "triton" not in sys.modules
+    from alphazero_risk_tpu_torch import kernels
+    assert [k.name for k in kernels.ALL] == [
+        "conv3x3_i8", "mcts_descend", "mcts_backup", "conv3x3_bf16",
+        "heads_eval", "write_nodes"]
+    for k in kernels.ALL:
+        assert k._fn is None and k.build_log == ""
+        assert f'extern "C" int {k.symbol}(' in k.source.read_text()
+
+
+def test_kernel_flags_are_per_source():
+    """The kernels held bit for bit against their plain versions keep the
+    common flags (``--fmad=false``), and so their library names; the bf16
+    conv and the heads are built with the compiler's default contraction."""
+    from alphazero_risk_tpu_torch import kernels
+    exact = {"conv3x3_i8", "mcts_descend", "mcts_backup", "write_nodes"}
+    for k in kernels.ALL:
+        if k.name in exact:
+            assert k.flags == kernels.NVCC_FLAGS
+        else:
+            assert "--fmad=false" not in k.flags
+            assert [f for f in kernels.NVCC_FLAGS
+                    if f != "--fmad=false"] == k.flags
+    assert len({k.library for k in kernels.ALL}) == len(kernels.ALL)
+
+
+@pytest.mark.parametrize("name", ["conv3x3_bf16", "heads_eval",
+                                  "write_nodes"])
+def test_cuda_tensor_wrappers_do_not_fall_back(name, monkeypatch):
+    """A wrapper takes its plain version only for CPU tensors: with a
+    tensor that claims another device it goes to the kernel path, which
+    here (no card, no nvcc) raises instead of computing the plain
+    version."""
+    from alphazero_risk_tpu_torch.config import Config
+    from alphazero_risk_tpu_torch.env.state import new_game
+    from alphazero_risk_tpu_torch.mcts import search as S
+    from alphazero_risk_tpu_torch.models import fast_infer as FI
+
+    meta = torch.device("meta")
+    if name == "conv3x3_bf16":
+        x = torch.empty((2, 7, 6, 13), device=meta)
+        w = torch.empty((3, 3, 13, 64), dtype=torch.bfloat16, device=meta)
+        call = lambda: FI.conv3x3_bf16(x, w, torch.empty(64, device=meta))
+    elif name == "heads_eval":
+        folded = {k: torch.empty(1, device=meta) for k in FI._HEAD_KEYS}
+        call = lambda: FI.heads_eval(
+            folded, torch.empty((2, 42, 64), device=meta),
+            torch.empty((2, 43), dtype=torch.bool, device=meta))
+    else:
+        cfg = Config(mcts_simulations=2)
+        root = new_game(2, device="cpu")
+        tree = S._empty_tree(root, cfg)
+        tree.visit = tree.visit.to(meta)
+        args = S.root_inputs(root, cfg, lambda s, m: (
+            m.float(), torch.zeros(s.batch_size)))
+        call = lambda: S.write_nodes(tree, *args)
+    monkeypatch.setattr(FI, "_conv3x3_bf16_plain", None)
+    monkeypatch.setattr(FI, "_heads_eval_plain", None)
+    monkeypatch.setattr(S, "_write_nodes_plain", None)
+    with pytest.raises((ValueError, RuntimeError)):
+        call()

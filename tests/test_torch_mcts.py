@@ -164,3 +164,144 @@ def test_descend_backup_plain_invariants():
     before = tree.visit.sum().item()
     TM.backup(tree, path, torch.zeros(8), tree.player[rows, path.cur.long()])
     assert tree.visit.sum().item() == before + int(path.depth.sum())
+
+
+def test_root_noise_matches_jax():
+    """The Dirichlet sample from the same uniforms (the 2048-point
+    log-quantile Gamma(0.3) table, one interpolation, renormalised over the
+    legal entries), and the blend into the root prior only.  exp, log and
+    the interpolation run in another library: rtol 1e-5."""
+    root = played_roots(12, 60, seed=4)
+    legal = TR.legal_actions(root, Config())
+    key = jax.random.PRNGKey(21)
+    u = jax.random.uniform(key, (12, 43), jnp.float32, minval=1e-7,
+                           maxval=1.0 - 1e-4)
+    ref = np.asarray(JM.sample_dirichlet_noise(key, jnp.asarray(
+        legal.numpy())))
+    tu = torch.from_numpy(np.array(u))
+    noise = TM.sample_dirichlet_noise(tu, legal)
+    np.testing.assert_allclose(noise.numpy(), ref, rtol=1e-5, atol=1e-9)
+    assert (noise[~legal] == 0).all()
+    np.testing.assert_allclose(noise.sum(-1).numpy(), 1.0, rtol=1e-5)
+    # uniforms at and beyond the table's ends take its end values
+    edge = torch.tensor([[1e-9, TM.NOISE_U_MIN, 0.5, TM.NOISE_U_MAX, 1.0]])
+    g = TM.sample_dirichlet_noise(edge, torch.ones(1, 5, dtype=torch.bool))
+    torch.testing.assert_close(g[0, [0, 3]], g[0, [1, 4]], rtol=1e-4, atol=0)
+
+    cfg = Config(mcts_simulations=8, max_depth=12, use_dirichlet_noise=True)
+    jc = jconfig.Config(**dataclasses.asdict(cfg))
+    jres = jax.jit(lambda r, k: JM.search(r, k, jc, jax_eval))(
+        to_jax(root), key)
+    k_sims, k_noise = jax.random.split(key)
+    noise_u = torch.from_numpy(np.array(jax.random.uniform(
+        k_noise, (12, 43), jnp.float32, minval=1e-7, maxval=1.0 - 1e-4)))
+    tres = TM.search(root, search_gumbel(k_sims, 8, 12, 12), cfg, port_eval,
+                     noise_u=noise_u)
+    np.testing.assert_allclose(tres.tree.prior.numpy(),
+                               np.asarray(jres.tree.prior), rtol=1e-5,
+                               atol=1e-9)
+    np.testing.assert_array_equal(tres.visit_counts.numpy(),
+                                  np.asarray(jres.visit_counts))
+    np.testing.assert_array_equal(tres.tree.children.numpy(),
+                                  np.asarray(jres.tree.children))
+    # only the root's prior was blended: node 1 holds the plain prior
+    plain = TM.search(root, search_gumbel(k_sims, 8, 12, 12),
+                      cfg.replace(use_dirichlet_noise=False), port_eval)
+    assert not torch.equal(tres.tree.prior[:, 0], plain.tree.prior[:, 0])
+    with pytest.raises(ValueError, match="noise_u"):
+        TM.search(root, search_gumbel(k_sims, 8, 12, 12), cfg, port_eval)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        TM.search(root, None, cfg.replace(tree_reuse=True), port_eval)
+
+
+def test_draw_noise_uniform_contract():
+    u = TM.draw_noise_uniform(torch.Generator().manual_seed(0), 64, "cpu")
+    assert u.shape == (64, 43) and u.dtype == torch.float32
+    assert (u >= TM.NOISE_U_MIN).all() and (u < TM.NOISE_U_MAX).all()
+
+
+@pytest.mark.parametrize("threshold", [0, 30, 58])
+def test_sampled_pick_move_matches_jax(threshold):
+    """``pick_move`` with ``sample=True`` and the Gumbel noise of
+    ``jax.random.categorical``: sampled up to the temperature-threshold
+    round, argmax after it (0: all argmax, 58: all sampled)."""
+    cfg = Config(mcts_simulations=8, max_depth=6,
+                 temperature_threshold=threshold)
+    jc = jconfig.Config(**dataclasses.asdict(cfg))
+    root = played_roots(16, 70, seed=6)
+    root = root.replace(round=torch.arange(16, dtype=torch.int32) * 3 + 8)
+    key = jax.random.PRNGKey(2)
+    jres = jax.jit(lambda r, k: JM.search(r, k, jc, jax_eval))(
+        to_jax(root), key)
+    tres = TM.search(root, search_gumbel(key, 8, 6, 16), cfg, port_eval)
+    kp = jax.random.PRNGKey(33)
+    g = torch.from_numpy(np.array(jax.random.gumbel(kp, (16, 43),
+                                                    jnp.float32)))
+    ref = np.asarray(JM.pick_move(jres, to_jax(root), kp, jc, True))
+    got = TM.pick_move(tres, root, cfg, sample=True, gumbel=g)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), ref)
+    greedy = TM.pick_move(tres, root, cfg, sample=False).numpy()
+    late = (root.round > threshold).numpy()
+    np.testing.assert_array_equal(got.numpy()[late], greedy[late])
+    if threshold == 58:
+        assert (got.numpy() != greedy).any()
+
+
+def _assert_tree_equals_jax(tt, jt, msg):
+    for name in ("expanded", "terminal", "value", "player", "parent",
+                 "legal", "prior", "visit", "children", "next_free", "root"):
+        np.testing.assert_array_equal(getattr(tt, name).numpy(),
+                                      np.asarray(getattr(jt, name)),
+                                      err_msg=f"{msg} {name}")
+    for f in dataclasses.fields(TS.GameState):
+        t = getattr(tt.states, f.name)
+        j = np.asarray(getattr(jt.states, f.name))
+        assert t.numpy().dtype == j.dtype, f.name
+        np.testing.assert_array_equal(t.numpy(), j,
+                                      err_msg=f"{msg} state {f.name}")
+
+
+def test_write_nodes_plain_matches_jax_tree():
+    """K6's plain version against the JAX tree, bit for bit: the root write
+    after ``init_tree``, then the expansion write (state fields, tree
+    arrays, child link, ``next_free``) after each of three
+    ``simulate_once`` calls.  Finished games in the batch write nothing."""
+    cfg = Config(mcts_simulations=3, max_depth=6)
+    jc = jconfig.Config(**dataclasses.asdict(cfg))
+    root = played_roots(12, 90, seed=9)
+    # two finished games: a terminal root never expands
+    root = root.replace(owner=torch.where(
+        torch.arange(12)[:, None] < 2, torch.zeros_like(root.owner),
+        root.owner))
+    assert (TR.game_status(root, cfg)[:2] != -1).all()
+    jroot = to_jax(root)
+    jt = JM.init_tree(jroot, jc, jax_eval)
+    tt = TM.init_tree(root, cfg, port_eval)
+    _assert_tree_equals_jax(tt, jt, "init_tree")
+    key = jax.random.PRNGKey(13)
+    gum = search_gumbel(key, 3, 6, 12)
+    jsim = jax.jit(lambda t, k: JM.simulate_once(t, k, jc, jax_eval))
+    for s in range(3):
+        key, sub = jax.random.split(key)
+        jt = jsim(jt, sub)
+        tt = TM.simulate_once(tt, gum[s], cfg, port_eval)
+        _assert_tree_equals_jax(tt, jt, f"simulation {s}")
+        np.testing.assert_allclose(tt.wsum.numpy(), np.asarray(jt.wsum),
+                                   rtol=1e-6, atol=0)
+    assert (tt.next_free[:2] == 1).all() and (tt.next_free[2:] == 4).all()
+    assert (tt.parent[2:, 1:4] >= 0).all()
+
+
+def test_write_nodes_plain_clamps_a_full_tree():
+    """``idx`` is ``next_free`` clamped to the last node: a game whose tree
+    is full overwrites that node and still counts."""
+    cfg = Config(mcts_simulations=2, max_depth=6, max_nodes=3)
+    root = played_roots(4, 60, seed=2)
+    g = TM.draw_gumbel(torch.Generator().manual_seed(1),
+                       cfg.replace(mcts_simulations=4), 4, "cpu")
+    tree = TM.init_tree(root, cfg, port_eval)
+    for s in range(4):
+        tree = TM.simulate_once(tree, g[s], cfg, port_eval)
+    assert (tree.next_free >= 3).all() and (tree.children < 3).all()
+    assert (tree.visit[:, 0].sum(-1) == 4).all()

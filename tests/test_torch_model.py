@@ -238,3 +238,193 @@ def test_eval_fn_masks_and_normalizes(int8):
     torch.testing.assert_close(probs.sum(-1), torch.ones(8), atol=1e-5,
                                rtol=0)
     assert (value.abs() <= 1.0).all()
+
+
+# ---- training mode, the plain versions of kernels K4 and K5, and the
+# params npz both ways ----
+
+@pytest.mark.parametrize("channels", [1, 32])
+def test_bn_training_step_matches_flax(channels):
+    """One training-mode BatchNorm call against Flax's: the output (bf16,
+    one ulp), the running mean, and the running variance, which is the
+    biased one (``nn.BatchNorm2d``'s own forward would store the unbiased
+    one)."""
+    from flax import linen as fnn
+    from alphazero_risk_tpu_torch.models import resnet as TRN
+    rng = np.random.default_rng(channels)
+    x = jnp.asarray(rng.normal(0.3, 1.5, (16, 7, 6, channels)),
+                    jnp.bfloat16)
+    old = {"mean": rng.normal(0, 1, channels).astype(np.float32),
+           "var": (rng.random(channels) + 0.5).astype(np.float32)}
+    par = {"scale": rng.normal(1, 0.2, channels).astype(np.float32),
+           "bias": rng.normal(0, 0.2, channels).astype(np.float32)}
+    mod = fnn.BatchNorm(use_running_average=False, momentum=0.99,
+                        epsilon=1e-3, dtype=jnp.bfloat16)
+    ref, mutated = mod.apply({"params": par, "batch_stats": old}, x,
+                             mutable=["batch_stats"])
+    bn = torch.nn.BatchNorm2d(channels, eps=1e-3, momentum=0.01)
+    with torch.no_grad():
+        bn.weight.copy_(torch.from_numpy(par["scale"]))
+        bn.bias.copy_(torch.from_numpy(par["bias"]))
+        bn.running_mean.copy_(torch.from_numpy(old["mean"]))
+        bn.running_var.copy_(torch.from_numpy(old["var"]))
+    bn.train()
+    xf = np.asarray(x.astype(jnp.float32))
+    tx = torch.from_numpy(xf).permute(0, 3, 1, 2).requires_grad_()
+    out = TRN._bn(bn, tx)
+    np.testing.assert_allclose(
+        out.detach().permute(0, 2, 3, 1).numpy(),
+        np.asarray(ref.astype(jnp.float32)), rtol=2.0 ** -7, atol=1e-6)
+    np.testing.assert_allclose(
+        bn.running_mean.numpy(),
+        np.asarray(mutated["batch_stats"]["mean"]), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(
+        bn.running_var.numpy(),
+        np.asarray(mutated["batch_stats"]["var"]), rtol=1e-5, atol=1e-6)
+    biased = xf.reshape(-1, channels).astype(np.float64).var(0)
+    np.testing.assert_allclose(bn.running_var.numpy(),
+                               0.99 * old["var"] + 0.01 * biased, rtol=1e-4)
+    n = xf.size // channels
+    assert not np.allclose(bn.running_var.numpy(),
+                           0.99 * old["var"] + 0.01 * biased * n / (n - 1),
+                           rtol=1e-5, atol=0)
+    out.sum().backward()                  # differentiable through the stats
+    assert tx.grad is not None and torch.isfinite(tx.grad).all()
+
+
+def _bf16_folded():
+    _, variables = _randomized_variables(CFG)
+    folded = JF.fold_params(variables, jconfig.Config(
+        **dataclasses.asdict(CFG)))
+    return folded, folded_from_jax(folded, device="cpu")
+
+
+def test_conv3x3_bf16_plain_matches_jax_stem_and_block():
+    """K4's plain version against JAX ``_stem`` (Cin = 13) and one block of
+    ``_trunk_xla_bf16`` (conv, then conv with the residual).  bf16 x bf16
+    products are exact in float32, so one conv differs by the order of the
+    float32 sums only: 1e-5 of the largest output.  In the block a sum that
+    lands on the other side of a bf16 rounding boundary of ``y`` moves one
+    input of the second conv by 2^-8 relative: 2e-3 of the largest output."""
+    jfold, tfold = _bf16_folded()
+    jx, tx = _inputs(CFG, 16, seed=11)
+    ref = np.asarray(JF._stem(jfold, jx))
+    h = TF.conv3x3_bf16(tx, tfold["stem_w"], tfold["stem_b"])
+    assert h.dtype == torch.float32 and tuple(h.shape) == (16, 7, 6, 32)
+    np.testing.assert_allclose(h.numpy(), ref, rtol=0,
+                               atol=1e-5 * np.abs(ref).max())
+    np.testing.assert_array_equal(TF._stem(tfold, tx).numpy(), h.numpy())
+    one = {"trunk_w": jfold["trunk_w"][:1], "trunk_b": jfold["trunk_b"][:1]}
+    jh = jnp.asarray(ref)
+    ref_blk = np.asarray(JF._trunk_xla_bf16(one, jh))
+    th = torch.from_numpy(ref.copy())
+    w, b = tfold["trunk_w"], tfold["trunk_b"]
+    y = TF.conv3x3_bf16(th, w[0, 0], b[0, 0])
+    blk = TF.conv3x3_bf16(y, w[0, 1], b[0, 1], residual=th)
+    np.testing.assert_allclose(blk.numpy(), ref_blk, rtol=0,
+                               atol=2e-3 * np.abs(ref_blk).max())
+    assert (blk >= 0).all() and (blk > 0).any()
+    np.testing.assert_array_equal(
+        TF._trunk_xla_bf16({"trunk_w": w[:1], "trunk_b": b[:1]}, th).numpy(),
+        blk.numpy())
+
+
+def test_heads_eval_plain_matches_jax_heads_and_softmax():
+    """K5's plain version against JAX ``_heads`` and the eval epilogue
+    ``softmax(where(legal, logits, -inf))``, float32 throughout: sums in
+    another order, exp and tanh of another library: 1e-5.  A row with no
+    legal action is NaN in both."""
+    jfold, tfold = _bf16_folded()
+    rng = np.random.default_rng(12)
+    h = np.maximum(rng.normal(0, 1, (24, 42, CFG.filters)), 0).astype(
+        np.float32)
+    legal = rng.random((24, 43)) < 0.4
+    legal[0], legal[1] = True, False
+    jl, jv = JF._heads(jfold, jnp.asarray(h))
+    jp = jax.nn.softmax(jnp.where(jnp.asarray(legal), jl, -jnp.inf), axis=-1)
+    probs, value, logits = TF.heads_eval(tfold, torch.from_numpy(h),
+                                         torch.from_numpy(legal))
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jl), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(value.numpy(), np.asarray(jv), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(probs.numpy(), np.asarray(jp), rtol=1e-5,
+                               atol=1e-6, equal_nan=True)
+    assert np.isnan(probs[1].numpy()).all() and np.isnan(jp[1]).all()
+    assert (probs[2:].numpy()[~legal[2:]] == 0).all()
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_fast_paired_eval_matches_jax(int8):
+    """Two folded nets, selected per game by ``use_a``: the port's paired
+    eval (the heads once per net, rows selected after the softmax) against
+    the JAX one (logits selected before it).  Tolerances of the single-net
+    fast-path tests above."""
+    jc = jconfig.Config(**dataclasses.asdict(CFG))
+    folds = []
+    for seed in (0, 5):
+        _, variables = _randomized_variables(CFG, seed=seed)
+        f = JF.fold_params(variables, jc)
+        if int8:
+            f = JF.calibrate_trunk(JF.quantize_trunk(f),
+                                   _inputs(CFG, 64, seed=7)[0])
+        folds.append(f)
+    state = new_game(8, generator=torch.Generator().manual_seed(2),
+                     device="cpu")
+    legal = rules.legal_actions(state, CFG)
+    use_a = torch.arange(8) % 2 == 0
+    from alphazero_risk_tpu.env.state import GameState as JGameState
+    jstate = JGameState(**{f.name: jnp.asarray(getattr(state, f.name).numpy())
+                           for f in dataclasses.fields(state)})
+    jp, jv = JF.make_fast_paired_eval_fn(jc, int8=int8)(
+        folds[0], folds[1], jnp.asarray(use_a.numpy()), jstate,
+        jnp.asarray(legal.numpy()))
+    tp, tv = TF.make_fast_paired_eval_fn(CFG, int8=int8)(
+        folded_from_jax(folds[0], device="cpu"),
+        folded_from_jax(folds[1], device="cpu"), use_a, state, legal)
+    tol = 0.02 if int8 else 0.01
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), atol=tol)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=tol)
+    # and each row is its own net's single evaluation
+    single = TF.make_fast_eval_fn(CFG, int8=int8)
+    for i, f in enumerate(folds):
+        sp, sv = single(folded_from_jax(f, device="cpu"), state, legal)
+        rows = use_a if i == 0 else ~use_a
+        np.testing.assert_array_equal(tp[rows].numpy(), sp[rows].numpy())
+        np.testing.assert_array_equal(tv[rows].numpy(), sv[rows].numpy())
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_params_npz_interchange(tmp_path, writer):
+    """A params npz written by either package (``save_params_npz``) loads
+    in the other: same keys, float16 storage, HWIO conv kernels."""
+    from alphazero_risk_tpu.training import learner as JL
+    from alphazero_risk_tpu.training.checkpoints import (
+        CheckpointManager as JCkpt)
+    from alphazero_risk_tpu_torch.training.checkpoints import (
+        params_to_jax, save_params_npz)
+    jc = jconfig.Config(**dataclasses.asdict(CFG))
+    _, variables = _randomized_variables(CFG, seed=8)
+    _, _, jstate = JL.create_train_state(jc, jax.random.PRNGKey(0))
+    jstate = jstate.replace(params=variables["params"],
+                            batch_stats=variables["batch_stats"])
+    jck = JCkpt(jc, base_dir=str(tmp_path / "jck"))
+    path = str(tmp_path / "w.npz")
+    half = {k: v.astype(np.float16).astype(np.float32)
+            for k, v in _flat(variables).items()}
+    if writer == "jax":
+        jck.save_params_npz(path, jstate)
+        net = load_params_npz(path, CFG, device="cpu")
+        got = params_to_jax(net.state_dict())
+    else:
+        save_params_npz(path, _port_net(variables))
+        with np.load(path) as z:
+            assert all(z[k].dtype == np.float16 for k in z.files)
+            assert z["p/stem_conv/kernel"].shape == (3, 3, 13, CFG.filters)
+        _, _, fresh = JL.create_train_state(jc, jax.random.PRNGKey(1))
+        loaded = jck.load_params_npz(path, fresh)
+        got = _flat({"params": loaded.params,
+                     "batch_stats": loaded.batch_stats})
+    assert sorted(got) == sorted(half)
+    for k, v in half.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
