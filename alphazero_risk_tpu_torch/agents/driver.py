@@ -4,7 +4,9 @@ Port of ``alphazero_risk_tpu/agents/driver.py``: mirrored pairs share one
 initial deal with ownership inverted and the starting player swapped
 (game.cpp:170-191), ``play_match`` drives two scripted or random agents in
 lockstep until every game ends, and ``summarize`` tallies results like the
-reference's ``GameResults`` (game.cpp:193-235).
+reference's ``GameResults`` (game.cpp:193-235).  ``mixed_play`` gives
+states of every phase for holding the rules kernels against their plain
+versions.
 """
 
 from __future__ import annotations
@@ -78,6 +80,64 @@ def play_match(generator: torch.Generator, state: GameState, agent0: int,
         t += 1
     return MatchResult(status=rules.game_status(state, cfg),
                        rounds=state.round, steps=t, started_by=started_by)
+
+
+class MixedPlay(NamedTuple):
+    """States of mixed play, each with what its step drew."""
+
+    state: GameState
+    carry: script_agent.ScriptCarry   # the script carry the step starts from
+    prev: torch.Tensor                # [B] the previous step's mover
+    u: torch.Tensor                   # [B, 4] the step's uniforms
+    dice: torch.Tensor                # [B, 5] the step's dice
+    action: torch.Tensor              # [B] a random legal action
+
+    @property
+    def reset(self) -> torch.Tensor:
+        return self.state.cur_player != self.prev
+
+    def apply(self, fn) -> "MixedPlay":
+        """``fn`` applied to every tensor (e.g. a slice of the games)."""
+        return MixedPlay(*(fn(x) if isinstance(x, torch.Tensor)
+                           else tree_map(fn, x) for x in self))
+
+
+def mixed_play(batch: int, steps: int, cfg: Config,
+               generator: torch.Generator, every: int = 1) -> MixedPlay:
+    """``steps`` lockstep steps of ``batch`` mirrored games on the
+    generator's device: seat 0 the ScriptPlayer, seat 1 the RandomPlayer,
+    and on every third step a random legal move for about 30% of the
+    games, as an AlphaZero seat would make.  Returns every ``every``-th
+    step's states with what that step drew, concatenated along the game
+    axis: every phase, fortify ties, full lands and finished games occur
+    within a few hundred steps."""
+    dev = generator.device
+    st = mirrored_initial_states(batch, generator=generator, device=dev)
+    carry = script_agent.init_carry(batch, dev)
+    prev = torch.full((batch,), -1, dtype=torch.int32, device=dev)
+    snaps = []
+    for t in range(steps):
+        u, dice = draw_step_randoms(generator, batch, dev)
+        legal = rules.legal_actions(st, cfg)
+        g = torch.rand(legal.shape, generator=generator, device=dev)
+        a = torch.argmax(torch.where(legal, g, -1.0), -1).to(torch.int32)
+        if t % every == 0:
+            snaps.append(MixedPlay(st, carry, prev, u, dice, a))
+        s0, c0, _ = script_agent.script_step_recorded(
+            st, carry, st.cur_player != prev, u, dice, cfg)
+        s1, _ = random_agent.random_step_recorded(st, u, dice, cfg)
+        mover0 = st.cur_player == 0
+        nst = tree_select(mover0, s0, s1)
+        if t % 3 == 0:
+            az = torch.rand(batch, generator=generator, device=dev) < 0.3
+            nst = tree_select(az, rules.step(st, a, dice, cfg), nst)
+        carry = tree_select(mover0, c0, carry)
+        prev, st = st.cur_player, nst
+
+    def cat(*xs):
+        return torch.cat(xs)
+    return MixedPlay(*(cat(*xs) if isinstance(xs[0], torch.Tensor)
+                       else tree_map(cat, *xs) for xs in zip(*snaps)))
 
 
 def summarize(result: MatchResult):

@@ -10,12 +10,17 @@ Randomness is explicit: ``u[B,4]`` uniforms + ``dice[B,5]`` per step (see
 ``agents.common``).  u[0] = primary target choice, u[1] = secondary
 (attack-from / fortify-from), u[2] = amount or mobilization coin.  With the
 same ``u`` and ``dice`` it steps bit-exactly as the JAX agent.
+
+On the card ``random_step_recorded`` launches kernel K10
+(``csrc/random_step.cu``); CPU tensors take
+``_random_step_recorded_plain``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import kernels
 from ..config import (
     Config,
     NUM_LANDS,
@@ -46,7 +51,27 @@ def random_step_recorded(state: GameState, u: torch.Tensor,
     """Like ``random_step`` but also returns ``(action43, record_mask)``:
     the 43-way action the player "chose", which reference
     ``addTrainingSample`` records as a one-hot policy target
-    (random_player.cpp:29-82)."""
+    (random_player.cpp:29-82).  CUDA tensors launch K10; CPU tensors take
+    ``_random_step_recorded_plain``."""
+    if state.device.type == "cpu":
+        return _random_step_recorded_plain(state, u, dice, cfg)
+    b = state.batch_size
+    rules.checked(u, torch.float32, (b, 4), "u")
+    rules.checked(dice, I32, (b, 5), "dice")
+    nstate, new = rules.launch_rules(
+        kernels.RANDOM_STEP, state, (b,), (u.data_ptr(), dice.data_ptr()),
+        _K10_OUTS, cfg)
+    return nstate, (new["action"], new["record"])
+
+
+# K10's outputs after the state: the action and its record mask.
+_K10_OUTS = (("action", I32, ()), ("record", torch.bool, ()))
+
+
+def _random_step_recorded_plain(state: GameState, u: torch.Tensor,
+                                dice: torch.Tensor, cfg: Config):
+    """``random_step_recorded`` in plain PyTorch: every phase branch for
+    every game, blended by phase."""
     b, dev = state.batch_size, state.device
     t = rules.tables(dev)
     m = rules.player_masks(state, cfg)
@@ -140,5 +165,5 @@ def random_step_recorded(state: GameState, u: torch.Tensor,
                                 state.mob_from.clamp(0, NUM_LANDS - 1)),
                     torch.where(f_skip, skip, fto)))))).to(I32)
 
-    live = rules.game_status(state, cfg) == STATUS_NOT_ENDED
+    live = rules._game_status_plain(state, cfg) == STATUS_NOT_ENDED
     return tree_select(live, out, state), (action, live)

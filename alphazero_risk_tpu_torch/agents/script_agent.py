@@ -12,6 +12,10 @@ pair pinned at each outer-loop boundary, and a flag for which ownership
 masks to use when re-deriving it (script_player.cpp:204-222).  With the
 same ``u`` and ``dice`` it steps bit-exactly as the JAX agent, including
 its documented tie-break deviations from the reference.
+
+On the card ``script_step_recorded`` launches kernel K9
+(``csrc/script_step.cu``); CPU tensors take
+``_script_step_recorded_plain``.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import functools
 
 import torch
 
+from .. import kernels
 from ..config import (
     Config,
     NUM_LANDS,
@@ -103,8 +108,37 @@ def script_step_recorded(state: GameState, carry: ScriptCarry,
     """Advance every game one script micro-decision.
 
     ``reset`` marks games whose mover just became this agent (turn start).
-    Returns (new_state, new_carry, (action43, record_mask)).
+    Returns (new_state, new_carry, (action43, record_mask)).  CUDA tensors
+    launch K9; CPU tensors take ``_script_step_recorded_plain``.
     """
+    if state.device.type == "cpu":
+        return _script_step_recorded_plain(state, carry, reset, u, dice, cfg)
+    b, ck = state.batch_size, rules.checked
+    ins = (ck(carry.attack_to, I32, (b,), "attack_to"),
+           ck(carry.attack_from, I32, (b,), "attack_from"),
+           ck(carry.mode_b, torch.bool, (b,), "mode_b"),
+           ck(reset, torch.bool, (b,), "reset"),
+           ck(u, torch.float32, (b, 4), "u"),
+           ck(dice, I32, (b, 5), "dice"))
+    nstate, new = rules.launch_rules(
+        kernels.SCRIPT_STEP, state, (b,), tuple(t.data_ptr() for t in ins),
+        _K9_OUTS, cfg)
+    return (nstate, ScriptCarry(new["attack_to"], new["attack_from"],
+                                new["mode_b"]),
+            (new["action"], new["record"]))
+
+
+# K9's outputs after the state: the carry, the action and its record mask.
+_K9_OUTS = (("attack_to", I32, ()), ("attack_from", I32, ()),
+            ("mode_b", torch.bool, ()), ("action", I32, ()),
+            ("record", torch.bool, ()))
+
+
+def _script_step_recorded_plain(state: GameState, carry: ScriptCarry,
+                                reset: torch.Tensor, u: torch.Tensor,
+                                dice: torch.Tensor, cfg: Config):
+    """``script_step_recorded`` in plain PyTorch: every phase branch for
+    every game, blended by phase."""
     b = state.batch_size
     dev = state.device
     idx = rules.tables(dev).land_idx[None, :]
@@ -235,7 +269,7 @@ def script_step_recorded(state: GameState, carry: ScriptCarry,
         torch.where(ph == PH_ATTACK_MOBILIZATION,
                     state.mob_to.clamp(0, NUM_LANDS - 1),
                     torch.where(do_fortify, f_to, skip)))))).to(I32)
-    live = rules.game_status(state, cfg) == STATUS_NOT_ENDED
+    live = rules._game_status_plain(state, cfg) == STATUS_NOT_ENDED
     # fortify emits a sample only when the player has any armed land
     record = live & torch.where(ph == PH_FORTIFY, m.owned_with_army.any(-1),
                                 True)

@@ -1,12 +1,18 @@
 """Command-line entry point of the port.
 
-Port of the ``play`` and ``train`` modes of ``alphazero_risk_tpu/cli.py``.
-``play``: AlphaZero (``--p1 az``) against the ScriptPlayer (``--p2 sp``) or
-the RandomPlayer (``--p2 rp``) in mirrored pairs, with argmax moves.
+Port of the ``play``, ``train``, ``train-script`` and ``train-data`` modes of
+``alphazero_risk_tpu/cli.py``.
+``play``: AlphaZero (``--p1 az``) against the ScriptPlayer (``--p2 sp``),
+the RandomPlayer (``--p2 rp``) or another checkpoint role (``--p2 az
+--c2 ROLE``) in mirrored pairs, with argmax moves; or two heuristic players
+(``--p1 sp|rp --p2 sp|rp``) through ``agents.driver.play_match``.
 ``train``: the AlphaZero loop (self-play, epochs, gating arena, benchmark,
 checkpoints), resuming from ``checkpoints/`` when it holds a ``latest``.
-Both optionally on the BN-folded bf16 (``--fast``) or int8 (``--fast
---int8``) inference path.  Runs on the card unless ``--cpu`` is given.
+``train-script``: the same loop on games against the ScriptPlayer.
+``train-data``: the supervised bootstrap on ``--dgss`` Script-vs-Script and
+``--dgsr`` Script-vs-Random games per loop, ``--dtl`` loops.
+The network paths optionally run the BN-folded bf16 (``--fast``) or int8
+(``--fast --int8``) inference.  Runs on the card unless ``--cpu`` is given.
 
 Usage:
   python -m alphazero_risk_tpu_torch.cli -m play --p1 az --p2 sp \\
@@ -15,6 +21,10 @@ Usage:
   python -m alphazero_risk_tpu_torch.cli -m train --cpu --blocks 2 \\
       --filters 32 --mcts 4 --ti 1 --tg 4 --games 4 --e 1 --bs 32 \\
       --env-batch 4 --max-steps 256 --bench-random 2 --bench-script 2
+  python -m alphazero_risk_tpu_torch.cli -m train-data --dtl 1 \\
+      --dgss 128 --dgsr 128 --fast --int8 \\
+      --c1 artifacts/params-20block-r4-best.npz
+  python -m alphazero_risk_tpu_torch.cli -m play --p1 sp --p2 rp --games 64
 """
 
 from __future__ import annotations
@@ -31,17 +41,22 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="alphazero_risk_tpu_torch",
         description="AlphaZero for the game Risk (PyTorch/CUDA port)")
-    p.add_argument("-m", "--mode", default="play", choices=["play", "train"],
-                   help="play and train are ported so far")
-    p.add_argument("--p1", default="az", choices=["az"],
-                   help="player 1 (the port plays AlphaZero in seat 0)")
-    p.add_argument("--p2", default="sp", choices=["sp", "rp"],
-                   help="opponent in play mode: ScriptPlayer or RandomPlayer")
+    p.add_argument("-m", "--mode", default="play",
+                   choices=["play", "train", "train-script", "train-data"])
+    p.add_argument("--p1", default="az", choices=["az", "sp", "rp"],
+                   help="player 1 in play mode (AlphaZero, ScriptPlayer or "
+                        "RandomPlayer)")
+    p.add_argument("--p2", default="sp", choices=["sp", "rp", "az"],
+                   help="opponent in play mode: ScriptPlayer, RandomPlayer "
+                        "or AlphaZero from --c2")
     p.add_argument("--c1", default=None,
                    help="weights of player 1 (play) or to start training "
-                        "from (train): a checkpoint role (latest, best, "
-                        "iter-N) or a params npz in the save_params_npz "
-                        "format; random weights from --seed when omitted")
+                        "from (train modes): a checkpoint role (latest, "
+                        "best, iter-N) or a params npz in the "
+                        "save_params_npz format; random weights from --seed "
+                        "when omitted")
+    p.add_argument("--c2", default="best",
+                   help="checkpoint role of player 2 (play --p2 az)")
     p.add_argument("--games", "--cg", type=int, default=1000,
                    help="games for play/compare (rounded up to mirrored "
                         "pairs)")
@@ -59,6 +74,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--hp", dest="cpuct", type=float, default=None)
     p.add_argument("--dnv", dest="noise_value", type=float, default=None)
     p.add_argument("--dne", dest="noise_eps", type=float, default=None)
+    p.add_argument("--dgss", type=int, default=None,
+                   help="train-data: Script-vs-Script games per loop")
+    p.add_argument("--dgsr", type=int, default=None,
+                   help="train-data: Script-vs-Random games per loop")
+    p.add_argument("--dtl", type=int, default=None,
+                   help="train-data: loops")
     p.add_argument("--blocks", type=int, default=None)
     p.add_argument("--filters", type=int, default=None)
     p.add_argument("--value-hidden", type=int, default=None)
@@ -99,6 +120,8 @@ def config_from_args(args) -> Config:
         "bench_random": "benchmark_games_random",
         "bench_script": "benchmark_games_script",
         "env_batch": "env_batch_per_device", "max_steps": "max_game_steps",
+        "dgss": "data_games_ss", "dgsr": "data_games_sr",
+        "dtl": "data_train_loops",
     }
     for arg, field in mapping.items():
         v = getattr(args, arg, None)
@@ -117,16 +140,43 @@ def config_from_args(args) -> Config:
     return Config().replace(**over)
 
 
+def play_heuristic(args, cfg: Config, device) -> dict:
+    """``-m play --p1 sp|rp --p2 sp|rp``: two heuristic players in
+    mirrored pairs to the end through ``play_match`` (no network)."""
+    import torch
+
+    from .agents.driver import (AGENT_RANDOM, AGENT_SCRIPT,
+                                mirrored_initial_states, play_match,
+                                summarize)
+    from .device import resolve_device
+    dev = resolve_device(device)
+    kinds = {"sp": AGENT_SCRIPT, "rp": AGENT_RANDOM}
+    deal = torch.Generator(device=dev).manual_seed(args.seed)
+    state0 = mirrored_initial_states(args.games + args.games % 2,
+                                     generator=deal, device=dev)
+    res = play_match(torch.Generator(device=dev).manual_seed(args.seed + 1),
+                     state0, kinds[args.p1], kinds[args.p2], cfg,
+                     cfg.max_game_steps)
+    return {"mode": "play", "p1": args.p1, "p2": args.p2,
+            "engine": "torch", "micro_steps": res.steps, **summarize(res)}
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
     device = "cpu" if args.cpu else "cuda"
 
+    if args.mode == "play" and args.p1 != "az":
+        if args.p2 == "az":
+            raise SystemExit("put the az player in --p1")
+        print(json.dumps(play_heuristic(args, cfg, device)))
+        return
+
     from .training import actor as A
     from .training.checkpoints import load_params_npz
     from .training.trainer import Trainer
 
-    if args.mode == "train":
+    if args.mode != "play":
         # Dump effective settings like the reference (settings.h:198-210).
         os.makedirs(cfg.log_dir, exist_ok=True)
         with open(f"{cfg.log_dir}/settings.txt", "w") as f:
@@ -142,14 +192,22 @@ def main(argv=None):
                                                        trainer.train_state)
             trainer.load_weights(trainer.train_state.net)
     if args.mode == "play":
-        opp = {"sp": A.OPP_SCRIPT, "rp": A.OPP_RANDOM}[args.p2]
-        res = trainer.play(opp, args.games)
+        if args.p2 == "az":
+            res = trainer.play_az_vs_az(args.c2, args.games)
+        else:
+            opp = {"sp": A.OPP_SCRIPT, "rp": A.OPP_RANDOM}[args.p2]
+            res = trainer.play(opp, args.games)
         print(json.dumps({"mode": "play", "p2": args.p2, **res}))
-    else:
+        return
+    if args.mode == "train":
         trainer.train(iterations=args.ti)
-        last = trainer.epoch_log[-1] if trainer.epoch_log else {}
-        print(json.dumps({"mode": "train", "iteration": trainer.iteration,
-                          "samples": len(trainer.replay), **last}))
+    elif args.mode == "train-script":
+        trainer.train_on_script(iterations=args.ti)
+    else:
+        trainer.train_on_data(loops=args.dtl)
+    last = trainer.epoch_log[-1] if trainer.epoch_log else {}
+    print(json.dumps({"mode": args.mode, "iteration": trainer.iteration,
+                      "samples": len(trainer.replay), **last}))
 
 
 if __name__ == "__main__":

@@ -1,0 +1,995 @@
+// The Risk rules for one game, shared by K7 (rules_step.cu), K8
+// (state_views.cu), K9 (script_step.cu) and K10 (random_step.cu).
+//
+// Each function here works on one game held by one thread: the 42-land
+// sets are uint64_t masks (bit j = land j), the armies an int[42] array,
+// the scalars plain ints.  They are the per-game form of the plain PyTorch
+// code in env/rules.py, agents/script_agent.py and agents/random_agent.py,
+// which compute every phase branch for every game and blend: here only the
+// branch of the game's phase runs.  Every output is an integer, a bool or a
+// float32 computed in the order of the plain version, so each agrees with
+// it bit for bit (the sources are built with --fmad=false).
+//
+// The graph walks of rules.py are mask walks: `connected_to` is a BFS over
+// the owned lands, `component_labels` one BFS from each lowest unlabelled
+// owned land, and `dfs_preorder_rank` the stackless DFS of the JAX code,
+// run per game and only where the fortify tie-break needs it.
+//
+// The board tables come from env/topology.py: the wrapper packs them into
+// one device buffer (rules.kernel_tables) laid out as `Tables`, and each
+// block copies it into shared memory.
+//
+// The same text compiles as host C++ (RD_FN is then `static inline`), so
+// the per-game functions can be exercised without a card.
+
+#pragma once
+
+#include <cstdint>
+
+#ifdef __CUDACC__
+#define RD_FN __device__ __forceinline__
+#define RD_HD __host__ __device__ inline
+#else
+#define RD_FN static inline
+#define RD_HD static inline
+#endif
+
+namespace rd {
+
+constexpr int kLands = 42;
+constexpr int kActions = 43;
+constexpr int kSkip = 42;
+constexpr int kNeutral = 2;
+constexpr int kConts = 6;
+constexpr int kMaxDegree = 6;
+constexpr int kNotEnded = -1;
+constexpr int kDraw = -2;
+constexpr uint64_t kAll = (1ull << kLands) - 1;
+constexpr uint64_t kSkipBit = 1ull << kSkip;
+
+enum Phase {
+  kSetup = 0,
+  kSetupNeutral = 1,
+  kReinforcement = 2,
+  kAttack = 3,
+  kMobilization = 4,
+  kFortify = 5,
+};
+
+// Board tables, packed by rules.kernel_tables (little-endian, no padding).
+struct Tables {
+  uint64_t adj[kLands];             // adjacency rows as masks
+  uint64_t cont[kConts];            // continent membership masks
+  int32_t cont_size[kConts];
+  int32_t cont_bonus[kConts];
+  int32_t card_gain[64];            // CARD_SET_GAIN
+  int32_t cont_tie_rank[kConts];    // CONTINENT_TIE_RANK
+  int8_t nrank[kLands * kLands];    // NEIGHBOR_RANK
+  int8_t land_rank[kConts * kLands];  // SCRIPT_LAND_RANK
+};
+static_assert(sizeof(Tables) == 2728, "Tables must match kernel_tables()");
+
+// The rule switches of Config that the kernels read.
+struct Cfg {
+  int army_max;       // land_army_max
+  int min_move;       // min_unit_move
+  int max_rounds;     // max_game_rounds
+  bool allow_yield;
+  bool limit_reinf;   // limit_reinforcement_moves
+  bool limit_attack;  // limit_attack_moves
+  bool fast_mob;      // fast_attack_mobilization
+  bool exact_tb;      // exact_fortify_tiebreak
+};
+
+// Called by the host launchers: the flags of rules.kernel_flags.
+RD_HD Cfg make_cfg(int army_max, int min_move, int max_rounds, int flags) {
+  Cfg c;
+  c.army_max = army_max;
+  c.min_move = min_move;
+  c.max_rounds = max_rounds;
+  c.allow_yield = flags & 1;
+  c.limit_reinf = flags & 2;
+  c.limit_attack = flags & 4;
+  c.fast_mob = flags & 8;
+  c.exact_tb = flags & 16;
+  return c;
+}
+
+// Pointers to the first 12 fields of a GameState (bool fields as uint8).
+struct StateRef {
+  int* owner;      // [.., 42]
+  int* army;       // [.., 42]
+  int* phase;
+  int* round;
+  int* cur;
+  int* reinf;
+  int* cards;      // [.., 2]
+  int* sets;
+  int* mob_from;
+  int* mob_to;
+  uint8_t* can_draw;
+  int* attacks;
+};
+
+// The launchers' StateRef from the 12 field pointers, in GameState order.
+RD_HD StateRef state_ref(void* owner, void* army, void* phase, void* round,
+                         void* cur, void* reinf, void* cards, void* sets,
+                         void* mob_from, void* mob_to, void* can_draw,
+                         void* attacks) {
+  return {static_cast<int*>(owner),    static_cast<int*>(army),
+          static_cast<int*>(phase),    static_cast<int*>(round),
+          static_cast<int*>(cur),      static_cast<int*>(reinf),
+          static_cast<int*>(cards),    static_cast<int*>(sets),
+          static_cast<int*>(mob_from), static_cast<int*>(mob_to),
+          static_cast<uint8_t*>(can_draw), static_cast<int*>(attacks)};
+}
+
+#ifdef __CUDACC__
+// Every thread of the block copies its share of the tables into shared
+// memory `t`; returns after the block's barrier.
+__device__ __forceinline__ void load_tables(Tables& t, const Tables* src) {
+  const int* from = reinterpret_cast<const int*>(src);
+  int* to = reinterpret_cast<int*>(&t);
+  for (int i = threadIdx.x; i < static_cast<int>(sizeof(Tables) / 4);
+       i += blockDim.x)
+    to[i] = from[i];
+  __syncthreads();
+}
+#endif
+
+// One game.
+struct St {
+  int army[kLands];
+  uint64_t own[3];  // owner == 0, 1, 2
+  int phase, round, cur, reinf, cards[2], sets, mob_from, mob_to, attacks;
+  bool can_draw;
+};
+
+// ---------------------------------------------------------------- bits
+
+RD_FN int popc(uint64_t m) {
+#ifdef __CUDA_ARCH__
+  return __popcll(m);
+#else
+  return __builtin_popcountll(m);
+#endif
+}
+
+// Index of the lowest set bit of a nonzero mask.
+RD_FN int low(uint64_t m) {
+#ifdef __CUDA_ARCH__
+  return __ffsll(static_cast<long long>(m)) - 1;
+#else
+  return __builtin_ctzll(m);
+#endif
+}
+
+RD_FN bool has(uint64_t m, int i) { return (m >> i) & 1ull; }
+RD_FN uint64_t bit(int i) { return 1ull << i; }
+
+// rules.first_set_bit: lowest set index, 0 for an empty mask.
+RD_FN int first_set_bit(uint64_t m) { return m ? low(m) : 0; }
+
+RD_FN int clamp_land(int x) {
+  return x < 0 ? 0 : (x > kLands - 1 ? kLands - 1 : x);
+}
+RD_FN int imin(int a, int b) { return a < b ? a : b; }
+RD_FN int imax(int a, int b) { return a > b ? a : b; }
+
+// Python's a // 2 (floor) for any int.
+RD_FN int floordiv2(int a) { return a >= 0 ? a / 2 : -((1 - a) / 2); }
+
+RD_FN float fmul(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fmul_rn(a, b);
+#else
+  return a * b;
+#endif
+}
+
+RD_FN float fdiv(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fdiv_rn(a, b);
+#else
+  return a / b;
+#endif
+}
+
+// rules.masked_choice over a mask of up to 43 bits: the (n+1)-th set bit
+// for n = clip(trunc(u * count), 0, count - 1), 0 for an empty mask.  The
+// product is one float32 multiply, as PyTorch's u * count.
+RD_FN int masked_choice(uint64_t mask, float u) {
+  const int cnt = popc(mask);
+  if (cnt == 0) return 0;
+  int n = static_cast<int>(fmul(u, static_cast<float>(cnt)));
+  n = imin(imax(n, 0), cnt - 1);
+  for (int k = 0; k < n; ++k) mask &= mask - 1;
+  return low(mask);
+}
+
+// ---------------------------------------------------------------- state
+
+// Reads row `row` of every field; reinf, cards and sets may be null (the
+// views read none of them) and then read as 0.
+RD_FN void load(St& s, const StateRef& r, int64_t row) {
+  const int* ow = r.owner + row * kLands;
+  const int* ar = r.army + row * kLands;
+  s.own[0] = s.own[1] = s.own[2] = 0;
+  for (int j = 0; j < kLands; ++j) {
+    const int o = ow[j];
+    if (o >= 0 && o < 3) s.own[o] |= bit(j);
+    s.army[j] = ar[j];
+  }
+  s.phase = r.phase[row];
+  s.round = r.round[row];
+  s.cur = r.cur[row];
+  s.reinf = r.reinf != nullptr ? r.reinf[row] : 0;
+  s.cards[0] = r.cards != nullptr ? r.cards[row * 2] : 0;
+  s.cards[1] = r.cards != nullptr ? r.cards[row * 2 + 1] : 0;
+  s.sets = r.sets != nullptr ? r.sets[row] : 0;
+  s.mob_from = r.mob_from[row];
+  s.mob_to = r.mob_to[row];
+  s.can_draw = r.can_draw[row] != 0;
+  s.attacks = r.attacks[row];
+}
+
+RD_FN void store(const St& s, const StateRef& r, int64_t row) {
+  int* ow = r.owner + row * kLands;
+  int* ar = r.army + row * kLands;
+  for (int j = 0; j < kLands; ++j) {
+    ow[j] = has(s.own[1], j) ? 1 : (has(s.own[2], j) ? 2 : 0);
+    ar[j] = s.army[j];
+  }
+  r.phase[row] = s.phase;
+  r.round[row] = s.round;
+  r.cur[row] = s.cur;
+  r.reinf[row] = s.reinf;
+  r.cards[row * 2] = s.cards[0];
+  r.cards[row * 2 + 1] = s.cards[1];
+  r.sets[row] = s.sets;
+  r.mob_from[row] = s.mob_from;
+  r.mob_to[row] = s.mob_to;
+  r.can_draw[row] = s.can_draw ? 1 : 0;
+  r.attacks[row] = s.attacks;
+}
+
+RD_FN void set_owner(St& s, int li, int p) {
+  const uint64_t m = ~bit(li);
+  s.own[0] &= m;
+  s.own[1] &= m;
+  s.own[2] &= m;
+  s.own[p] |= bit(li);
+}
+
+// Lands whose army is at least `thr`.
+RD_FN uint64_t army_at_least(const St& s, int thr) {
+  uint64_t m = 0;
+  for (int j = 0; j < kLands; ++j)
+    if (s.army[j] >= thr) m |= bit(j);
+  return m;
+}
+
+// rules.neighbors_any: lands adjacent to any land of x.
+RD_FN uint64_t nb_any(uint64_t x, const Tables& t) {
+  uint64_t r = 0;
+  while (x) {
+    r |= t.adj[low(x)];
+    x &= x - 1;
+  }
+  return r;
+}
+
+// rules.PlayerMasks.
+struct Masks {
+  uint64_t owned, enemy, neutral, owa, full, attack, attack_wa, enemy_attack,
+      neutral_attack;
+};
+
+RD_FN Masks player_masks(const St& s, const Tables& t, const Cfg& c) {
+  Masks m;
+  m.owned = s.own[s.cur];
+  m.enemy = s.own[1 - s.cur];
+  m.neutral = s.own[kNeutral];
+  m.owa = m.owned & army_at_least(s, 2);
+  m.full = m.owned & army_at_least(s, c.army_max);
+  m.attack = ~m.owned & nb_any(m.owned, t);
+  m.attack_wa = ~m.owned & nb_any(m.owa, t);
+  m.enemy_attack = ~m.enemy & nb_any(m.enemy, t);
+  m.neutral_attack = nb_any(m.neutral, t) & ~m.neutral;
+  return m;
+}
+
+// attack_lands_with_army alone.
+RD_FN uint64_t attack_wa(const St& s, const Tables& t) {
+  const uint64_t owned = s.own[s.cur];
+  return ~owned & nb_any(owned & army_at_least(s, 2), t);
+}
+
+// rules.calc_reinforcement.
+RD_FN int calc_reinforcement(uint64_t owned, const Tables& t) {
+  int bonus = 0;
+  for (int c = 0; c < kConts; ++c)
+    if (popc(owned & t.cont[c]) == t.cont_size[c]) bonus += t.cont_bonus[c];
+  return imax(popc(owned) / 3 + bonus, 3);
+}
+
+// rules.game_status: -1 running, -2 draw, else the winner.
+RD_FN int game_status(const St& s, const Cfg& c) {
+  const int p0 = popc(s.own[0]);
+  const int p1 = popc(s.own[1]);
+  int st = kNotEnded;
+  if (s.round > c.max_rounds) st = p0 > p1 ? 0 : (p0 < p1 ? 1 : kDraw);
+  if (c.allow_yield) {
+    if (p1 >= 30) st = 1;
+    if (p0 >= 30) st = 0;
+  }
+  if (p1 == 0) st = 0;
+  if (p0 == 0) st = 1;
+  return st;
+}
+
+// rules.legal_actions as a 43-bit mask (bit 42 = skip).
+RD_FN uint64_t legal_actions(const St& s, const Tables& t, const Cfg& c) {
+  const Masks m = player_masks(s, t, c);
+  switch (s.phase) {
+    case kSetup:
+    case kReinforcement: {
+      const uint64_t base = m.owned & ~m.full;
+      uint64_t lands = base;
+      if (c.limit_reinf) {
+        const uint64_t border = base & (m.enemy_attack | m.neutral_attack);
+        lands = border ? border : base;
+      }
+      return base ? lands : kSkipBit;
+    }
+    case kSetupNeutral:
+      return m.neutral;
+    case kAttack:
+      if (c.limit_attack) return m.attack_wa ? m.attack_wa : kSkipBit;
+      return m.attack_wa | kSkipBit;
+    case kMobilization: {
+      uint64_t r = 0;
+      if (s.mob_from >= 0 && s.mob_from < kLands) r |= bit(s.mob_from);
+      if (s.mob_to >= 0 && s.mob_to < kLands) r |= bit(s.mob_to);
+      return r;
+    }
+    default:
+      return (c.limit_reinf ? m.owned & m.enemy_attack : m.owned) | kSkipBit;
+  }
+}
+
+// ---------------------------------------------------------------- graph
+
+// rules.connected_to: owned lands in the component of src (empty when src
+// is not owned).  A BFS over masks.
+RD_FN uint64_t connected_to(uint64_t owned, int src, const Tables& t) {
+  if (!has(owned, src)) return 0;
+  uint64_t comp = bit(src), frontier = comp;
+  while (frontier) {
+    const uint64_t next = nb_any(frontier, t) & owned & ~comp;
+    comp |= next;
+    frontier = next;
+  }
+  return comp;
+}
+
+// rules.dfs_preorder_rank for one game: rank[j] = DFS pre-order of land j
+// in the component of root, NUM_LANDS elsewhere.  `active` admits the
+// game; the walk stops once every land of `until` is visited.  The next
+// land is the unvisited owned neighbour first in the neighbour list; at a
+// dead end the walk goes back through the parent pointers.
+RD_FN void dfs_preorder_rank(uint64_t owned, int root, bool active,
+                             uint64_t until, const Tables& t,
+                             int8_t* rank) {
+  int8_t parent[kLands];
+  for (int j = 0; j < kLands; ++j) {
+    rank[j] = kLands;
+    parent[j] = -1;
+  }
+  const bool at_root = has(owned, root) && active;
+  uint64_t visited = has(owned, root) ? bit(root) : 0;
+  if (at_root) rank[root] = 0;
+  int cur = at_root ? root : -1;
+  if (!(until & ~visited)) cur = -1;
+  int count = at_root ? 1 : 0;
+  while (cur >= 0) {
+    uint64_t nbr = t.adj[cur] & owned & ~visited;
+    int next;
+    if (nbr) {
+      int best = kMaxDegree + 1, nxt = 0;
+      while (nbr) {
+        const int j = low(nbr);
+        nbr &= nbr - 1;
+        const int r = t.nrank[cur * kLands + j];
+        if (r < best) {
+          best = r;
+          nxt = j;
+        }
+      }
+      visited |= bit(nxt);
+      rank[nxt] = static_cast<int8_t>(count);
+      parent[nxt] = static_cast<int8_t>(cur);
+      count += 1;
+      next = nxt;
+    } else {
+      next = parent[cur];
+    }
+    if (!(until & ~visited)) next = -1;
+    cur = next;
+  }
+}
+
+// ---------------------------------------------------------------- engine
+
+// rules.goto_attack.
+RD_FN void goto_attack(St& s, const Tables& t) {
+  s.reinf = 0;
+  s.mob_from = -1;
+  s.mob_to = -1;
+  s.phase = attack_wa(s, t) ? kAttack : kFortify;
+}
+
+// rules.end_turn (with the simple-cards draw_card).
+RD_FN void end_turn(St& s, const Tables& t) {
+  s.cards[s.cur] += s.can_draw ? 1 : 0;
+  const int nxt = 1 - s.cur;
+  s.can_draw = false;
+  s.round += 1;
+  s.cur = nxt;
+  s.attacks = 0;
+  s.phase = kReinforcement;
+  s.reinf = calc_reinforcement(s.own[nxt], t);
+}
+
+// rules.play_cards, simple cards.
+RD_FN void play_cards(St& s, const Tables& t) {
+  if (s.cards[s.cur] >= 3) {
+    s.cards[s.cur] -= 3;
+    s.sets += 1;
+    s.reinf += t.card_gain[s.sets < 0 ? 0 : (s.sets > 63 ? 63 : s.sets)];
+  }
+}
+
+// rules._move_amount.
+RD_FN int move_amount(int budget, const Cfg& c) {
+  if (c.fast_mob) {
+    const int half = floordiv2(budget);
+    return half < c.min_move ? imin(budget, c.min_move) : half;
+  }
+  return imin(budget, c.min_move);
+}
+
+// rules.apply_reinforcement.
+RD_FN void apply_reinforcement(St& s, int li, int amount, const Tables& t) {
+  s.reinf -= amount;
+  s.army[li] += amount;
+  if (s.reinf == 0) goto_attack(s, t);
+}
+
+// rules.battle: dice[0..2] attack, dice[3..4] defend, each sorted
+// descending with zeros for the unused dice.
+RD_FN void battle(int af, int at, const int* dice, int& a_new, int& d_new,
+                  int& units) {
+  const int att_n = af >= 4 ? 3 : (af == 3 ? 2 : 1);
+  const int def_n = at >= 2 ? 2 : 1;
+  int a0 = dice[0], a1 = att_n >= 2 ? dice[1] : 0;
+  int a2 = att_n >= 3 ? dice[2] : 0;
+  int tmp;
+  if (a1 > a0) { tmp = a0; a0 = a1; a1 = tmp; }
+  if (a2 > a1) { tmp = a1; a1 = a2; a2 = tmp; }
+  if (a1 > a0) { tmp = a0; a0 = a1; a1 = tmp; }
+  int d0 = dice[3], d1 = def_n >= 2 ? dice[4] : 0;
+  if (d1 > d0) { tmp = d0; d0 = d1; d1 = tmp; }
+  const bool win1 = a0 > d0;
+  const bool second = att_n >= 2 && def_n == 2;
+  const bool win2 = second && a1 > d1;
+  const bool lose2 = second && !(a1 > d1);
+  d_new = at - (win1 ? 1 : 0) - (win2 ? 1 : 0);
+  a_new = af - (win1 ? 0 : 1) - (lose2 ? 1 : 0);
+  units = att_n - (win1 ? 0 : 1) - (lose2 ? 1 : 0);
+}
+
+// rules.battle_with_outcome: outcome = attacker losses in [0, ncomp].
+RD_FN void battle_with_outcome(int af, int at, int outcome, int& a_new,
+                               int& d_new, int& units) {
+  const int att_n = af >= 4 ? 3 : (af == 3 ? 2 : 1);
+  const int def_n = at >= 2 ? 2 : 1;
+  const bool two = att_n >= 2 && def_n == 2;
+  const bool w1 = outcome == 0 || (outcome == 1 && two);
+  const bool w2 = outcome == 0;
+  const int d_loss = (w1 ? 1 : 0) + (w2 && two ? 1 : 0);
+  const int a_loss = (w1 ? 0 : 1) + (!w2 && two ? 1 : 0);
+  a_new = af - a_loss;
+  d_new = at - d_loss;
+  units = att_n - a_loss;
+}
+
+// rules._apply_battle.
+RD_FN void apply_battle(St& s, int frm, int li, int a1, int d1, int units,
+                        const Tables& t) {
+  const bool conquest = d1 == 0;
+  const int a2 = conquest ? a1 - units : a1;
+  const bool mob = conquest && a2 > 1;
+  s.army[frm] = a2;
+  s.army[li] = conquest ? units : d1;
+  if (conquest) set_owner(s, li, s.cur);
+  s.attacks += 1;
+  s.can_draw = s.can_draw || conquest;
+  if (mob) {
+    s.phase = kMobilization;
+    s.mob_from = frm;
+    s.mob_to = li;
+  }
+  if (s.phase == kAttack && !attack_wa(s, t)) s.phase = kFortify;
+}
+
+// rules.apply_attack.
+RD_FN void apply_attack(St& s, int frm, int li, const int* dice,
+                        const Tables& t) {
+  int a1, d1, units;
+  battle(s.army[frm], s.army[li], dice, a1, d1, units);
+  apply_battle(s, frm, li, a1, d1, units, t);
+}
+
+// rules.apply_mobilization.
+RD_FN void apply_mobilization(St& s, int amount, const Tables& t) {
+  const int mf = clamp_land(s.mob_from), mt = clamp_land(s.mob_to);
+  s.army[mf] -= amount;
+  s.army[mt] += amount;
+  if (s.army[mf] == 1) goto_attack(s, t);
+}
+
+// rules.apply_fortify.
+RD_FN void apply_fortify(St& s, int frm, int li, int amount) {
+  s.army[frm] -= amount;
+  s.army[li] += amount;
+}
+
+// Index of the first maximum of score over the 42 lands (jnp.argmax).
+template <typename F>
+RD_FN int argmax_lands(F score) {
+  int best = score(0), idx = 0;
+  for (int j = 1; j < kLands; ++j) {
+    const int v = score(j);
+    if (v > best) {
+      best = v;
+      idx = j;
+    }
+  }
+  return idx;
+}
+
+// rules.best_attack_from_army: the owned, armed neighbour of target with
+// the largest army, first in target's neighbour list on ties.
+RD_FN int best_attack_from(const St& s, int target, uint64_t owa,
+                           const Tables& t) {
+  const uint64_t cand = t.adj[target] & owa;
+  return argmax_lands([&](int j) {
+    return has(cand, j) ? (s.army[j] - 1) * 8 - t.nrank[target * kLands + j]
+                        : -1;
+  });
+}
+
+// The fortify move of rules.step: the source in the target's owned
+// component (interior before border, most armies, the reference's DFS
+// pre-order on ties), then end_turn.
+RD_FN void fortify_step(St& s, int li, bool is_skip, const Tables& t,
+                        const Cfg& c) {
+  const uint64_t owned = s.own[s.cur];
+  const bool target_full = s.army[li] >= c.army_max;
+  const uint64_t comp = connected_to(owned, li, t);
+  const uint64_t cand = comp & ~bit(li) & army_at_least(s, 2);
+  const uint64_t hen = nb_any(kAll & ~owned, t);
+  const uint64_t interior = cand & ~hen, border = cand & hen;
+  const uint64_t pick = interior ? interior : border;
+  int f_from;
+  if (c.exact_tb) {
+    int top = -1;
+    for (uint64_t m = pick; m; m &= m - 1) top = imax(top, s.army[low(m)]);
+    uint64_t tied = 0;
+    for (uint64_t m = pick; m; m &= m - 1)
+      if (s.army[low(m)] == top) tied |= bit(low(m));
+    const bool need = s.phase == kFortify && !is_skip && !target_full &&
+                      popc(tied) >= 2;
+    int8_t rank[kLands];
+    dfs_preorder_rank(owned, first_set_bit(comp), need, tied, t, rank);
+    f_from = argmax_lands([&](int j) {
+      return has(pick, j) ? s.army[j] * 64 + (kLands - rank[j]) : -1;
+    });
+  } else {
+    f_from = argmax_lands([&](int j) { return has(pick, j) ? s.army[j] : -1; });
+  }
+  const bool can_move = pick && !target_full && !is_skip;
+  const int famount =
+      can_move ? imin(s.army[f_from] - 1, c.army_max - s.army[li]) : 0;
+  s.army[f_from] -= famount;
+  s.army[li] += famount;
+  end_turn(s, t);
+}
+
+// rules.step (dice [5]) or, with use_outcome, rules.step_with_outcome.
+// Terminal games are left unchanged.
+RD_FN void step(St& s, int action, const int* dice, int outcome,
+                bool use_outcome, const Tables& t, const Cfg& c) {
+  if (game_status(s, c) != kNotEnded) return;
+  const int li = clamp_land(action);
+  const bool is_skip = action == kSkip;
+  switch (s.phase) {
+    case kSetup:
+      s.reinf -= 2;
+      s.army[li] += 2;
+      s.phase = kSetupNeutral;
+      break;
+    case kSetupNeutral:
+      s.army[li] += 1;
+      s.round += 1;
+      s.cur = 1 - s.cur;
+      if (s.reinf == 0) {
+        s.phase = kReinforcement;
+        s.reinf = calc_reinforcement(s.own[s.cur], t);
+      } else {
+        s.phase = kSetup;
+      }
+      break;
+    case kReinforcement:
+      if (is_skip) {
+        goto_attack(s, t);
+      } else {
+        play_cards(s, t);
+        const int amount =
+            imin(move_amount(s.reinf, c), c.army_max - s.army[li]);
+        apply_reinforcement(s, li, amount, t);
+      }
+      break;
+    case kAttack:
+      if (is_skip) {
+        s.phase = kFortify;
+      } else {
+        const int frm = best_attack_from(
+            s, li, s.own[s.cur] & army_at_least(s, 2), t);
+        int a1, d1, units;
+        if (use_outcome)
+          battle_with_outcome(s.army[frm], s.army[li], outcome, a1, d1, units);
+        else
+          battle(s.army[frm], s.army[li], dice, a1, d1, units);
+        apply_battle(s, frm, li, a1, d1, units, t);
+      }
+      break;
+    case kMobilization:
+      if (action == s.mob_from) {
+        goto_attack(s, t);
+      } else {
+        const int mf = clamp_land(s.mob_from);
+        apply_mobilization(s, move_amount(s.army[mf] - 1, c), t);
+      }
+      break;
+    default:
+      fortify_step(s, li, is_skip, t, c);
+      break;
+  }
+}
+
+// The SETUP_NEUTRAL move of both agents: +1 on land li, next setup turn.
+RD_FN void setup_neutral_move(St& s, int li, const Tables& t) {
+  s.army[li] += 1;
+  s.round += 1;
+  s.cur = 1 - s.cur;
+  if (s.reinf == 0) {
+    s.phase = kReinforcement;
+    s.reinf = calc_reinforcement(s.own[s.cur], t);
+  } else {
+    s.phase = kSetup;
+  }
+}
+
+// ---------------------------------------------------------------- script
+
+// script_agent._select_target: continent priority, then the first
+// attackable land in the continent's declared order.
+RD_FN int select_target(uint64_t owned, uint64_t attack_mask,
+                        const Tables& t) {
+  int best = 0, cont = 0;
+  for (int c = 0; c < kConts; ++c) {
+    const int unowned = popc(~owned & t.cont[c]);
+    const int att = popc(~owned & attack_mask & t.cont[c]);
+    const int score =
+        att > 0 ? unowned * 1000 - att * 10 + t.cont_tie_rank[c] : 100000000;
+    if (c == 0 || score < best) {
+      best = score;
+      cont = c;
+    }
+  }
+  int best_r = 0, tgt = 0;
+  for (int j = 0; j < kLands; ++j) {
+    const int r = has(attack_mask, j) ? t.land_rank[cont * kLands + j]
+                                      : kLands + 1;
+    if (j == 0 || r < best_r) {
+      best_r = r;
+      tgt = j;
+    }
+  }
+  return tgt;
+}
+
+// script_agent._select_from: the max-army land of owned_mask next to the
+// target, first in the target's neighbour list on ties.
+RD_FN int select_from(const St& s, int target, uint64_t owned_mask,
+                      const Tables& t) {
+  const uint64_t cand = t.adj[target] & owned_mask;
+  return argmax_lands([&](int j) {
+    return has(cand, j) ? s.army[j] * 8 - t.nrank[target * kLands + j] : -1;
+  });
+}
+
+// The ScriptPlayer's carry.
+struct Carry {
+  int to, from;
+  bool mode_b;
+};
+
+// script_agent.script_step_recorded for one game: the state and carry
+// advance only while the game runs; action and record are the recorded
+// 43-way action and its sample mask.
+RD_FN void script_step(St& s, Carry& carry, bool reset, const float* u,
+                       const int* dice, int& action, bool& record,
+                       const Tables& t, const Cfg& c) {
+  if (reset) {
+    carry.to = -1;
+    carry.from = -1;
+    carry.mode_b = false;
+  }
+  const bool live = game_status(s, c) == kNotEnded;
+  const Masks m = player_masks(s, t, c);
+  St o = s;
+  Carry nc = carry;
+  switch (s.phase) {
+    case kSetup: {
+      const int to = select_target(m.owned, m.attack, t);
+      const int frm = select_from(s, to, m.owned, t);
+      o.reinf -= 2;
+      o.army[frm] += 2;
+      o.phase = kSetupNeutral;
+      action = frm;
+      break;
+    }
+    case kSetupNeutral: {
+      const uint64_t pref1 = m.neutral & m.enemy_attack & ~m.attack;
+      const uint64_t pref2 = m.neutral & m.enemy_attack;
+      const uint64_t pool = pref1 ? pref1 : (pref2 ? pref2 : m.neutral);
+      const int li = masked_choice(pool, u[0]);
+      setup_neutral_move(o, li, t);
+      action = li;
+      break;
+    }
+    case kReinforcement: {
+      const bool need_pin = carry.to < 0;
+      if (need_pin) play_cards(o, t);
+      const int r_to =
+          need_pin ? select_target(m.owned, m.attack, t) : carry.to;
+      const int r_from =
+          need_pin ? select_from(o, r_to, m.owned, t) : carry.from;
+      nc.to = r_to;
+      nc.from = r_from;
+      const uint64_t onf = m.owned & ~m.full;
+      const bool from_ok = r_from >= 0 && r_from < kLands && has(onf, r_from);
+      const uint64_t near_to = t.adj[r_to] & onf;
+      const uint64_t near_enemy = onf & (m.enemy_attack | m.neutral_attack);
+      const int to_r =
+          from_ok ? r_from
+                  : (near_to ? low(near_to)
+                             : (near_enemy ? low(near_enemy)
+                                           : first_set_bit(onf)));
+      if (onf) {
+        const int amt =
+            imin(imin(o.reinf, c.min_move), c.army_max - o.army[to_r]);
+        apply_reinforcement(o, to_r, amt, t);
+      } else {
+        goto_attack(o, t);
+      }
+      action = to_r;
+      break;
+    }
+    case kAttack: {
+      const int at = clamp_land(carry.to), af = clamp_land(carry.from);
+      const bool to_valid = carry.to >= 0 && !has(s.own[s.cur], at);
+      const bool from_valid =
+          carry.from >= 0 && s.army[af] >= 2 && has(s.own[s.cur], af);
+      const bool pinned_ok = to_valid && from_valid;
+      int a_to = carry.to, a_from = carry.from;
+      if (!pinned_ok) {
+        a_to = select_target(m.owned, m.attack_wa, t);
+        a_from = select_from(s, a_to, m.owa, t);
+      }
+      nc.to = a_to;
+      nc.from = a_from;
+      nc.mode_b = carry.mode_b || !pinned_ok;
+      apply_attack(o, a_from, a_to, dice, t);
+      action = a_to;
+      break;
+    }
+    case kMobilization: {
+      const int mf = clamp_land(s.mob_from);
+      apply_mobilization(o, imin(s.army[mf] - 1, c.min_move), t);
+      action = clamp_land(s.mob_to);
+      break;
+    }
+    default: {
+      // components of the owned lands, labelled by their lowest land; the
+      // best holds the largest interior stack (landFortifyFromAmount)
+      const uint64_t owned = m.owned;
+      const uint64_t outside = kAll & ~owned;
+      uint64_t interior = 0, has_outside = 0;
+      for (uint64_t w = owned; w; w &= w - 1) {
+        const int j = low(w);
+        if (t.adj[j] & outside) has_outside |= bit(j);
+        else interior |= bit(j);
+      }
+      int best_score = -1000000, best_c = 0;
+      uint64_t best_comp = 0, rem = owned;
+      bool any_amt = false;
+      while (rem) {
+        const int r = low(rem);
+        const uint64_t comp = connected_to(owned, r, t);
+        rem &= ~comp;
+        int amt = 0;
+        for (uint64_t w = comp & interior; w; w &= w - 1)
+          amt = imax(amt, s.army[low(w)]);
+        if (amt > 0) {
+          any_amt = true;
+          const int sc = amt * 64 - r;
+          if (sc > best_score || (sc == best_score && r < best_c)) {
+            best_score = sc;
+            best_c = r;
+            best_comp = comp;
+          }
+        }
+      }
+      if (!any_amt)
+        best_comp = has(owned, 0) ? connected_to(owned, 0, t) : bit(0);
+      const uint64_t src = interior & best_comp;
+      const int f_from =
+          argmax_lands([&](int j) { return has(src, j) ? s.army[j] : -1; });
+      const uint64_t dst = owned & best_comp & has_outside;
+      const int f_to = argmax_lands([&](int j) {
+        return has(dst, j) ? popc(t.adj[j] & outside) : 0;
+      });
+      const bool do_fortify = m.owa && any_amt && dst;
+      int famt = 0, ff = 0, ft = 0;
+      if (do_fortify) {
+        famt = imax(imin(s.army[f_from] - 1, c.army_max - s.army[f_to]), 0);
+        ff = f_from;
+        ft = f_to;
+      }
+      apply_fortify(o, ff, ft, famt);
+      end_turn(o, t);
+      action = do_fortify ? f_to : kSkip;
+      break;
+    }
+  }
+  record = live && (s.phase == kFortify ? m.owa != 0 : true);
+  if (live) {
+    s = o;
+    carry = nc;
+  }
+}
+
+// ---------------------------------------------------------------- random
+
+// random_agent.random_step_recorded for one game (u[0] primary choice,
+// u[1] secondary, u[2] amount or coin).
+RD_FN void random_step(St& s, const float* u, const int* dice, int& action,
+                       bool& record, const Tables& t, const Cfg& c) {
+  const bool live = game_status(s, c) == kNotEnded;
+  const Masks m = player_masks(s, t, c);
+  St o = s;
+  switch (s.phase) {
+    case kSetup: {
+      const int li = masked_choice(m.owned, u[0]);
+      o.reinf -= 2;
+      o.army[li] += 2;
+      o.phase = kSetupNeutral;
+      action = li;
+      break;
+    }
+    case kSetupNeutral: {
+      const int li = masked_choice(m.neutral, u[0]);
+      setup_neutral_move(o, li, t);
+      action = li;
+      break;
+    }
+    case kReinforcement: {
+      play_cards(o, t);
+      const int li = masked_choice(m.owned & ~m.full, u[0]);
+      apply_reinforcement(o, li, 1, t);
+      action = li;
+      break;
+    }
+    case kAttack: {
+      const int choice = masked_choice(m.attack_wa | kSkipBit, u[0]);
+      if (choice == kSkip) {
+        o.phase = kFortify;
+        action = kSkip;
+      } else {
+        const int frm = masked_choice(t.adj[choice] & m.owa, u[1]);
+        apply_attack(o, frm, choice, dice, t);
+        action = choice;
+      }
+      break;
+    }
+    case kMobilization: {
+      const int mf = clamp_land(s.mob_from);
+      if (u[2] > 0.5f) {
+        apply_mobilization(o, imin(s.army[mf] - 1, c.min_move), t);
+        action = clamp_land(s.mob_to);
+      } else {
+        goto_attack(o, t);
+        action = mf;
+      }
+      break;
+    }
+    default: {
+      const int fchoice = masked_choice((m.owned & ~m.full) | kSkipBit, u[0]);
+      const bool f_skip = fchoice == kSkip;
+      const int fto = clamp_land(fchoice);
+      const uint64_t cand =
+          connected_to(m.owned, fto, t) & ~bit(fto) & m.owa;
+      const int ffrom = masked_choice(cand, u[1]);
+      const int max_amt =
+          imin(s.army[ffrom] - 1, c.army_max - s.army[fto]);
+      const bool can = !f_skip && cand;
+      const int ramt =
+          can ? static_cast<int>(fmul(u[2], static_cast<float>(max_amt))) : 0;
+      apply_fortify(o, can ? ffrom : 0, can ? fto : 0, ramt);
+      end_turn(o, t);
+      action = f_skip ? kSkip : fto;
+      break;
+    }
+  }
+  record = live;
+  if (live) s = o;
+}
+
+// ---------------------------------------------------------------- views
+
+// featurize for one game into out[42 * F] (cell-major, planes in the JAX
+// order): 3 army planes, then the broadcast scalars (round share for V3,
+// army share for V2+, reinforcement share, attack frequency, can-draw),
+// then the phase one-hot.
+RD_FN void features(const St& s, int version, const Cfg& c, const Tables& t,
+                    float* out) {
+  const uint64_t own = s.own[s.cur], enemy = s.own[1 - s.cur];
+  const float ref = static_cast<float>(calc_reinforcement(own, t));
+  const float eref = static_cast<float>(calc_reinforcement(enemy, t));
+  int ta = 0, eta = 0;
+  for (int j = 0; j < kLands; ++j) {
+    if (has(own, j)) ta += s.army[j];
+    if (has(enemy, j)) eta += s.army[j];
+  }
+  float sc[5];
+  int ns = 0;
+  if (version == 3)
+    sc[ns++] = fdiv(static_cast<float>(s.round),
+                    static_cast<float>(c.max_rounds));
+  if (version >= 2) {
+    const float fa = static_cast<float>(ta), fe = static_cast<float>(eta);
+    sc[ns++] = fdiv(fa, fa + fe);
+  }
+  sc[ns++] = fdiv(ref, ref + eref);
+  const float af = fdiv(static_cast<float>(s.attacks), 8.0f);
+  sc[ns++] = af > 1.0f ? 1.0f : af;
+  sc[ns++] = s.can_draw ? 1.0f : 0.0f;
+  const int F = 3 + ns + 6;
+  const float army_max = static_cast<float>(c.army_max);
+  for (int j = 0; j < kLands; ++j) {
+    float* o = out + j * F;
+    const float a = fdiv(static_cast<float>(s.army[j]), army_max);
+    const bool mine = has(own, j), theirs = has(enemy, j);
+    o[0] = mine ? a : 0.0f;
+    o[1] = theirs ? a : 0.0f;
+    o[2] = (!mine && !theirs) ? a : 0.0f;
+    for (int k = 0; k < ns; ++k) o[3 + k] = sc[k];
+    for (int k = 0; k < 6; ++k) o[3 + ns + k] = s.phase == k ? 1.0f : 0.0f;
+  }
+}
+
+}  // namespace rd

@@ -14,6 +14,9 @@ Feature layout (INPUT_VECTOR_TYPE_2 default, alphazero_nn_data.h:13-64):
   6  can draw card          (broadcast)
   7..12  phase one-hot      (broadcast)
 V3 inserts round/58 at plane 3 (shifting the rest), V1 drops army share.
+
+On the card ``featurize`` is the features output of kernel K8
+(``rules.state_views``); CPU tensors take ``_featurize_plain``.
 """
 
 from __future__ import annotations
@@ -22,11 +25,19 @@ import torch
 import torch.nn.functional as F
 
 from ..config import Config, MAP_X, MAP_Y, NUM_LANDS, NUM_PHASES
+from . import rules
 from .rules import calc_reinforcement
 from .state import GameState
 
 
 def featurize(state: GameState, cfg: Config) -> torch.Tensor:
+    """[B, 7, 6, F] float32 network input of ``state``."""
+    if state.device.type == "cpu":
+        return _featurize_plain(state, cfg)
+    return rules.state_views(state, cfg, features=True)[0]
+
+
+def _featurize_plain(state: GameState, cfg: Config) -> torch.Tensor:
     b = state.batch_size
     p = state.cur_player[:, None]
     own = state.owner == p

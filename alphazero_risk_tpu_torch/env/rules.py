@@ -26,18 +26,36 @@ The JAX engine has three fixpoint ``while_loop``s.  Here:
 
 Only the simple-cards rules are ported: ``simple_cards=False`` raises
 ``NotImplementedError``.
+
+On the card two kernels carry the engine (one thread per game, the game's
+own phase branch only, the graph walks as mask walks):
+
+- K7 (``csrc/rules_step.cu``): ``step``, ``step_with_outcome`` and
+  ``expand`` (the child of a search tree's node, with its status and
+  legality);
+- K8 (``csrc/state_views.cu``, ``state_views``): ``legal_actions``,
+  ``game_status`` and ``featurize``, any of them from one read.
+
+CPU tensors take the plain versions (``_step_plain``,
+``_step_with_outcome_plain``, ``_expand_plain``, ``_legal_actions_plain``,
+``_game_status_plain``), which follow the JAX code; CUDA tensors launch the
+kernel or raise.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from .. import kernels
 from ..config import (
     Config,
+    MAP_X,
+    MAP_Y,
     NUM_ACTIONS,
     NUM_LANDS,
     PH_ATTACK,
@@ -52,7 +70,7 @@ from ..config import (
     NEUTRAL_PLAYER,
 )
 from . import topology
-from .state import GameState, tree_select
+from .state import GameState, tree_map, tree_select
 
 I32 = torch.int32
 
@@ -198,9 +216,8 @@ def calc_reinforcement(owned: torch.Tensor) -> torch.Tensor:
     return torch.clamp(cnt // 3 + bonus, min=3).to(I32)
 
 
-def game_status(state: GameState, cfg: Config) -> torch.Tensor:
-    """[B] int32: -1 running, -2 draw, else winner index
-    (reference ``State::gameStatus``, state.cpp:518-565)."""
+def _game_status_plain(state: GameState, cfg: Config) -> torch.Tensor:
+    """``game_status`` in plain PyTorch."""
     p0 = (state.owner == 0).sum(-1)
     p1 = (state.owner == 1).sum(-1)
     over = state.round > cfg.max_game_rounds
@@ -214,9 +231,8 @@ def game_status(state: GameState, cfg: Config) -> torch.Tensor:
     return status.to(I32)
 
 
-def legal_actions(state: GameState, cfg: Config) -> torch.Tensor:
-    """[B, 43] bool legality mask (reference ``UtilityNN::getValidMoves``,
-    alphazero_moves.cpp:3-70)."""
+def _legal_actions_plain(state: GameState, cfg: Config) -> torch.Tensor:
+    """``legal_actions`` in plain PyTorch."""
     m = player_masks(state, cfg)
     b = state.batch_size
     dev = state.device
@@ -447,19 +463,18 @@ def apply_attack_outcome(state: GameState, frm: torch.Tensor,
     return _apply_battle(state, frm, li, a1, d1, units, cfg)
 
 
-def step_with_outcome(state: GameState, action: torch.Tensor,
-                      outcome: torch.Tensor, cfg: Config) -> GameState:
-    """``step`` with battle randomness replaced by an explicit outcome
-    index.  Non-attack phases ignore ``outcome``.  Used inside MCTS."""
+def _step_with_outcome_plain(state: GameState, action: torch.Tensor,
+                             outcome: torch.Tensor, cfg: Config) -> GameState:
+    """``step_with_outcome`` in plain PyTorch."""
     dummy_dice = torch.ones((state.batch_size, 5), dtype=I32,
                             device=state.device)
-    out = step(state, action, dummy_dice, cfg)
+    out = _step_plain(state, action, dummy_dice, cfg)
     masks = player_masks(state, cfg)
     li = action.clamp(0, NUM_LANDS - 1)
     frm = best_attack_from(state, li, masks.owned_with_army)
     s_attack = apply_attack_outcome(state, frm, li, outcome, cfg)
     use_attack = (state.phase == PH_ATTACK) & (action != SKIP_ACTION) & (
-        game_status(state, cfg) == STATUS_NOT_ENDED)
+        _game_status_plain(state, cfg) == STATUS_NOT_ENDED)
     return tree_select(use_attack, s_attack, out)
 
 
@@ -564,18 +579,47 @@ def dfs_preorder_rank(owned: torch.Tensor, root: torch.Tensor,
 # step
 # ---------------------------------------------------------------------------
 
-def step(state: GameState, action: torch.Tensor, dice: torch.Tensor,
-         cfg: Config) -> GameState:
-    """Apply one 43-way action per game (reference ``UtilityNN::makeMove``,
-    alphazero_moves.cpp:72-233).
+def _fortify_sources(state: GameState, li: torch.Tensor,
+                     owned: torch.Tensor):
+    """(the owned component of the fortify target ``li``, the source
+    candidates: its other lands with 2+ armies and no enemy neighbour, or
+    failing those its border ones)."""
+    comp = connected_to(owned, li)
+    idx = tables(state.device).land_idx[None, :]
+    cand = comp & (idx != li[:, None]) & (state.army >= 2)
+    has_enemy_neighbor = neighbor_count(~owned) > 0
+    interior = cand & ~has_enemy_neighbor
+    border = cand & has_enemy_neighbor
+    return comp, torch.where(interior.any(-1)[:, None], interior, border)
 
-    ``action`` in [0, 43); 42 is skip/end-phase.  ``dice`` is [B, 5] in
-    [1, 6], consumed only by attack resolutions.  Terminal games are left
-    unchanged.
-    """
+
+def _fortify_ties(state: GameState, is_skip, target_full, pick, running):
+    """(the candidates holding the most armies, [B] bool: the games whose
+    fortify move needs the DFS tie-break)."""
+    top = torch.where(pick, state.army, -1).amax(-1)
+    tied = pick & (state.army == top[:, None])
+    return tied, ((state.phase == PH_FORTIFY) & running & ~is_skip
+                  & ~target_full & (tied.sum(-1) >= 2))
+
+
+def fortify_needs_rank(state: GameState, action: torch.Tensor,
+                       cfg: Config) -> torch.Tensor:
+    """[B] bool: the games where ``step`` with ``action`` is a fortify move
+    whose most-armed source candidates tie, so that only the reference's
+    DFS order picks the source (plain PyTorch on any device)."""
+    li = action.clamp(0, NUM_LANDS - 1)
+    _, pick = _fortify_sources(state, li, player_masks(state, cfg).owned)
+    running = _game_status_plain(state, cfg) == STATUS_NOT_ENDED
+    return _fortify_ties(state, action == SKIP_ACTION,
+                         take(state.army, li) >= cfg.land_army_max, pick,
+                         running)[1]
+
+
+def _step_plain(state: GameState, action: torch.Tensor, dice: torch.Tensor,
+                cfg: Config) -> GameState:
+    """``step`` in plain PyTorch: every phase branch for every game,
+    blended by phase."""
     _check_cfg(cfg)
-    t = tables(state.device)
-    idx = t.land_idx[None, :]
     action = action.to(I32)
     li = action.clamp(0, NUM_LANDS - 1)
     is_skip = action == SKIP_ACTION
@@ -627,22 +671,14 @@ def step(state: GameState, action: torch.Tensor, dice: torch.Tensor,
 
     # ---- FORTIFY (alphazero_moves.cpp:172-231) ----
     target_full = take(state.army, li) >= cfg.land_army_max
-    comp = connected_to(masks.owned, li)
-    cand = comp & (idx != li[:, None]) & (state.army >= 2)
-    has_enemy_neighbor = neighbor_count(~masks.owned) > 0
-    interior = cand & ~has_enemy_neighbor
-    border = cand & has_enemy_neighbor
-    use_interior = interior.any(-1)
-    pick_from_mask = torch.where(use_interior[:, None], interior, border)
+    comp, pick_from_mask = _fortify_sources(state, li, masks.owned)
     # First-strict-max over the reference's DFS pre-order (see the JAX
     # engine): the DFS runs only for games really in this decision that
     # have an army tie among the max candidates.
-    running = game_status(state, cfg) == STATUS_NOT_ENDED
+    running = _game_status_plain(state, cfg) == STATUS_NOT_ENDED
     if cfg.exact_fortify_tiebreak:
-        top = torch.where(pick_from_mask, state.army, -1).amax(-1)
-        tied = pick_from_mask & (state.army == top[:, None])
-        need_rank = ((state.phase == PH_FORTIFY) & running & ~is_skip
-                     & ~target_full & (tied.sum(-1) >= 2))
+        tied, need_rank = _fortify_ties(state, is_skip, target_full,
+                                        pick_from_mask, running)
         pre_rank = dfs_preorder_rank(masks.owned, first_set_bit(comp),
                                      active=need_rank, until=tied)
         score = torch.where(pick_from_mask,
@@ -681,3 +717,253 @@ def step_key(state: GameState, action: torch.Tensor,
     """``step`` with dice drawn from ``generator``."""
     dice = roll_dice(generator, state.batch_size).to(state.device)
     return step(state, action, dice, cfg)
+
+
+# ---------------------------------------------------------------------------
+# The public engine: K7 and K8 on the card, the plain versions on the CPU
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def kernel_tables(device: torch.device) -> torch.Tensor:
+    """The board tables of the rules kernels, packed as ``rd::Tables`` of
+    ``csrc/rules_dev.cuh`` (2,728 bytes, uint8) on ``device``."""
+    bits = np.uint64(1) << np.arange(NUM_LANDS, dtype=np.uint64)
+
+    def masks(rows):
+        return (np.asarray(rows, bool) * bits).sum(-1, dtype=np.uint64)
+
+    parts = [masks(topology.ADJACENCY).astype("<u8"),
+             masks(topology.CONTINENT_MASK).astype("<u8"),
+             topology.CONTINENT_SIZE.astype("<i4"),
+             topology.CONTINENT_BONUS.astype("<i4"),
+             CARD_SET_GAIN.astype("<i4"),
+             topology.CONTINENT_TIE_RANK.astype("<i4"),
+             topology.NEIGHBOR_RANK.astype("<i1"),
+             topology.SCRIPT_LAND_RANK.astype("<i1")]
+    buf = np.concatenate([p.ravel().view(np.uint8) for p in parts])
+    if buf.size != 2728:
+        raise AssertionError("kernel_tables no longer matches rd::Tables")
+    return torch.from_numpy(buf).to(device)
+
+
+def kernel_flags(cfg: Config) -> tuple:
+    """The trailing ints of the rules kernels: land_army_max,
+    min_unit_move, max_game_rounds and the switch bits.  (Computed on each
+    call: hashing the frozen Config for a cache costs more.)"""
+    flags = (int(cfg.allow_yield) | int(cfg.limit_reinforcement_moves) << 1
+             | int(cfg.limit_attack_moves) << 2
+             | int(cfg.fast_attack_mobilization) << 3
+             | int(cfg.exact_fortify_tiebreak) << 4)
+    return (cfg.land_army_max, cfg.min_unit_move, cfg.max_game_rounds, flags)
+
+
+B8 = torch.bool
+# The first 12 fields of GameState, as the kernels read them: name, type,
+# shape after the game (and node) axes.
+STATE_SPEC = (("owner", I32, (NUM_LANDS,)), ("army", I32, (NUM_LANDS,)),
+              ("phase", I32, ()), ("round", I32, ()),
+              ("cur_player", I32, ()), ("reinforcements", I32, ()),
+              ("cards", I32, (2,)), ("card_sets_played", I32, ()),
+              ("mob_from", I32, ()), ("mob_to", I32, ()),
+              ("can_draw_card", B8, ()), ("attacks_during_turn", I32, ()))
+CARDS_SPEC = (("player_cards", B8, (2, NUM_LANDS)),
+              ("drawn_cards", B8, (NUM_LANDS,)))
+# What K8 reads.
+VIEW_FIELDS = ("owner", "army", "phase", "round", "cur_player", "mob_from",
+               "mob_to", "can_draw_card", "attacks_during_turn")
+
+
+def checked(t: torch.Tensor, dtype, shape, what: str) -> torch.Tensor:
+    """``t`` if it is a contiguous CUDA tensor of ``dtype`` and ``shape``;
+    else raise (what a kernel takes)."""
+    if (not t.is_cuda or t.dtype != dtype or t.shape != shape
+            or not t.is_contiguous()):
+        raise ValueError(f"{what}: a contiguous CUDA {dtype} tensor of shape "
+                         f"{tuple(shape)} is needed, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+    return t
+
+
+def state_fields(state: GameState, lead: tuple, spec=STATE_SPEC):
+    """The tensors of ``spec``'s fields of ``state``, each checked against
+    its type and the shape ``lead`` + its own."""
+    return [checked(getattr(state, name), dtype, lead + tail, name)
+            for name, dtype, tail in spec]
+
+
+@functools.lru_cache(maxsize=None)
+def _layout(spec) -> tuple:
+    """``spec``'s fields grouped by type: (type, names, shapes after the
+    game axis, elements per game)."""
+    groups = {}
+    for name, dtype, tail in spec:
+        groups.setdefault(dtype, []).append((name, tail, math.prod(tail)))
+    return tuple((dtype, *zip(*fields)) for dtype, fields in groups.items())
+
+
+def empty_fields(b: int, device, spec=STATE_SPEC) -> dict:
+    """Fresh contiguous [b, *shape] tensors of ``spec``'s fields by name,
+    cut from one allocation per type: a wrapper's allocations cost more
+    than the rules kernels run."""
+    out = {}
+    for dtype, names, tails, sizes in _layout(spec):
+        parts = torch.empty(b * sum(sizes), dtype=dtype, device=device).split(
+            [b * n for n in sizes])
+        for name, tail, t in zip(names, tails, parts):
+            out[name] = t.view((b,) + tail) if tail else t
+    return out
+
+
+def launch_rules(kernel, states: GameState, lead: tuple, pre: tuple,
+                 outs: tuple, cfg: Config):
+    """Launch a rules kernel (K7, K9, K10) whose C arguments are: the 12
+    state fields of ``states`` (each of shape ``lead`` + its own), ``pre``
+    (pointers and ints), the 12 state fields of the B results, the
+    outputs that ``outs`` describes ((name, type, shape after B), or None
+    for a null pointer), the packed tables, B and ``kernel_flags(cfg)``.  Returns the
+    resulting GameState (with the card masks of ``outs``, else those of
+    ``states``) and every fresh output by name."""
+    _check_cfg(cfg)
+    b, dev = lead[0], states.phase.device
+    ins = state_fields(states, lead)
+    new = empty_fields(b, dev, STATE_SPEC + tuple(o for o in outs if o))
+    if b:
+        kernel.launch(
+            *(t.data_ptr() for t in ins), *pre,
+            *(new[name].data_ptr() for name, _, _ in STATE_SPEC),
+            *(new[o[0]].data_ptr() if o else None for o in outs),
+            kernel_tables(dev).data_ptr(), b, *kernel_flags(cfg))
+    result = GameState(
+        **{name: new[name] for name, _, _ in STATE_SPEC},
+        player_cards=new.get("player_cards", states.player_cards),
+        drawn_cards=new.get("drawn_cards", states.drawn_cards))
+    return result, new
+
+
+# K7's extra outputs in expand mode: the child's card masks (copied from
+# its node), its status and its legal mask; null in step mode.
+EXPAND_OUTS = CARDS_SPEC + (("status", I32, ()),
+                            ("legal", B8, (NUM_ACTIONS,)))
+STEP_OUTS = (None,) * len(EXPAND_OUTS)
+
+
+def _launch_step(states: GameState, action: torch.Tensor, cfg: Config, *,
+                 dice=None, outcome=None, node=None):
+    """K7.  ``states`` holds B games; or, with ``node`` [B], the [B, N]
+    node states of a tree (game b steps node ``max(node[b], 0)``), and
+    then the result comes with its status and legal mask."""
+    if node is None:
+        b, n = states.batch_size, 1
+        lead = (b,)
+    else:
+        b, n = node.shape[0], states.phase.shape[1]
+        lead = (b, n)
+        checked(node, I32, (b,), "node")
+    cards = state_fields(states, lead, CARDS_SPEC)
+    action = checked(action.to(I32), I32, (b,), "action")
+    if dice is not None:
+        checked(dice, I32, (b, 5), "dice")
+    if outcome is not None:
+        outcome = checked(outcome.to(I32), I32, (b,), "outcome")
+    P = kernels.ptr
+    result, new = launch_rules(
+        kernels.RULES_STEP, states, lead,
+        (*(t.data_ptr() for t in cards), P(node), n, action.data_ptr(),
+         P(dice), P(outcome)),
+        STEP_OUTS if node is None else EXPAND_OUTS, cfg)
+    return result if node is None else (result, new["status"], new["legal"])
+
+
+def step(state: GameState, action: torch.Tensor, dice: torch.Tensor,
+         cfg: Config) -> GameState:
+    """Apply one 43-way action per game (reference ``UtilityNN::makeMove``,
+    alphazero_moves.cpp:72-233).
+
+    ``action`` in [0, 43); 42 is skip/end-phase.  ``dice`` is [B, 5] in
+    [1, 6], consumed only by attack resolutions.  Terminal games are left
+    unchanged.  CUDA tensors launch K7; CPU tensors take ``_step_plain``.
+    """
+    if state.device.type == "cpu":
+        return _step_plain(state, action, dice, cfg)
+    return _launch_step(state, action, cfg, dice=dice)
+
+
+def step_with_outcome(state: GameState, action: torch.Tensor,
+                      outcome: torch.Tensor, cfg: Config) -> GameState:
+    """``step`` with battle randomness replaced by an explicit outcome
+    index.  Non-attack phases ignore ``outcome``.  Used inside MCTS.  CUDA
+    tensors launch K7; CPU tensors take ``_step_with_outcome_plain``."""
+    if state.device.type == "cpu":
+        return _step_with_outcome_plain(state, action, outcome, cfg)
+    return _launch_step(state, action, cfg, outcome=outcome)
+
+
+def _expand_plain(states: GameState, node: torch.Tensor,
+                  action: torch.Tensor, outcome: torch.Tensor, cfg: Config):
+    """``expand`` in plain PyTorch: gather, step, status, legality."""
+    rows = torch.arange(node.shape[0], device=node.device)
+    n = node.clamp(min=0).long()
+    parent = tree_map(lambda x: x[rows, n], states)
+    child = _step_with_outcome_plain(parent, action, outcome, cfg)
+    return (child, _game_status_plain(child, cfg),
+            _legal_actions_plain(child, cfg))
+
+
+def expand(states: GameState, node: torch.Tensor, action: torch.Tensor,
+           outcome: torch.Tensor, cfg: Config):
+    """The children of one node per game of a search tree: ``states`` are
+    the tree's [B, N] node states, game b steps node ``max(node[b], 0)``
+    with ``action[b]`` and battle outcome ``outcome[b]``.  Returns
+    ``(child GameState, status [B] int32, legal [B, 43] bool)``.  CUDA
+    tensors launch K7 once; CPU tensors take ``_expand_plain``."""
+    if states.device.type == "cpu":
+        return _expand_plain(states, node, action, outcome, cfg)
+    return _launch_step(states, action, cfg, outcome=outcome, node=node)
+
+
+def _state_views_plain(state: GameState, cfg: Config, legal: bool,
+                       status: bool, features: bool) -> tuple:
+    # featurize imports this module, so its plain version is fetched here
+    from .featurize import _featurize_plain
+    return tuple(fn(state, cfg) for want, fn in (
+        (legal, _legal_actions_plain), (status, _game_status_plain),
+        (features, _featurize_plain)) if want)
+
+
+def state_views(state: GameState, cfg: Config, *, legal: bool = False,
+                status: bool = False, features: bool = False) -> tuple:
+    """Any of ``legal_actions`` [B, 43] bool, ``game_status`` [B] int32 and
+    ``featurize`` [B, 7, 6, F] f32 of ``state``, in that order, from one
+    read of each game (kernel K8).  CPU tensors take the plain versions."""
+    if state.device.type == "cpu":
+        return _state_views_plain(state, cfg, legal, status, features)
+    b, dev = state.batch_size, state.phase.device
+    ins = state_fields(state, (b,), tuple(
+        f for f in STATE_SPEC if f[0] in VIEW_FIELDS))
+    outs = (torch.empty((b, NUM_ACTIONS), dtype=B8, device=dev)
+            if legal else None,
+            torch.empty((b,), dtype=I32, device=dev) if status else None,
+            torch.empty((b, MAP_Y, MAP_X, cfg.num_features),
+                        dtype=torch.float32, device=dev)
+            if features else None)
+    if b:
+        army_max, _, max_rounds, flags = kernel_flags(cfg)
+        P = kernels.ptr
+        kernels.STATE_VIEWS.launch(
+            *(t.data_ptr() for t in ins), kernel_tables(dev).data_ptr(),
+            *(P(t) for t in outs), b, army_max, max_rounds, flags,
+            cfg.feature_version)
+    return tuple(t for t in outs if t is not None)
+
+
+def legal_actions(state: GameState, cfg: Config) -> torch.Tensor:
+    """[B, 43] bool legality mask (reference ``UtilityNN::getValidMoves``,
+    alphazero_moves.cpp:3-70).  K8 on the card."""
+    return state_views(state, cfg, legal=True)[0]
+
+
+def game_status(state: GameState, cfg: Config) -> torch.Tensor:
+    """[B] int32: -1 running, -2 draw, else winner index
+    (reference ``State::gameStatus``, state.cpp:518-565).  K8 on the
+    card."""
+    return state_views(state, cfg, status=True)[0]

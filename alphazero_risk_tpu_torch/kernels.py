@@ -6,8 +6,9 @@ first use, loaded with ``ctypes``, and launched on PyTorch's current stream.
 Nothing is built or loaded when this module is imported.
 
 Libraries go to ``build/kernels/`` beside the package (listed in
-``.gitignore``), named by a hash of the source and the flags, so an edited
-source is rebuilt and a stale library is never loaded.
+``.gitignore``), named by a hash of the source, the headers it includes and
+the flags, so an edited source is rebuilt and a stale library is never
+loaded.
 
 The common flags include ``--fmad=false``: kernels whose float results are
 held bit for bit against a plain PyTorch version must round every product
@@ -62,11 +63,12 @@ class Kernel:
     """One CUDA source, its C entry point and its launch count."""
 
     def __init__(self, name: str, source: str, symbol: str, argtypes,
-                 fmad: bool = False):
+                 fmad: bool = False, headers: tuple = ()):
         self.name = name
         self.flags = [f for f in NVCC_FLAGS
                       if not (fmad and f == "--fmad=false")]
         self.source = CSRC / source
+        self.headers = tuple(CSRC / h for h in headers)
         self.symbol = symbol
         self.argtypes = list(argtypes) + [P]   # + the stream
         self.launches = 0
@@ -75,8 +77,9 @@ class Kernel:
 
     @property
     def library(self) -> Path:
-        h = hashlib.sha256(self.source.read_bytes()
-                           + " ".join(self.flags).encode()).hexdigest()[:12]
+        text = b"".join(p.read_bytes() for p in (self.source, *self.headers))
+        h = hashlib.sha256(text + " ".join(self.flags).encode()
+                           ).hexdigest()[:12]
         return BUILD_DIR / f"lib{self.source.stem}_{h}.so"
 
     def start_build(self) -> subprocess.Popen | None:
@@ -149,8 +152,36 @@ TREE_WRITE = Kernel(
     "write_nodes", "tree_write.cu", "az_write_nodes",
     [P] * 48 + [I, I, I])
 
+# The rules kernels share csrc/rules_dev.cuh.  The trailing ints of each:
+# B, land_army_max, min_unit_move, max_game_rounds, flags (rules.
+# kernel_flags), and for K8 the feature version.
+RULES = ("rules_dev.cuh",)
+
+# 12 state fields and player/drawn cards in, node, N, action, dice,
+# outcome, 12 state fields and player/drawn cards out, status, legal,
+# tables
+RULES_STEP = Kernel(
+    "rules_step", "rules_step.cu", "az_rules_step",
+    [P] * 15 + [I] + [P] * 20 + [I] * 5, headers=RULES)
+
+# 9 state fields, tables, legal, status, features
+STATE_VIEWS = Kernel(
+    "state_views", "state_views.cu", "az_state_views",
+    [P] * 13 + [I] * 5, headers=RULES)
+
+# 12 state fields, 3 carry fields, reset, u, dice in; 12 state fields,
+# 3 carry fields, action, record out; tables
+SCRIPT_STEP = Kernel(
+    "script_step", "script_step.cu", "az_script_step",
+    [P] * 36 + [I] * 5, headers=RULES)
+
+# 12 state fields, u, dice in; 12 state fields, action, record out; tables
+RANDOM_STEP = Kernel(
+    "random_step", "random_step.cu", "az_random_step",
+    [P] * 29 + [I] * 5, headers=RULES)
+
 ALL = (CONV3X3_I8, MCTS_DESCEND, MCTS_BACKUP, CONV3X3_BF16, HEADS_EVAL,
-       TREE_WRITE)
+       TREE_WRITE, RULES_STEP, STATE_VIEWS, SCRIPT_STEP, RANDOM_STEP)
 
 
 def build_all() -> None:

@@ -16,8 +16,10 @@ Three kernels carry the simulation on the card:
 
 On CPU tensors they take their plain PyTorch versions (``_descend_plain``,
 ``_write_nodes_plain``, ``_backup_plain``), which follow the JAX code step
-by step.  The rules transition, legality and the terminal value of the
-expansion stay plain PyTorch.
+by step.  The expansion's child state, status and legality come from one
+launch of the rules kernel K7 (``rules.expand``), a root's legality and
+status from K8 (``rules.state_views``), and the features of every
+evaluation from K8 as well.
 
 Randomness is explicit: ``search`` takes its chance noise as a tensor
 ``gumbel[S, max_depth, B, 3]``; outcome o at depth d of simulation s is
@@ -106,11 +108,6 @@ class Descent(NamedTuple):
 
 def _rows(b: int, device) -> torch.Tensor:
     return torch.arange(b, device=device)
-
-
-def _gather_state(states: GameState, n: torch.Tensor) -> GameState:
-    rows = _rows(n.shape[0], n.device)
-    return tree_map(lambda x: x[rows, n.long()], states)
 
 
 def _terminal_value(status: torch.Tensor, player: torch.Tensor):
@@ -252,9 +249,8 @@ def _empty_tree(root: GameState, cfg: Config) -> Tree:
 def root_inputs(root: GameState, cfg: Config, eval_fn: EvalFn):
     """What ``write_nodes`` writes into node 0: ``(state, term, value,
     legal, prior)`` of the root, contiguous."""
-    legal0 = rules.legal_actions(root, cfg)
+    legal0, status0 = rules.state_views(root, cfg, legal=True, status=True)
     probs0, value0 = eval_fn(root, legal0)
-    status0 = rules.game_status(root, cfg)
     term0 = status0 != STATUS_NOT_ENDED
     value0 = torch.where(term0, _terminal_value(status0, root.cur_player),
                          value0.to(F32))
@@ -429,15 +425,11 @@ def expansion_inputs(tree: Tree, path: Descent, cfg: Config,
                      eval_fn: EvalFn):
     """What ``write_nodes`` writes for one simulation: ``(child state,
     term, node value, legal, prior)`` of the node each game would expand,
-    contiguous.  Plain PyTorch: the rules transition, legality, the
-    network and the terminal value."""
-    en = path.exp_n.clamp(min=0).long()
-    parent = _gather_state(tree.states, en)
-    child_state = rules.step_with_outcome(parent, path.exp_a, path.exp_o,
-                                          cfg)
-    status = rules.game_status(child_state, cfg)
+    contiguous: the child of node ``exp_n`` (``rules.expand``, K7 on the
+    card), the network on it and the terminal value."""
+    child_state, status, legal_c = rules.expand(
+        tree.states, path.exp_n, path.exp_a, path.exp_o, cfg)
     term = status != STATUS_NOT_ENDED
-    legal_c = rules.legal_actions(child_state, cfg)
     probs_c, value_c = eval_fn(child_state, legal_c)
     node_value = torch.where(
         term, _terminal_value(status, child_state.cur_player),

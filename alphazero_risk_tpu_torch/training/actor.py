@@ -15,8 +15,10 @@ hands out, per step, the search's Gumbel noise and root-noise uniforms, the
 Gumbel noise of a sampled move, the dice of the AlphaZero move and the
 opponent's ``u``/dice (of the step, and of each fast-forward iteration).
 ``GeneratorDraws`` draws them from a ``torch.Generator``; a test can hand in
-the numbers another implementation drew.  Tree reuse across moves is not
-ported yet.
+the numbers another implementation drew.  ``run_scripted_episodes`` (the
+supervised-bootstrap generator: scripted and random agents only, every
+decision recorded) takes one ``opp()`` draw per step from the same kind of
+object.  Tree reuse across moves is not ported yet.
 """
 
 from __future__ import annotations
@@ -305,6 +307,52 @@ def run_episodes(eval_fn, state0: GameState, draws, cfg: Config,
     return ActorOutput(state=state, samples=samples,
                        status=rules.game_status(state, cfg), carry=carry,
                        prev_player=prev, az_decisions=decisions)
+
+
+def run_scripted_episodes(state0: GameState, draws, cfg: Config,
+                          num_steps: int, kinds: Tuple[int, int],
+                          carry_in=None, prev_in=None) -> ActorOutput:
+    """Script/random-only games with every micro-decision recorded as a
+    one-hot policy sample: the reference's ``train-data`` supervised
+    bootstrap data generator (alphazero_trainer.cpp:227-319, where its best
+    models actually came from).  ``kinds[p]`` (``OPP_SCRIPT`` or
+    ``OPP_RANDOM``) plays seat p.
+
+    Each step takes one ``(u, dice)`` from ``draws.opp()`` after
+    ``draws.begin_step()``; both seats' agents see it, and the mover's
+    result is kept.  Terminal games stay as they are (the agents freeze
+    them).  ``carry_in``/``prev_in`` resume a chunked run.
+    """
+    b, dev = state0.batch_size, state0.device
+    state = state0
+    carry = script_agent.init_carry(b, dev) if carry_in is None else carry_in
+    prev = (torch.full((b,), -1, dtype=I32, device=dev)
+            if prev_in is None else prev_in)
+    records = []
+    for _ in range(num_steps):
+        draws.begin_step()
+        u, dice = draws.opp()
+        reset = state.cur_player != prev
+        s0, c0, (a0, r0) = _opponent_step(kinds[0], state, carry, reset, u,
+                                          dice, cfg)
+        if kinds[1] == kinds[0]:
+            s1, c1, a1, r1 = s0, c0, a0, r0
+        else:
+            s1, c1, (a1, r1) = _opponent_step(kinds[1], state, carry, reset,
+                                              u, dice, cfg)
+        mover0 = state.cur_player == 0
+        action = torch.where(mover0, a0, a1)
+        pi = F.one_hot(action.long(), NUM_ACTIONS).to(F32)
+        records.append(_record(state, pi, torch.where(mover0, r0, r1)))
+        prev = state.cur_player
+        state = tree_select(mover0, s0, s1)
+        carry = tree_select(mover0, c0, c1)
+    samples = SampleBatch(*(torch.stack(x) for x in zip(*records)))
+    return ActorOutput(state=state, samples=samples,
+                       status=rules.game_status(state, cfg), carry=carry,
+                       prev_player=prev,
+                       az_decisions=torch.zeros((), dtype=torch.int64,
+                                                device=dev))
 
 
 def backfill_values(samples: SampleBatch, status: torch.Tensor,

@@ -6,7 +6,13 @@ actor-learner loop over batched self-play on one device.
 
   train:  loop { self-play -> trim -> N epochs -> gating arena ->
           accept (save best/iter, promote) / revert -> benchmark }
-  play:   evaluation matches against the ScriptPlayer or the RandomPlayer
+  train_on_data:  loop { scripted Script-vs-Script and Script-vs-Random
+          games into a fresh buffer -> 3 epochs -> arena (no revert) ->
+          benchmark -> temp/latest }  (the supervised bootstrap)
+  train_on_script:  ``train`` with games against the ScriptPlayer in
+          place of self-play
+  play:   evaluation matches against the ScriptPlayer or the RandomPlayer;
+          ``play_az_vs_az`` against another checkpoint
 
 Games run in mirrored pairs, in waves of at most ``env_batch_per_device``
 games, each wave driven in chunks of ``actor_chunk_steps`` micro-decisions
@@ -17,8 +23,8 @@ As in the JAX trainer, on a rejected gate ``_revert`` restores the last
 *accepted* model (the reference reloads a possibly stale 'latest' file,
 alphazero_trainer.cpp:170-175).
 
-Not ported yet: the device-resident replay ring, ``train_on_script``,
-``train_on_data``, ``play_az_vs_az``, and the mesh / multi-host branches.
+Not ported yet: the device-resident replay ring and the mesh / multi-host
+branches.
 """
 
 from __future__ import annotations
@@ -96,7 +102,8 @@ class Trainer:
         self._epoch = make_epoch_fn(cfg, prepare_batch=self._prepare_batch)
         self.epoch_log = []       # one dict of losses per epoch trained
         # az_decisions: searches made for live AlphaZero movers; steps:
-        # lockstep micro-steps driven (one search of the batch each), of
+        # lockstep micro-steps driven (one search of the batch each but in
+        # scripted games), of
         # which paired_steps ran the two-net arena eval; folds: inference
         # dicts folded; seconds: wall time inside play()
         self.play_stats = {"az_decisions": 0, "steps": 0, "paired_steps": 0,
@@ -179,6 +186,15 @@ class Trainer:
         return self._chunk_call(self._eval_fn(net), self._ecfg,
                                 opponent=opponent, az_seats=(True, False),
                                 sample_moves=False, record_all=record)
+
+    def _scripted_call(self, kinds: Tuple[int, int]):
+        def call(state, carry, prev):
+            draws = A.GeneratorDraws(self.gen, self.cfg, state.batch_size,
+                                     self.device)
+            return A.run_scripted_episodes(
+                state, draws, self.cfg, self.cfg.actor_chunk_steps, kinds,
+                carry_in=carry, prev_in=prev)
+        return call
 
     # ------------------------------------------------------------------
     def _round_games(self, games: int) -> int:
@@ -495,6 +511,87 @@ class Trainer:
             self.ckpt.save("latest", self.train_state)
             self._save_meta()
         self.replay.save(self._replay_path())
+
+    def train_on_script(self, iterations: Optional[int] = None):
+        """Generate data by playing AZ (the learner's weights) vs the
+        ScriptPlayer instead of self-play, every decision recorded
+        (reference trainOnScript, alphazero_trainer.cpp:200-225)."""
+        cfg = self.cfg
+        for self.iteration in range(iterations or cfg.train_iterations):
+            games = self._round_games(cfg.train_iteration_games * 2)
+            done = 0
+            while done < games:
+                b = self._wave_batch(games - done)
+                state0 = self._initial_states(b)
+                out = self._episode_loop(
+                    self._versus_call(self.train_state.net, A.OPP_SCRIPT,
+                                      record=True), state0)
+                self.replay.extend_from_actor(
+                    out.samples, out.status, final_round=out.state.round)
+                done += b
+            self.replay.trim()
+            self.train_epochs()
+            if self.gate():
+                self.replay.mark_old_games()
+            # loop-end resume anchor (latest + meta written together)
+            self.ckpt.save("latest", self.train_state)
+            self._save_meta()
+        self.replay.save(self._replay_path())
+
+    def train_on_data(self, loops: Optional[int] = None,
+                      do_benchmark: bool = True):
+        """Supervised bootstrap from heuristic games (reference
+        trainOnGeneratedData, alphazero_trainer.cpp:227-319): each loop
+        plays ``data_games_ss`` Script-vs-Script and ``data_games_sr``
+        Script-vs-Random games into a fresh buffer, trains 3 epochs on it,
+        runs the arena without reverting, benchmarks an accepted model, and
+        saves ``temp``, ``latest`` and the meta."""
+        cfg = self.cfg
+        for self.iteration in range(loops or cfg.data_train_loops):
+            fresh = ReplayBuffer(cfg)
+            for kinds, games in (((A.OPP_SCRIPT, A.OPP_SCRIPT),
+                                  cfg.data_games_ss),
+                                 ((A.OPP_SCRIPT, A.OPP_RANDOM),
+                                  cfg.data_games_sr)):
+                games = self._round_games(games)
+                done = 0
+                while done < games:
+                    b = self._wave_batch(games - done)
+                    state0 = self._initial_states(b)
+                    out = self._episode_loop(self._scripted_call(kinds),
+                                             state0)
+                    fresh.extend_from_actor(out.samples, out.status,
+                                            final_round=out.state.round)
+                    done += b
+            self.replay = fresh
+            self.train_epochs(epochs=3)
+            if self.gate(revert_on_fail=False) and do_benchmark:
+                self.benchmark()
+            self.ckpt.save("temp", self.train_state)
+            # loop-end resume anchor (see train()/_accept)
+            self.ckpt.save("latest", self.train_state)
+            self._save_meta()
+
+    def play_az_vs_az(self, other_role: str, games: int):
+        """AZ-vs-AZ matches between the loaded model (seat 0, the learner's
+        weights) and another checkpoint role (seat 1), argmax moves,
+        mirrored pairs (reference executePlay with -p1 az -p2 az,
+        alphazero_risk.cpp:4-47)."""
+        other = self.ckpt.restore(other_role, self.train_state)
+        games = self._round_games(games)
+        call = self._arena_call(self.train_state.net, other.net)
+        totals = None
+        done = 0
+        while done < games:
+            b = self._wave_batch(games - done)
+            state0 = self._initial_states(b)
+            out = self._episode_loop(call, state0, paired=True)
+            part = self._global_tally(out.status.cpu().numpy(),
+                                      state0.cur_player.cpu().numpy())
+            totals = part if totals is None else {
+                k: totals[k] + part[k] for k in part}
+            done += b
+        return totals
 
     def play(self, opponent: int, games: int):
         """Evaluation matches AZ (seat 0, the actor weights) vs the

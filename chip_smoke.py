@@ -23,7 +23,14 @@ when all of them pass):
    games of the same leaf batch, tree and roots; at 16, 4 and 2 games the
    conv kernels' last row tile is partial.  Then at larger shapes: K1 at
    B=1024, and K2/K3 on trees over 256 games grown by plain-version
-   simulations;
+   simulations.  The rules kernels K7-K10 are held bit for bit on 1,024
+   states of mixed Script/Random play (every phase, fortify ties, full
+   lands, terminal games; ``mixed_states``), timed at GAMES and at 1,024,
+   and compared at every batch of ``RULES_BATCHES`` and K8 also at the
+   learner's batch; K7's expand entry on the main-path tree and its slices.
+   The training and data phases search at ``TRAIN``'s simulations: K2,
+   K3, K6 and K7's expand are held on such a tree at each of their
+   batches (``TRAIN_BATCHES``);
 4. slice: the flagship 20x256 net, int8 fast path, 32 simulations, plays
    32 mirrored games against the ScriptPlayer to the end through
    ``Trainer.play`` (the first main path, launch counts read around it),
@@ -37,10 +44,24 @@ when all of them pass):
    or revert, the benchmark matches, checkpoint and meta.  Simulations,
    game counts and the micro-step cap are cut (``TRAIN``), the width is
    not.  Then ``latest`` is reloaded and its folded evaluation compared
-   with the in-memory one, and the replay npz is read back.
+   with the in-memory one, and the replay npz is read back;
+6. data: the supervised-bootstrap path (the third main path).  (a) One
+   chunk of 128 steps of ``run_scripted_episodes``, Script vs Random, at
+   B=1,024 from the mixed states, on the kernels and on the plain
+   versions from the same draws: states, carries and records equal; K8
+   on a learner batch of its records from the replay.  (b)
+   ``play_match`` Script vs Script on 1,024 mirrored games to the end.
+   (c) ``Trainer.train_on_data(loops=1)`` from the flagship at full
+   width (``DATA``): 128 Script-vs-Script and 128 Script-vs-Random games,
+   3 epochs at batch 512, the arena and the benchmark at the training
+   phase's cut depth, ``temp``/``latest``/meta; launch counts read around
+   it (K9 once per lockstep step of both scripted matches, K10 once per
+   step of the Script-vs-Random one).
 
-The line before the card's is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+The line before the card's is a JSON object with one entry per kernel:
+``launches`` sums the three main paths (play, train, data), each also
+given alone.  The last line is ``{"ok": true, "device": {...}}``.  Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -65,6 +86,13 @@ TRAIN = dict(mcts_simulations=8, train_iteration_games=GAMES, epochs=2,
              benchmark_games_random=2, benchmark_games_script=4,
              max_game_steps=640, actor_chunk_steps=64,
              use_dirichlet_noise=True)
+# the data phase: the training phase's cuts, scripted generation as the
+# reference's train-data mix cut from 5,000 + 5,000 to 128 + 128 games, a
+# step cap every scripted game ends within
+DATA = dict(TRAIN, data_games_ss=128, data_games_sr=128,
+            env_batch_per_device=128, actor_chunk_steps=128,
+            max_game_steps=2048)
+MIXED = 1024        # states of the rules kernels' checks
 # every lockstep batch the two main paths launch the kernels at: self-play,
 # the play slice, the arena and the two benchmark matches.  Timed at GAMES;
 # the others are held against the plain versions only.
@@ -72,6 +100,14 @@ PATH_BATCHES = sorted({PLAY_GAMES, TRAIN["compare_games"],
                        TRAIN["benchmark_games_script"],
                        TRAIN["benchmark_games_random"]} - {GAMES},
                       reverse=True)
+# ... and the rules kernels also at the data phase's scripted batch
+RULES_BATCHES = sorted(set(PATH_BATCHES) | {DATA["env_batch_per_device"]},
+                       reverse=True)
+# the lockstep batches that search at TRAIN's simulations: self-play, the
+# arena and the two benchmark matches of the training and data phases
+TRAIN_BATCHES = sorted({GAMES, TRAIN["compare_games"],
+                        TRAIN["benchmark_games_script"],
+                        TRAIN["benchmark_games_random"]}, reverse=True)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, data sheet
 INT8_OPS_PER_S = 1979e12      # dense int8 tensor-core peak, data sheet
 BF16_OPS_PER_S = 989e12       # dense bf16 tensor-core peak, data sheet
@@ -596,6 +632,274 @@ def check_k6(tree, gum, root, cfg, eval_fn, timed=True):
             "ms_root": ms_root, "shape": f"B={b} N={n}"}
 
 
+@contextlib.contextmanager
+def plain_versions():
+    """Inside the block the agents' steps and the status of the rules run
+    their plain versions: what the kernels are held against over a whole
+    ``run_scripted_episodes`` chunk."""
+    from alphazero_risk_tpu_torch.agents import random_agent as RA
+    from alphazero_risk_tpu_torch.agents import script_agent as SA
+    from alphazero_risk_tpu_torch.env import rules
+    swaps = [(SA, "script_step_recorded", SA._script_step_recorded_plain),
+             (RA, "random_step_recorded", RA._random_step_recorded_plain),
+             (rules, "game_status", rules._game_status_plain)]
+    saved = [(m, name, getattr(m, name)) for m, name, _ in swaps]
+    for m, name, fn in swaps:
+        setattr(m, name, fn)
+    try:
+        yield
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+
+
+def first(mx, n):
+    """The first ``n`` games of the mixed states ``mx``, as contiguous
+    copies."""
+    return mx.apply(lambda x: x[:n].contiguous())
+
+
+def mixed_states(cfg, dev):
+    """MIXED states drawn from every step of 128 games of mixed play on the
+    card (``driver.mixed_play``, 600 steps), each with its step's script
+    carry, previous mover, draws and a random legal action.  The pick keeps
+    the states whose random action is a fortify move with a tie the DFS
+    breaks (up to 160), with a full land (96) and terminal (96), and fills
+    the rest evenly over the six phases; the order is shuffled, so every
+    prefix is a mix."""
+    import torch
+    from alphazero_risk_tpu_torch.agents.driver import mixed_play
+    from alphazero_risk_tpu_torch.env import rules
+    from alphazero_risk_tpu_torch.env.state import tree_map
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    b, steps = 128, 600
+    pool = mixed_play(b, steps, cfg, gen)
+    allst = pool.state
+    n = allst.batch_size
+    ties = torch.cat([rules.fortify_needs_rank(
+        tree_map(lambda x: x[i:i + 8192], allst), pool.action[i:i + 8192],
+        cfg) for i in range(0, n, 8192)])
+    full = (allst.army >= cfg.land_army_max).any(-1)
+    ended = rules._game_status_plain(allst, cfg) != -1
+    key = torch.rand(n, generator=gen, device=dev)
+    chosen = torch.zeros(n, dtype=torch.bool, device=dev)
+    for flag, k in ((ties, 160), (full, 96), (ended, 96)):
+        pick = torch.where(flag & ~chosen, key, 2.0).argsort()[:k]
+        chosen[pick[flag[pick]]] = True
+    live = ~ended
+    for ph in range(6):
+        want = (MIXED - int(chosen.sum())) // (6 - ph)
+        flag = live & (allst.phase == ph) & ~chosen
+        pick = torch.where(flag, key, 2.0).argsort()[:want]
+        chosen[pick[flag[pick]]] = True
+    idx = chosen.nonzero().ravel()
+    idx = idx[torch.randperm(idx.numel(), generator=gen, device=dev)]
+    mx = pool.apply(lambda x: x[idx].contiguous())
+    st = mx.state
+    phases = torch.bincount(st.phase.long(), minlength=6).tolist()
+    n_ended = int((rules._game_status_plain(st, cfg) != -1).sum())
+    n_full = int((st.army >= cfg.land_army_max).any(-1).sum())
+    n_ties = int(rules.fortify_needs_rank(st, mx.action, cfg).sum())
+    log(f"mixed states: {st.batch_size} of {n} ({steps} steps x {b} games), "
+        f"per phase {phases}, terminal {n_ended}, with a full land {n_full}, "
+        f"fortify ties under the random action {n_ties}")
+    if st.batch_size != MIXED or min(phases) == 0 or not (
+            n_ended and n_full and n_ties):
+        fail("the mixed states do not cover every case")
+    return mx
+
+
+def states_differ(a, b):
+    """Name of the first GameState field that differs, or None."""
+    import dataclasses
+    import torch
+    from alphazero_risk_tpu_torch.env.state import GameState
+    for f in dataclasses.fields(GameState):
+        if not torch.equal(getattr(a, f.name), getattr(b, f.name)):
+            return f.name
+    return None
+
+
+def state_bytes(st):
+    """Bytes of one game of the 12 fields the rules kernels read."""
+    from alphazero_risk_tpu_torch.env import rules
+    return sum(getattr(st, name)[0].numel() * getattr(st, name).element_size()
+               for name, _, _ in rules.STATE_SPEC)
+
+
+TABLE_BYTES = 2728      # rd::Tables, read once per call
+
+
+def timed_entry(run, plain, kernel, nbytes, n, err=0.0, reps=50):
+    """Call time, kernel-alone time and plain time of one kernel at batch
+    ``n``, with its bytes bound (these kernels are bound by latency; the
+    bound counts each input byte read and each output byte written once)."""
+    ms = time_ms(run, reps)
+    dev = device_ms(run, kernel)
+    pl = time_ms(plain, 5, warmup=1)
+    bms, by = bound_ms(nbytes, 0.0, 1.0)
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev, "plain_ms": pl,
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "shape": f"B={n}"}
+
+
+def check_k7(mx, cfg, timed=True):
+    """K7 against its plain version: ``step`` with the dice and
+    ``step_with_outcome`` with a battle outcome (the first die mod 3), on
+    the random legal action."""
+    import torch
+    from alphazero_risk_tpu_torch.env import rules
+    st, a, dice = mx.state, mx.action, mx.dice
+    o = dice[:, 0] % 3
+    n = st.batch_size
+    for name, got, ref in (
+            ("step", rules.step(st, a, dice, cfg),
+             rules._step_plain(st, a, dice, cfg)),
+            ("step_with_outcome", rules.step_with_outcome(st, a, o, cfg),
+             rules._step_with_outcome_plain(st, a, o, cfg))):
+        torch.cuda.synchronize()
+        bad = states_differ(got, ref)
+        if bad:
+            fail(f"K7 {name} field {bad} differs from the plain version at "
+                 f"B={n}")
+    msg = f"K7 rules_step B={n}: step and step_with_outcome equal"
+    if not timed:
+        log(msg)
+        return None
+    e = timed_entry(lambda: rules.step(st, a, dice, cfg),
+                    lambda: rules._step_plain(st, a, dice, cfg),
+                    "rules_step_kernel",
+                    n * (2 * state_bytes(st) + 4 + 20) + TABLE_BYTES, n)
+    log(f"{msg}; {e['ms']:.4f} ms (kernel alone {fmt_ms(e['device_ms'])}; "
+        f"bound {e['bound_ms']:.6f} ms) plain {e['plain_ms']:.3f} ms")
+    return e
+
+
+def check_k7_expand(tree, gum, cfg, timed=True):
+    """K7's expand entry on ``tree`` (the node each game expands in the
+    simulation with noise ``gum``): child state, status and legality."""
+    import torch
+    from alphazero_risk_tpu_torch.env import rules
+    from alphazero_risk_tpu_torch.mcts import search as S
+    path = S.descend(tree, gum, cfg)
+    args = (tree.states, path.exp_n, path.exp_a, path.exp_o, cfg)
+    got, ref = rules.expand(*args), rules._expand_plain(*args)
+    torch.cuda.synchronize()
+    b, n = tree.player.shape
+    bad = states_differ(got[0], ref[0])
+    if bad or not (torch.equal(got[1], ref[1]) and torch.equal(got[2],
+                                                               ref[2])):
+        fail(f"K7 expand differs from the plain version (B={b} N={n}): "
+             f"{bad or 'status or legal'}")
+    msg = (f"K7 rules_step expand B={b} N={n}: child, status and legal "
+           f"equal ({int((path.exp_n >= 0).sum())}/{b} expanding)")
+    if not timed:
+        log(msg)
+        return None
+    node = 2 * state_bytes(got[0]) + 3 * 42
+    e = timed_entry(lambda: rules.expand(*args),
+                    lambda: rules._expand_plain(*args), "rules_step_kernel",
+                    b * (node + 12 + 4 + 43) + TABLE_BYTES, b)
+    e["shape"] = f"B={b} N={n}"
+    log(f"{msg}; {e['ms']:.4f} ms (kernel alone {fmt_ms(e['device_ms'])}; "
+        f"bound {e['bound_ms']:.6f} ms) plain {e['plain_ms']:.3f} ms")
+    return e
+
+
+def check_k8(st, cfg, timed=True, what=""):
+    """K8 against its plain versions on the states ``st``: each output
+    alone and all three from one launch (features bit for bit, NaN where a
+    share is 0/0)."""
+    import torch
+    from alphazero_risk_tpu_torch.env import rules
+    from alphazero_risk_tpu_torch.env.featurize import (_featurize_plain,
+                                                        featurize)
+    n = st.batch_size
+    want = (rules._legal_actions_plain(st, cfg),
+            rules._game_status_plain(st, cfg), _featurize_plain(st, cfg))
+    alone = (rules.legal_actions(st, cfg), rules.game_status(st, cfg),
+             featurize(st, cfg))
+    both = rules.state_views(st, cfg, legal=True, status=True, features=True)
+    torch.cuda.synchronize()
+    for got in (alone, both):
+        for name, g, w in zip(("legal", "status", "features"), got, want):
+            if not (torch.equal(torch.isnan(g), torch.isnan(w))
+                    and torch.equal(g.nan_to_num(), w.nan_to_num())):
+                fail(f"K8 {name} differs from the plain version at B={n}")
+    nan_games = int(torch.isnan(want[2]).flatten(1).any(-1).sum())
+    msg = (f"K8 state_views B={n}{what}: legal, status and features equal, "
+           f"alone and together ({nan_games} games with a 0/0 share)")
+    if not timed:
+        log(msg)
+        return None
+    view = sum(getattr(st, name)[0].numel() * getattr(st, name).element_size()
+               for name in rules.VIEW_FIELDS)
+
+    def run():
+        rules.state_views(st, cfg, legal=True, status=True, features=True)
+
+    def plain():
+        rules._state_views_plain(st, cfg, True, True, True)
+
+    e = timed_entry(run, plain, "state_views_kernel",
+                    n * (view + 43 + 4 + want[2][0].numel() * 4)
+                    + TABLE_BYTES, n)
+    log(f"{msg}; all three {e['ms']:.4f} ms (kernel alone "
+        f"{fmt_ms(e['device_ms'])}; bound {e['bound_ms']:.6f} ms) plain "
+        f"{e['plain_ms']:.3f} ms")
+    return e
+
+
+def check_k9_k10(mx, cfg, timed=True):
+    """K9 and K10 against their plain versions on the mixed states with
+    their carries, resets and draws."""
+    import dataclasses
+    import torch
+    from alphazero_risk_tpu_torch.agents import random_agent as RA
+    from alphazero_risk_tpu_torch.agents import script_agent as SA
+    st, n = mx.state, mx.state.batch_size
+    args9 = (st, mx.carry, mx.reset, mx.u, mx.dice, cfg)
+    s9, c9, r9 = SA.script_step_recorded(*args9)
+    p9, pc9, pr9 = SA._script_step_recorded_plain(*args9)
+    s10, r10 = RA.random_step_recorded(st, mx.u, mx.dice, cfg)
+    p10, pr10 = RA._random_step_recorded_plain(st, mx.u, mx.dice, cfg)
+    torch.cuda.synchronize()
+    bad9 = states_differ(s9, p9) or next(
+        (f.name for f in dataclasses.fields(SA.ScriptCarry)
+         if not torch.equal(getattr(c9, f.name), getattr(pc9, f.name))),
+        None) or ("action/record" if not all(
+            torch.equal(x, y) for x, y in zip(r9, pr9)) else None)
+    if bad9:
+        fail(f"K9 script_step {bad9} differs from the plain version at B={n}")
+    bad10 = states_differ(s10, p10) or ("action/record" if not all(
+        torch.equal(x, y) for x, y in zip(r10, pr10)) else None)
+    if bad10:
+        fail(f"K10 random_step {bad10} differs from the plain version at "
+             f"B={n}")
+    msg = (f"K9 script_step / K10 random_step B={n}: state, carry, action "
+           f"and record equal")
+    if not timed:
+        log(msg)
+        return None
+    sb = state_bytes(st)
+    e9 = timed_entry(lambda: SA.script_step_recorded(*args9),
+                     lambda: SA._script_step_recorded_plain(*args9),
+                     "script_step_kernel",
+                     n * (2 * sb + 2 * 9 + 1 + 16 + 20 + 5) + TABLE_BYTES, n)
+    e10 = timed_entry(lambda: RA.random_step_recorded(st, mx.u, mx.dice, cfg),
+                      lambda: RA._random_step_recorded_plain(st, mx.u,
+                                                             mx.dice, cfg),
+                      "random_step_kernel",
+                      n * (2 * sb + 16 + 20 + 5) + TABLE_BYTES, n)
+    log(f"{msg}; K9 {e9['ms']:.4f} ms (kernel alone "
+        f"{fmt_ms(e9['device_ms'])}; bound {e9['bound_ms']:.6f} ms) plain "
+        f"{e9['plain_ms']:.3f} ms; K10 {e10['ms']:.4f} ms (kernel alone "
+        f"{fmt_ms(e10['device_ms'])}; bound {e10['bound_ms']:.6f} ms) "
+        f"plain {e10['plain_ms']:.3f} ms")
+    return e9, e10
+
+
 def plain_grown_tree(states, cfg, dev):
     """Trees over 256 games grown by 8 plain-version (CPU) simulations
     with a cheap stand-in network."""
@@ -613,14 +917,14 @@ def plain_grown_tree(states, cfg, dev):
     return tree_to(tree, dev)
 
 
-def main_path_tree(trainer, states):
-    """The tree left after one search of the main path: GAMES games, the
-    flagship's int8 eval, SIMS simulations, on the card."""
+def main_path_tree(trainer, states, cfg):
+    """The tree left after one search of a main path: GAMES games, the
+    flagship's int8 eval, ``cfg``'s simulations, on the card."""
     import torch
     from alphazero_risk_tpu_torch.env.state import tree_map
     from alphazero_risk_tpu_torch.mcts import search as S
 
-    cfg, dev = trainer._ecfg, trainer.device
+    dev = trainer.device
     root = tree_map(lambda x: x[:GAMES].contiguous(), states)
     gum = S.draw_gumbel(torch.Generator(device=dev).manual_seed(8), cfg,
                         GAMES, dev)
@@ -631,6 +935,27 @@ def main_path_tree(trainer, states):
     log(f"main-path tree: {GAMES} games x {cfg.mcts_simulations} sims "
         f"(int8 flagship eval) in {time.perf_counter() - t0:.1f} s")
     return tree
+
+
+def check_train_trees(trainer, states, dev):
+    """The training and data phases search at TRAIN's simulations: K7's
+    expand, K2, K3 and K6 held on such a tree (N = sims + 2) at each of
+    their lockstep batches (``TRAIN_BATCHES``), comparison only."""
+    import torch
+    from alphazero_risk_tpu_torch.env.state import tree_map
+    from alphazero_risk_tpu_torch.mcts import search as S
+
+    cfg = trainer._ecfg.replace(**{k: v for k, v in TRAIN.items()
+                                   if k != "use_dirichlet_noise"})
+    tree = main_path_tree(trainer, states, cfg)
+    gum = S.draw_gumbel(torch.Generator(device=dev).manual_seed(10), cfg,
+                        GAMES, dev)[0]
+    for nb in TRAIN_BATCHES:
+        ntree, ngum = slice_tree(tree, nb), gum[:, :nb].contiguous()
+        check_k7_expand(ntree, ngum, cfg, timed=False)
+        check_k2_k3(clone_tree(ntree), ngum, cfg, dev, timed=False)
+        check_k6(ntree, ngum, tree_map(lambda x: x[:nb].contiguous(), states),
+                 cfg, trainer._eval_fn(), timed=False)
 
 
 def check_forward(trainer, states, cfg):
@@ -663,7 +988,8 @@ def check_forward(trainer, states, cfg):
 
 def phase_kernels(cfg, dev):
     """Load and fold the flagship, then hold each kernel against its plain
-    version on the card.  Returns (trainer, kernel entries)."""
+    version on the card.  Returns (trainer, kernel entries, the mixed
+    states of the rules kernels' checks)."""
     import torch
     from alphazero_risk_tpu_torch.env import rules
     from alphazero_risk_tpu_torch.env.featurize import featurize
@@ -689,7 +1015,7 @@ def phase_kernels(cfg, dev):
     t0 = time.perf_counter()
     # main-path shapes: K1 on the last simulation's leaf batch, K2/K3 on
     # the tree that search leaves
-    mtree = main_path_tree(trainer, states)
+    mtree = main_path_tree(trainer, states, trainer._ecfg)
     rows = torch.arange(GAMES, device=dev)
     leaves = tree_map(lambda x: x[rows, (mtree.next_free - 1).long()],
                       mtree.states)
@@ -724,6 +1050,26 @@ def phase_kernels(cfg, dev):
                             256, dev)[0]
         k2["g256"], k3["g256"] = check_k2_k3(
             plain_grown_tree(states, cfg, dev), gum, cfg, dev)
+        # the rules kernels: timed at GAMES and at MIXED, K7's expand entry
+        # on the main-path tree, then held at every other path batch
+        mx = mixed_states(cfg, dev)
+        k7 = check_k7(first(mx, GAMES), cfg)
+        k7["b1024"] = check_k7(mx, cfg)
+        k7["expand"] = check_k7_expand(mtree, mgum, cfg)
+        k8 = check_k8(first(mx, GAMES).state, cfg)
+        k8["b1024"] = check_k8(mx.state, cfg)
+        k9, k10 = check_k9_k10(first(mx, GAMES), cfg)
+        k9["b1024"], k10["b1024"] = check_k9_k10(mx, cfg)
+        for nb in RULES_BATCHES:
+            check_k7(first(mx, nb), cfg, timed=False)
+            check_k8(first(mx, nb).state, cfg, timed=False)
+            check_k9_k10(first(mx, nb), cfg, timed=False)
+            if nb < GAMES:
+                check_k7_expand(slice_tree(mtree, nb),
+                                mgum[:, :nb].contiguous(), cfg, timed=False)
+        # K8 at the learner's batch (on its real input in the data phase)
+        check_k8(first(mx, TRAIN["batch_size"]).state, cfg, timed=False)
+        check_train_trees(trainer, states, dev)
     entries = [
         {"name": "conv3x3_i8", "route": "cuda",
          "source": "alphazero_risk_tpu_torch/csrc/conv_i8.cu",
@@ -743,10 +1089,22 @@ def phase_kernels(cfg, dev):
         {"name": "write_nodes", "route": "cuda",
          "source": "alphazero_risk_tpu_torch/csrc/tree_write.cu",
          "replaces": "alphazero_risk_tpu/mcts/search.py:229", **k6},
+        {"name": "rules_step", "route": "cuda",
+         "source": "alphazero_risk_tpu_torch/csrc/rules_step.cu",
+         "replaces": "alphazero_risk_tpu/env/rules.py:735", **k7},
+        {"name": "state_views", "route": "cuda",
+         "source": "alphazero_risk_tpu_torch/csrc/state_views.cu",
+         "replaces": "alphazero_risk_tpu/env/rules.py:160", **k8},
+        {"name": "script_step", "route": "cuda",
+         "source": "alphazero_risk_tpu_torch/csrc/script_step.cu",
+         "replaces": "alphazero_risk_tpu/agents/script_agent.py:106", **k9},
+        {"name": "random_step", "route": "cuda",
+         "source": "alphazero_risk_tpu_torch/csrc/random_step.cu",
+         "replaces": "alphazero_risk_tpu/agents/random_agent.py:41", **k10},
     ]
     check_forward(trainer, states, cfg)
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
-    return trainer, entries
+    return trainer, entries, mx
 
 
 def profile_window(trainer, games, steps=1):
@@ -804,11 +1162,12 @@ def phase_slice(trainer, entries, games=PLAY_GAMES):
         f"launches {counts}")
     if res["games"] != games or res["unfinished"] != 0:
         fail(f"slice left games unfinished: {res}")
+    # every kernel but the RandomPlayer's, which this match does not meet
     for k in kernels.ALL:
-        if counts[k.name] <= 0:
+        if k is not kernels.RANDOM_STEP and counts[k.name] <= 0:
             fail(f"kernel {k.name} was not launched on the main path")
     for e in entries:
-        e["launches"] = counts[e["name"]]
+        e["launches_play"] = counts[e["name"]]
 
     t0 = time.perf_counter()
     profile_window(trainer, games)
@@ -829,6 +1188,23 @@ def phase_slice(trainer, entries, games=PLAY_GAMES):
         f"launches {kernels.counts()}")
     if bres["games"] != games:
         fail("bf16 pass did not play its games")
+
+
+def expected_launches(st, sims, blocks):
+    """Launches of the search kernels, the network kernels and K7 implied
+    by the lockstep searches (``steps``, of which ``paired_steps`` ran two
+    nets) and the folds of a run: each search evaluates its root and one
+    node per simulation, expands (K7) once per simulation, and its move is
+    one more K7 launch.  K8 (statuses, features of every evaluation and of
+    the learner's batches) and the opponents' K9/K10 depend on the run."""
+    evals = (st["steps"] + st["paired_steps"]) * (sims + 1)
+    blocks2 = 2 * blocks
+    return {"conv3x3_bf16": evals + st["folds"] * (1 + blocks2),
+            "heads_eval": evals, "conv3x3_i8": evals * blocks2,
+            "write_nodes": st["steps"] * (sims + 1),
+            "mcts_descend": st["steps"] * sims,
+            "mcts_backup": st["steps"] * sims,
+            "rules_step": st["steps"] * (sims + 1)}
 
 
 def phase_train(base, entries):
@@ -972,16 +1348,10 @@ def phase_train(base, entries):
     # launch counts against the step and simulation counts
     st = {k: sum(p["stats"].get(k, 0) for p in phases.values())
           for k in ("steps", "paired_steps", "folds")}
-    evals = (st["steps"] + st["paired_steps"]) * (sims + 1)
-    blocks2 = 2 * cfg.blocks
-    want = {"conv3x3_bf16": evals + st["folds"] * (1 + blocks2),
-            "heads_eval": evals, "conv3x3_i8": evals * blocks2,
-            "write_nodes": st["steps"] * (sims + 1),
-            "mcts_descend": st["steps"] * sims,
-            "mcts_backup": st["steps"] * sims}
+    want = expected_launches(st, sims, cfg.blocks)
     log(f"train: {st['steps']} lockstep searches ({st['paired_steps']} "
         f"paired), {st['folds']} folds; expected launches {want}")
-    if want != counts:
+    if want != {k: counts[k] for k in want}:
         fail(f"launch counts {counts} differ from the expected {want}")
     for k in kernels.ALL:
         if counts[k.name] <= 0:
@@ -1024,6 +1394,259 @@ def phase_train(base, entries):
     return phases
 
 
+def profile_scripted(mx, cfg, steps=16):
+    """Device busy share and host-side aten ops per step of
+    ``run_scripted_episodes`` (Script vs Random) at the data phase's batch,
+    from the first mixed states, traced by torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from alphazero_risk_tpu_torch.training import actor as A
+    b = DATA["env_batch_per_device"]
+    m = first(mx, b)
+    dev = m.prev.device
+    draws = A.GeneratorDraws(torch.Generator(device=dev).manual_seed(23),
+                             cfg, b, dev)
+    kinds = (A.OPP_SCRIPT, A.OPP_RANDOM)
+    A.run_scripted_episodes(m.state, draws, cfg, 2, kinds, carry_in=m.carry,
+                            prev_in=m.prev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        A.run_scripted_episodes(m.state, draws, cfg, steps, kinds,
+                                carry_in=m.carry, prev_in=m.prev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    avg = prof.key_averages()
+    rows = [e for e in avg if str(e.device_type).endswith("CUDA")
+            and e.self_device_time_total > 0]
+    dev_us = sum(e.self_device_time_total for e in rows)
+    host_ops = sum(e.count for e in avg if e.key.startswith("aten::"))
+    log(f"profile window (run_scripted_episodes, {steps} steps x {b} games, "
+        f"Script vs Random): wall {wall:.3f} s, {1e3 * wall / steps:.2f} ms "
+        f"per step, device busy {dev_us / 1e6:.4f} s "
+        f"({100 * dev_us / 1e6 / wall:.1f}%), host-side aten ops "
+        f"{host_ops / steps:.0f} per step")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:5]:
+        log(f"  {e.self_device_time_total / 1e3:9.2f} ms  {e.count:7d}x  "
+            f"{e.key[:70]}")
+
+
+def phase_data(base, mx, entries):
+    """The supervised-bootstrap path: (a) a scripted chunk on the kernels
+    and on the plain versions, (b) ``play_match`` Script vs Script to the
+    end, (c) one loop of ``Trainer.train_on_data`` from the flagship at
+    full width.  Fills each entry's ``launches_data``."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from alphazero_risk_tpu_torch import kernels
+    from alphazero_risk_tpu_torch.agents import driver as D
+    from alphazero_risk_tpu_torch.agents.script_agent import ScriptCarry
+    from alphazero_risk_tpu_torch.env import rules
+    from alphazero_risk_tpu_torch.training import actor as A
+    from alphazero_risk_tpu_torch.training.replay import ReplayBuffer
+    from alphazero_risk_tpu_torch.training.trainer import Trainer
+
+    dev = base.device
+    cfg = base.cfg.replace(**DATA)
+    sr = (A.OPP_SCRIPT, A.OPP_RANDOM)
+    log(f"data: {json.dumps(DATA)} at {cfg.blocks}x{cfg.filters}")
+
+    # (a) one chunk, kernels against the plain versions, the same draws
+    def chunk():
+        draws = A.GeneratorDraws(torch.Generator(device=dev).manual_seed(21),
+                                 cfg, MIXED, dev)
+        t0 = time.perf_counter()
+        out = A.run_scripted_episodes(mx.state, draws, cfg, 128, sr,
+                                      carry_in=mx.carry, prev_in=mx.prev)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    chunk()                                     # warm-up
+    got, t_k = chunk()
+    with plain_versions():
+        ref, t_p = chunk()
+    bad = states_differ(got.state, ref.state) or next(
+        (f"carry {f.name}" for f in dataclasses.fields(ScriptCarry)
+         if not torch.equal(getattr(got.carry, f.name),
+                            getattr(ref.carry, f.name))), None) or next(
+        (f"samples {f}" for f in A.SampleBatch._fields
+         if not torch.equal(getattr(got.samples, f),
+                            getattr(ref.samples, f))), None)
+    if bad or not (torch.equal(got.prev_player, ref.prev_player)
+                   and torch.equal(got.status, ref.status)):
+        fail(f"data (a): the kernel chunk differs from the plain one: "
+             f"{bad or 'prev_player or status'}")
+    recs = int(got.samples.valid.sum())
+    log(f"data (a): 128 steps x {MIXED} games Script vs Random equal on the "
+        f"kernels and the plain versions (states, carries, {recs} records); "
+        f"kernels {t_k:.3f} s ({1e3 * t_k / 128:.2f} ms per step), plain "
+        f"{t_p:.3f} s ({1e3 * t_p / 128:.2f} ms per step)")
+    # K8 on the learner's real input: a batch of these records from the
+    # replay, rebuilt as states (no cards, no mobilization pair) as
+    # train_epochs featurizes them
+    rb = ReplayBuffer(cfg)
+    rb.extend_from_actor(got.samples, got.status, final_round=got.state.round)
+    arrays = rb.sample_arrays()
+    pick = np.random.default_rng(0).permutation(len(rb))[:cfg.batch_size]
+    sub = {k: torch.from_numpy(v[pick]).to(dev) for k, v in arrays.items()}
+    check_k8(A.state_of_samples(A.SampleBatch(valid=None, **sub), cfg), cfg,
+             timed=False, what=" (learner batch of replay records)")
+    profile_scripted(mx, cfg)
+
+    # (b) play_match Script vs Script to the end; live micro-steps counted
+    # by the match's own status check at the top of each step
+    live = torch.zeros((), dtype=torch.int64, device=dev)
+    status_fn = rules.game_status
+
+    def counting_status(state, c):
+        st = status_fn(state, c)
+        live.add_((st == -1).sum())
+        return st
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    state0 = D.mirrored_initial_states(MIXED, generator=gen, device=dev)
+    torch.cuda.synchronize()
+    c0 = kernels.counts()
+    rules.game_status = counting_status
+    try:
+        t0 = time.perf_counter()
+        res = D.play_match(gen, state0, D.AGENT_SCRIPT, D.AGENT_SCRIPT, cfg,
+                           cfg.max_game_steps)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        rules.game_status = status_fn
+    tally = D.summarize(res)
+    k9 = kernels.counts()["script_step"] - c0["script_step"]
+    log(f"data (b): play_match Script vs Script, {json.dumps(tally)}; "
+        f"{res.steps} lockstep steps, {int(live)} live micro-steps in "
+        f"{secs:.2f} s: {int(live) / secs:.0f} live micro-steps/s "
+        f"({1e3 * secs / res.steps:.3f} ms per lockstep step); K9 "
+        f"launches {k9}")
+    if tally["unfinished"] != 0 or k9 != res.steps:
+        fail(f"data (b): {tally['unfinished']} games unfinished, K9 "
+             f"launched {k9} times over {res.steps} steps")
+
+    # (c) Trainer.train_on_data from the flagship weights
+    trainer = Trainer(cfg, seed=5, device=dev)
+    trainer.load_weights(base.net)
+    trainer.folded()
+    parts = {}
+    gen_waves = {sr: [], (A.OPP_SCRIPT, A.OPP_SCRIPT): []}
+    seen, reverts = {}, []
+
+    def timed(name, fn):
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            t0, c0 = time.perf_counter(), kernels.counts()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            p = parts.setdefault(name, {"seconds": 0.0, "launches": {}})
+            p["seconds"] += time.perf_counter() - t0
+            p["result"] = out
+            for k, v in kernels.counts().items():
+                p["launches"][k] = p["launches"].get(k, 0) + v - c0[k]
+            return out
+        return wrapped
+
+    real_call = trainer._scripted_call
+
+    def scripted_call(kinds):
+        call = real_call(kinds)
+
+        def run(state, carry, prev):
+            out = call(state, carry, prev)
+            waves = gen_waves[tuple(kinds)]
+            if carry is None:
+                waves.append({"steps": 0, "records": 0})
+            waves[-1]["steps"] += cfg.actor_chunk_steps
+            waves[-1]["records"] += int(out.samples.valid.sum())
+            waves[-1]["status"] = out.status
+            return out
+        name = "generate " + ("script-random" if kinds[1] == A.OPP_RANDOM
+                              else "script-script")
+        return timed(name, run)
+
+    real_epochs = trainer.train_epochs
+
+    def epochs(*a, **kw):
+        seen["n"] = len(trainer.replay)
+        seen["step0"] = trainer.train_state.step
+        return real_epochs(*a, **kw)
+
+    trainer._scripted_call = scripted_call
+    trainer.train_epochs = timed("epochs", epochs)
+    trainer.gate = timed("gate", trainer.gate)
+    trainer.benchmark = timed("benchmark", trainer.benchmark)
+    trainer._revert = lambda: reverts.append(1)
+    s0 = dict(trainer.play_stats)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    trainer.train_on_data(loops=1)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    counts = kernels.counts()
+    log(f"data (c): train_on_data(loops=1) in {total:.1f} s; launches "
+        f"{counts}")
+    for name, p in parts.items():
+        log(f"data (c) {name}: {p['seconds']:.1f} s, launches "
+            f"{ {k: v for k, v in p['launches'].items() if v} }")
+    steps = {k: sum(w["steps"] for w in v) for k, v in gen_waves.items()}
+    named = {("script-random" if k == sr else "script-script"): v
+             for k, v in steps.items()}
+    recs = sum(w["records"] for v in gen_waves.values() for w in v)
+    unfinished = sum(int((w["status"] == -1).sum())
+                     for v in gen_waves.values() for w in v)
+    games = sum(int(w["status"].numel()) for v in gen_waves.values()
+                for w in v)
+    log(f"data (c): scripted games {games}, unfinished {unfinished}, "
+        f"lockstep steps {named}, "
+        f"records {recs}, replay before the epochs {seen.get('n')}, "
+        f"learner steps {trainer.train_state.step - seen.get('step0', 0)}; "
+        f"epochs {json.dumps(trainer.epoch_log)}")
+    if games != cfg.data_games_ss + cfg.data_games_sr or unfinished:
+        fail(f"data (c): {games} scripted games, {unfinished} unfinished")
+    if seen.get("n") != recs or trainer.train_state.step - seen["step0"] \
+            != 3 * (recs // cfg.batch_size):
+        fail("data (c): the fresh replay or the learner's steps do not "
+             "match the scripted records")
+    gen_launch = {k: sum(p["launches"].get(k, 0) for n, p in parts.items()
+                         if n.startswith("generate"))
+                  for k in ("script_step", "random_step")}
+    want_gen = {"script_step": sum(steps.values()),
+                "random_step": steps[sr]}
+    if gen_launch != want_gen:
+        fail(f"data (c): generation launched {gen_launch}, expected "
+             f"{want_gen}")
+    # the trainer counts the scripted chunks' lockstep steps too; they
+    # search nothing
+    st = {k: trainer.play_stats[k] - s0[k]
+          for k in ("steps", "paired_steps", "folds")}
+    st["steps"] -= sum(steps.values())
+    want = expected_launches(st, cfg.mcts_simulations, cfg.blocks)
+    if want != {k: counts[k] for k in want}:
+        fail(f"data (c): launch counts {counts} differ from the expected "
+             f"{want}")
+    for k in kernels.ALL:
+        if counts[k.name] <= 0:
+            fail(f"kernel {k.name} was not launched by the data phase")
+    if reverts or not all(trainer.ckpt.exists(r) for r in ("temp",
+                                                           "latest")) \
+            or trainer.ckpt.load_meta()["iteration"] != 1:
+        fail("data (c): a revert, or temp/latest/meta missing")
+    if not all(np.isfinite(e["pi_loss"]) for e in trainer.epoch_log):
+        fail("data (c): non-finite loss")
+    verdict = "accepted" if parts["gate"]["result"] else "rejected"
+    bench = "run" if "benchmark" in parts else "skipped"
+    log(f"data (c): gate {verdict} (no revert), benchmark {bench}; "
+        f"expected launches {want} and generation {want_gen} held; temp, "
+        f"latest and meta written")
+    for e in entries:
+        e["launches_data"] = counts[e["name"]]
+
+
 def main():
     t_start = time.perf_counter()
     card = phase_device()
@@ -1035,11 +1658,16 @@ def main():
     cfg = Config(mcts_simulations=SIMS, fast_infer=True, fast_infer_int8=True,
                  checkpoint_dir=str(WORK / "checkpoints"),
                  data_dir=str(WORK / "data"), log_dir=str(WORK / "log"))
-    trainer, entries = phase_kernels(cfg, torch.device("cuda"))
+    trainer, entries, mx = phase_kernels(cfg, torch.device("cuda"))
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     phase_slice(trainer, entries)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     phase_train(trainer, entries)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    phase_data(trainer, mx, entries)
+    for e in entries:
+        e["launches"] = sum(e[f"launches_{p}"]
+                            for p in ("play", "train", "data"))
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": entries}))
     print(card)

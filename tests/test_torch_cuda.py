@@ -12,8 +12,13 @@ import pytest
 import torch
 
 from alphazero_risk_tpu_torch import kernels
+from alphazero_risk_tpu_torch.agents import random_agent as RA
+from alphazero_risk_tpu_torch.agents import script_agent as SA
+from alphazero_risk_tpu_torch.agents.driver import \
+    mixed_play as mixed_play_states
 from alphazero_risk_tpu_torch.config import Config
 from alphazero_risk_tpu_torch.env import rules
+from alphazero_risk_tpu_torch.env.featurize import _featurize_plain, featurize
 from alphazero_risk_tpu_torch.env.state import GameState, new_game, tree_map
 from alphazero_risk_tpu_torch.models import fast_infer as FI
 from alphazero_risk_tpu_torch.mcts import search as S
@@ -105,7 +110,10 @@ def test_play_launches_every_kernel(cuda):
     kernels.reset_counts()
     res = trainer.play(A.OPP_SCRIPT, 4)
     assert res["unfinished"] == 0
-    assert all(n > 0 for n in kernels.counts().values()), kernels.counts()
+    # every kernel but the RandomPlayer's
+    counts = kernels.counts()
+    assert counts.pop("random_step") == 0
+    assert all(n > 0 for n in counts.values()), counts
 
 
 @pytest.mark.parametrize("cin,cout,residual", [(13, 64, False),
@@ -205,5 +213,171 @@ def test_train_iteration_launches_every_kernel(cuda, tmp_path):
     trainer = Trainer(cfg, seed=0, device=cuda)
     kernels.reset_counts()
     trainer.train(iterations=1, resume=False)
+    if not trainer.ckpt.exists("best"):
+        # a rejected gate skips the benchmark, the one part of train() that
+        # meets the ScriptPlayer and the RandomPlayer (K9, K10)
+        trainer.benchmark()
     assert all(n > 0 for n in kernels.counts().values()), kernels.counts()
     assert trainer.ckpt.exists("latest")
+
+
+@pytest.fixture(scope="module")
+def mixed_play():
+    """Every 15th of 900 steps of 64 games of mixed play on the card
+    (``driver.mixed_play``), on the CPU: every phase, fortify ties, full
+    lands, terminal games."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    cfg = Config()
+    mx = mixed_play_states(64, 900, cfg, torch.Generator(
+        device="cuda").manual_seed(11), every=15).apply(lambda x: x.cpu())
+    status = rules.game_status(mx.state, cfg)
+    assert set(mx.state.phase.tolist()) == set(range(6))
+    assert bool((status != -1).any()) and bool((status == -1).any())
+    return mx
+
+
+def _on(x, dev):
+    """``x`` (a tensor, a dataclass of tensors or a tuple of them) on
+    ``dev``."""
+    if isinstance(x, tuple):
+        return tuple(_on(y, dev) for y in x)
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    return tree_map(lambda t: t.to(dev), x)
+
+
+def _assert_states_equal(a, b):
+    for f in dataclasses.fields(GameState):
+        assert torch.equal(getattr(a, f.name).cpu(),
+                           getattr(b, f.name).cpu()), f.name
+
+
+@pytest.mark.parametrize("cfg", [Config(), Config(limit_attack_moves=True),
+                                 Config(exact_fortify_tiebreak=False)])
+def test_rules_step_matches_plain(cuda, mixed_play, cfg):
+    """K7: ``step`` with dice and ``step_with_outcome`` against the plain
+    versions, on a random legal action and on an arbitrary one."""
+    state, dice, a = mixed_play.state, mixed_play.dice, mixed_play.action
+    g = torch.Generator().manual_seed(1)
+    anyway = torch.randint(0, 43, a.shape, generator=g, dtype=torch.int32)
+    outcome = torch.randint(0, 3, a.shape, generator=g, dtype=torch.int32)
+    cs = _on(state, cuda)
+    for act in (a, anyway):
+        kernels.RULES_STEP.launches = 0
+        _assert_states_equal(rules.step(cs, act.to(cuda), dice.to(cuda), cfg),
+                             rules._step_plain(state, act, dice, cfg))
+        _assert_states_equal(
+            rules.step_with_outcome(cs, act.to(cuda), outcome.to(cuda), cfg),
+            rules._step_with_outcome_plain(state, act, outcome, cfg))
+        assert kernels.RULES_STEP.launches == 2
+
+
+def test_rules_expand_matches_plain(cuda):
+    """K7's expand entry: the child of node exp_n read from the tree, its
+    status and legal mask."""
+    cfg = Config(mcts_simulations=6, max_depth=10)
+    root = played_roots(64, 120, seed=7)
+    gum = S.draw_gumbel(torch.Generator().manual_seed(3), cfg, 64, "cpu")
+    tree = S.search(root, gum, cfg, uniform_eval).tree
+    path = S._descend_plain(tree, gum[1], cfg)
+    exp_n = path.exp_n.clone()
+    exp_n[::5] = -1                 # no expansion: node 0 is read
+    assert bool((exp_n > 0).any())
+    ref = rules._expand_plain(tree.states, exp_n, path.exp_a, path.exp_o,
+                              cfg)
+    got = rules.expand(_on(tree.states, cuda), exp_n.to(cuda),
+                       path.exp_a.to(cuda), path.exp_o.to(cuda), cfg)
+    _assert_states_equal(got[0], ref[0])
+    assert torch.equal(got[1].cpu(), ref[1])
+    assert torch.equal(got[2].cpu(), ref[2])
+
+
+@pytest.mark.parametrize("version", [1, 2, 3])
+def test_state_views_match_plain(cuda, mixed_play, version):
+    """K8: legality, status and features, each alone and all three from
+    one launch, against the plain versions on the CPU (the features bit
+    for bit, NaN where a share is 0/0)."""
+    cfg = Config(feature_version=version)
+    state = mixed_play.state
+    cs = _on(state, cuda)
+    want = (rules._legal_actions_plain(state, cfg),
+            rules._game_status_plain(state, cfg), _featurize_plain(state, cfg))
+    kernels.STATE_VIEWS.launches = 0
+    alone = (rules.legal_actions(cs, cfg), rules.game_status(cs, cfg),
+             featurize(cs, cfg))
+    both = rules.state_views(cs, cfg, legal=True, status=True,
+                             features=True)
+    assert kernels.STATE_VIEWS.launches == 4
+    for got in (alone, both):
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0,
+                                       equal_nan=True)
+
+
+@pytest.mark.parametrize("cfg", [Config(),
+                                 Config(limit_reinforcement_moves=False),
+                                 Config(exact_fortify_tiebreak=False)])
+def test_script_and_random_steps_match_plain(cuda, mixed_play, cfg):
+    """K9 and K10 against their plain versions: state, carry, action and
+    record."""
+    mx = mixed_play
+    state, carry, reset, u, dice = mx.state, mx.carry, mx.reset, mx.u, mx.dice
+    args = [x.to(cuda) for x in (reset, u, dice)]
+    kernels.SCRIPT_STEP.launches = kernels.RANDOM_STEP.launches = 0
+    s9, c9, r9 = SA.script_step_recorded(_on(state, cuda), _on(carry, cuda),
+                                         *args, cfg)
+    p9, pc9, pr9 = SA._script_step_recorded_plain(state, carry, reset, u,
+                                                  dice, cfg)
+    _assert_states_equal(s9, p9)
+    for f in dataclasses.fields(SA.ScriptCarry):
+        assert torch.equal(getattr(c9, f.name).cpu(), getattr(pc9, f.name))
+    assert all(torch.equal(x.cpu(), y) for x, y in zip(r9, pr9))
+    s10, r10 = RA.random_step_recorded(_on(state, cuda), args[1], args[2],
+                                       cfg)
+    p10, pr10 = RA._random_step_recorded_plain(state, u, dice, cfg)
+    _assert_states_equal(s10, p10)
+    assert all(torch.equal(x.cpu(), y) for x, y in zip(r10, pr10))
+    assert (kernels.SCRIPT_STEP.launches, kernels.RANDOM_STEP.launches) == \
+        (1, 1)
+
+
+def test_train_on_data_launches_every_kernel(cuda, tmp_path):
+    """A tiny ``train_on_data`` loop: every kernel launches, the scripted
+    matches through K9 and K10 only."""
+    cfg = Config(blocks=2, filters=64, value_hidden=16, mcts_simulations=4,
+                 max_depth=8, env_batch_per_device=4, fast_infer=True,
+                 fast_infer_int8=True, batch_size=32, data_games_ss=4,
+                 data_games_sr=4, compare_games=4,
+                 benchmark_games_random=2, benchmark_games_script=2,
+                 max_game_steps=1024, actor_chunk_steps=128,
+                 samples_storage_min_batches=2,
+                 checkpoint_dir=str(tmp_path / "ck"),
+                 data_dir=str(tmp_path / "data"),
+                 log_dir=str(tmp_path / "log"))
+    trainer = Trainer(cfg, seed=0, device=cuda)
+    gen_counts = []
+    real = trainer._scripted_call
+
+    def counted(kinds):
+        call = real(kinds)
+
+        def run(state, carry, prev):
+            c0 = kernels.counts()
+            out = call(state, carry, prev)
+            gen_counts.append((kinds, {k: v - c0[k] for k, v in
+                                       kernels.counts().items()}))
+            return out
+        return run
+
+    trainer._scripted_call = counted
+    kernels.reset_counts()
+    trainer.train_on_data(loops=1)
+    counts = kernels.counts()
+    assert all(n > 0 for n in counts.values()), counts
+    for kinds, c in gen_counts:
+        assert c["script_step"] == cfg.actor_chunk_steps
+        assert c["random_step"] == (cfg.actor_chunk_steps
+                                    if kinds[1] == A.OPP_RANDOM else 0)
+        assert c["conv3x3_i8"] == c["mcts_descend"] == c["rules_step"] == 0
+    assert trainer.ckpt.exists("temp") and trainer.ckpt.exists("latest")

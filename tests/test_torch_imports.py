@@ -87,10 +87,13 @@ def test_import_builds_and_loads_nothing():
     from alphazero_risk_tpu_torch import kernels
     assert [k.name for k in kernels.ALL] == [
         "conv3x3_i8", "mcts_descend", "mcts_backup", "conv3x3_bf16",
-        "heads_eval", "write_nodes"]
+        "heads_eval", "write_nodes", "rules_step", "state_views",
+        "script_step", "random_step"]
     for k in kernels.ALL:
         assert k._fn is None and k.build_log == ""
         assert f'extern "C" int {k.symbol}(' in k.source.read_text()
+        for h in k.headers:
+            assert f'#include "{h.name}"' in k.source.read_text()
 
 
 def test_kernel_flags_are_per_source():
@@ -98,7 +101,8 @@ def test_kernel_flags_are_per_source():
     common flags (``--fmad=false``), and so their library names; the bf16
     conv and the heads are built with the compiler's default contraction."""
     from alphazero_risk_tpu_torch import kernels
-    exact = {"conv3x3_i8", "mcts_descend", "mcts_backup", "write_nodes"}
+    exact = {"conv3x3_i8", "mcts_descend", "mcts_backup", "write_nodes",
+             "rules_step", "state_views", "script_step", "random_step"}
     for k in kernels.ALL:
         if k.name in exact:
             assert k.flags == kernels.NVCC_FLAGS
@@ -109,20 +113,84 @@ def test_kernel_flags_are_per_source():
     assert len({k.library for k in kernels.ALL}) == len(kernels.ALL)
 
 
+def test_kernel_library_names_follow_their_headers(tmp_path, monkeypatch):
+    """A rules kernel's library name hashes the shared header too, so an
+    edit of ``rules_dev.cuh`` rebuilds all four."""
+    from alphazero_risk_tpu_torch import kernels
+    k = kernels.RULES_STEP
+    before = k.library
+    copy = tmp_path / "rules_dev.cuh"
+    copy.write_text(k.headers[0].read_text() + "\n// edited\n")
+    monkeypatch.setattr(k, "headers", (copy,))
+    assert k.library != before
+    assert kernels.CONV3X3_I8.headers == ()
+
+
+def test_rules_kernel_tables_follow_the_topology():
+    """The packed ``rd::Tables`` buffer holds topology.py's tables at the
+    offsets the header declares."""
+    import numpy as np
+    from alphazero_risk_tpu_torch.env import rules, topology
+    buf = rules.kernel_tables(torch.device("cpu")).numpy()
+    adj = buf[:336].view("<u8")
+    for i in range(42):
+        want = sum(1 << j for j in range(42) if topology.ADJACENCY[i, j])
+        assert int(adj[i]) == want
+    conts = buf[336:384].view("<u8")
+    assert [bin(int(c)).count("1") for c in conts] == \
+        topology.CONTINENT_SIZE.tolist()
+    ints = buf[384:712].view("<i4")
+    np.testing.assert_array_equal(ints[12:76], rules.CARD_SET_GAIN)
+    np.testing.assert_array_equal(ints[76:82], topology.CONTINENT_TIE_RANK)
+    np.testing.assert_array_equal(buf[712:2476].view("<i1").reshape(42, 42),
+                                  topology.NEIGHBOR_RANK)
+    np.testing.assert_array_equal(buf[2476:].view("<i1").reshape(6, 42),
+                                  topology.SCRIPT_LAND_RANK)
+    text = (rules.kernels.CSRC / "rules_dev.cuh").read_text()
+    assert "sizeof(Tables) == 2728" in text
+
+
 @pytest.mark.parametrize("name", ["conv3x3_bf16", "heads_eval",
-                                  "write_nodes"])
+                                  "write_nodes", "rules_step", "expand",
+                                  "state_views", "featurize", "script_step",
+                                  "random_step"])
 def test_cuda_tensor_wrappers_do_not_fall_back(name, monkeypatch):
     """A wrapper takes its plain version only for CPU tensors: with a
     tensor that claims another device it goes to the kernel path, which
     here (no card, no nvcc) raises instead of computing the plain
     version."""
+    from alphazero_risk_tpu_torch.agents import random_agent as RA
+    from alphazero_risk_tpu_torch.agents import script_agent as SA
     from alphazero_risk_tpu_torch.config import Config
-    from alphazero_risk_tpu_torch.env.state import new_game
+    from alphazero_risk_tpu_torch.env import featurize as FZ
+    from alphazero_risk_tpu_torch.env import rules
+    from alphazero_risk_tpu_torch.env.state import new_game, tree_map
     from alphazero_risk_tpu_torch.mcts import search as S
     from alphazero_risk_tpu_torch.models import fast_infer as FI
 
     meta = torch.device("meta")
-    if name == "conv3x3_bf16":
+    cfg = Config()
+    st = tree_map(lambda t: t.to(meta), new_game(2, device="cpu"))
+    i2 = torch.zeros(2, dtype=torch.int32, device=meta)
+    u = torch.zeros((2, 4), device=meta)
+    dice = torch.ones((2, 5), dtype=torch.int32, device=meta)
+    if name == "rules_step":
+        call = lambda: rules.step(st, i2, dice, cfg)
+    elif name == "expand":
+        nodes = tree_map(lambda t: t[:, None], st)
+        call = lambda: rules.expand(nodes, i2, i2, i2, cfg)
+    elif name == "state_views":
+        call = lambda: rules.state_views(st, cfg, legal=True, status=True)
+    elif name == "featurize":
+        call = lambda: FZ.featurize(st, cfg)
+    elif name == "script_step":
+        carry = tree_map(lambda t: t.to(meta), SA.init_carry(2, "cpu"))
+        call = lambda: SA.script_step_recorded(
+            st, carry, torch.ones(2, dtype=torch.bool, device=meta), u,
+            dice, cfg)
+    elif name == "random_step":
+        call = lambda: RA.random_step_recorded(st, u, dice, cfg)
+    elif name == "conv3x3_bf16":
         x = torch.empty((2, 7, 6, 13), device=meta)
         w = torch.empty((3, 3, 13, 64), dtype=torch.bfloat16, device=meta)
         call = lambda: FI.conv3x3_bf16(x, w, torch.empty(64, device=meta))
@@ -142,5 +210,12 @@ def test_cuda_tensor_wrappers_do_not_fall_back(name, monkeypatch):
     monkeypatch.setattr(FI, "_conv3x3_bf16_plain", None)
     monkeypatch.setattr(FI, "_heads_eval_plain", None)
     monkeypatch.setattr(S, "_write_nodes_plain", None)
+    for fn in ("_step_plain", "_step_with_outcome_plain", "_expand_plain",
+               "_state_views_plain", "_legal_actions_plain",
+               "_game_status_plain"):
+        monkeypatch.setattr(rules, fn, None)
+    monkeypatch.setattr(FZ, "_featurize_plain", None)
+    monkeypatch.setattr(SA, "_script_step_recorded_plain", None)
+    monkeypatch.setattr(RA, "_random_step_recorded_plain", None)
     with pytest.raises((ValueError, RuntimeError)):
         call()
