@@ -1,160 +1,227 @@
-// K4: bf16 3x3 SAME convolution on the 7x6 board with a fused epilogue.
+// K4: bf16 3x3 SAME convolution on the 7x6 board with a fused epilogue, on
+// the tensor cores (wgmma m64n64k16 bf16 -> f32).
 //
 // Replaces: alphazero_risk_tpu/models/fast_infer.py, `_stem` and
 // `_trunk_xla_bf16` (XLA bf16 convs with preferred_element_type=float32 and
 // the bias / residual / ReLU elementwise work around them), and the same
 // convs inside `calibrate_trunk`.
 //
-// Computes out = relu(conv(bf16(x), w) + bias [+ residual]) with
-//   x        [M, Cin]  f32 NHWC (M = B*42), rounded to bf16 here
-//            (round-to-nearest-even, what `.to(torch.bfloat16)` does),
-//   w        [3, 3, Cin, Cout] bf16 HWIO, read as stored,
-//   bias     [Cout] f32, residual [M, Cout] f32 or null, out [M, Cout] f32.
-// Products of two bf16 values are exact in float32, so the result differs
-// from any other float32-accumulating conv only by the order of the sums.
+// Computes v = relu(conv(bf16(x), w) + bias [+ residual]) with
+//   x        [M, Cin] NHWC (M = B*42), f32 (rounded to bf16 here,
+//            round-to-nearest-even as `.to(torch.bfloat16)` does) or bf16,
+//   w        [3, 3, Cin, Cout] bf16 HWIO, read as stored (wgmma's
+//            MN-major B),
+//   bias     [Cout] f32, residual [M, Cout] f32 or null,
+// and writes v as f32 (out) and/or as bf16 rounded to nearest even
+// (out_bf, the next conv's input: JAX rounds each conv's input to bf16).
+// Products of two bf16 values are exact in float32; the sums run in another
+// order than any other conv's.
 //
-// Bound on an H100: at the main path's trunk shape (B=64, Cin=Cout=256) one
-// conv is 2*2688*2304*256 = 3.17 GFLOP, 3.2 us at the bf16 tensor-core
-// peak, and moves 9.4 MB (x, residual, out in f32, w in bf16), 2.8 us at
-// 3.35 TB/s: about balanced.  The stem (Cin=13) is bytes-bound, under 1 us.
-// This kernel reaches neither: it multiplies on the CUDA cores in float32.
+// Bound on an H100 (989 TFLOP/s bf16 dense, 3.35 TB/s): at B=64, C=256 one
+// conv is 2*2688*2304*256 = 3.17 GFLOP, 3.2 us, and moves 1.4 MB in (bf16
+// x) + 1.2 MB weights + 1.4-4.1 MB out (bf16 and/or f32, f32 residual):
+// about 1-2 us.  At B=1024 it is 50.7 GFLOP, 51 us, against 20-67 MB,
+// 6-20 us: bound by the operations at both sizes.  The stem (Cin=13) is
+// bound by its bytes.
 //
-// Design: an implicit GEMM (M board cells, N = Cout, K = 9 taps * Cin).  One
-// 256-thread block computes a 64 x 64 output tile; K advances 16 input
-// channels of one tap at a time through shared memory, with zeros past Cin
-// (the stem's 13 channels) and outside the board (SAME padding).  Each
-// thread accumulates a 4 x 4 sub-tile in float32 and applies the epilogue to
-// it in registers.  Moving the product to wgmma is later work.
+// Design (conv_tc.cuh): board-aligned tiles with each board's zero-padded
+// halo plane staged once per 32-channel chunk by cp.async, a chunk ahead;
+// the nine taps as row offsets of ldmatrix, whose fragments are wgmma's A
+// in registers; the HWIO weights' (chunk, kernel row) slices through a
+// 4-stage cp.async ring into wgmma's MN-major 128B-swizzled layout, taken
+// as stored; one wgmma group per (tap, 16 channels), its A fragments in one
+// of two register sets, so the next group's ldmatrix runs while it
+// multiplies.  64 output channels per block; 3 boards on 2 warpgroups for
+// small batches, 6 boards on 2 warpgroups of two tiles (twice the products
+// per weight byte read from L2, two blocks per SM) for large ones (the
+// launcher chooses from the SM count).  An f32 input (the stem's
+// features, Cin=13) is rounded while it is staged, with zeros past Cin.
+// The epilogue adds the bias and the residual and applies the ReLU in
+// registers, and writes 8 bytes (f32) and 4 bytes (bf16) per lane and row.
 
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "conv_tc.cuh"
+
 namespace {
 
-constexpr int kBM = 64;       // board cells per block
-constexpr int kBN = 64;       // output channels per block
-constexpr int kBK = 16;       // input channels per step
-constexpr int kThreads = 256;
-constexpr int kCells = 42;    // 7 x 6 board
+using namespace tc;
 
-__global__ void __launch_bounds__(kThreads)
-conv3x3_bf16_kernel(const float* __restrict__ x,
+constexpr int kKC = 32;   // input channels per chunk (64 bytes of bf16)
+
+template <class T>
+__global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
+conv3x3_bf16_kernel(const void* __restrict__ x, int x_bf16,
                     const __nv_bfloat16* __restrict__ w,
                     const float* __restrict__ bias,
                     const float* __restrict__ residual,
-                    float* __restrict__ out, int M, int Cin, int Cout) {
-  __shared__ __align__(16) float As[kBK][kBM + 4];
-  __shared__ __align__(16) float Bs[kBK][kBN + 4];
+                    float* __restrict__ out,
+                    __nv_bfloat16* __restrict__ out_bf, int B, int Cin,
+                    int Cout) {
+  constexpr int MT = T::kMT;
+  extern __shared__ __align__(1024) char smem[];
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int m0 = blockIdx.x * kBM;
+  const int lane = tid & 31;
+  const int board0 = blockIdx.x * T::kBoards;
+  const int boards = min(T::kBoards, B - board0);
   const int n0 = blockIdx.y * kBN;
+  const int n_chunks = (Cin + kKC - 1) / kKC;
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  const uint32_t base = aligned_base(smem);
+  char* planes = smem + (base - smem_u32(smem));
+  zero_planes<T>(planes, tid);
+  __syncthreads();
 
-  for (int tap = 0; tap < 9; ++tap) {
-    const int dy = tap / 3 - 1;
-    const int dx = tap % 3 - 1;
-    for (int c0 = 0; c0 < Cin; c0 += kBK) {
-      // A tile: 64 cells x 16 channels; 16 consecutive threads read the 16
-      // channels of one cell.
+  float acc[MT][kBN / 2] = {};
+
+  auto load_a = [&](int c, uint32_t sA) {
+    const int k0 = c * kKC;
+    if (x_bf16) {
+      const char* xb = static_cast<const char*>(x);
+      load_planes_async<T>(
+          sA, tid, boards,
+          [&](int b, int cell) {
+            return xb + ((static_cast<int64_t>(board0 + b) * kCells + cell)
+                             * Cin + k0) * 2;
+          },
+          (Cin - k0) * 2);
+    } else {
+      // f32 input: round to bf16 while staging, zeros past Cin
+      const float* xf = static_cast<const float*>(x);
+      for (int e = tid; e < boards * kCells * 4; e += T::kThreads) {
+        const int b = e / (kCells * 4);
+        const int rem = e - b * (kCells * 4);
+        const int cell = rem >> 2;
+        const int ch = rem & 3;
+        const float* src =
+            xf + (static_cast<int64_t>(board0 + b) * kCells + cell) * Cin;
+        uint32_t pk[4];
 #pragma unroll
-      for (int r = 0; r < (kBM * kBK) / kThreads; ++r) {
-        const int e = tid + r * kThreads;
-        const int row = e / kBK;
-        const int k = e % kBK;
-        const int p = m0 + row;
-        const int c = c0 + k;
-        float val = 0.0f;
-        if (p < M && c < Cin) {
-          const int b = p / kCells;
-          const int cell = p % kCells;
-          const int y = cell / 6 + dy;
-          const int xx = cell % 6 + dx;
-          if (y >= 0 && y < 7 && xx >= 0 && xx < 6) {
-            const float v =
-                x[(static_cast<int64_t>(b) * kCells + y * 6 + xx) * Cin + c];
-            val = __bfloat162float(__float2bfloat16_rn(v));
-          }
+        for (int j = 0; j < 4; ++j) {
+          const int k = k0 + ch * 8 + 2 * j;
+          const float lo = k < Cin ? src[k] : 0.0f;
+          const float hi = k + 1 < Cin ? src[k + 1] : 0.0f;
+          const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+          pk[j] = *reinterpret_cast<const uint32_t*>(&v);
         }
-        As[k][row] = val;
+        *reinterpret_cast<uint4*>(planes + (sA - base) +
+                                  sw64(b * kPlane + cell_pos(cell), ch)) =
+            make_uint4(pk[0], pk[1], pk[2], pk[3]);
       }
-      // B tile: 16 channels x 64 output channels.
-#pragma unroll
-      for (int r = 0; r < (kBK * kBN) / kThreads; ++r) {
-        const int e = tid + r * kThreads;
-        const int k = e / kBN;
-        const int col = e % kBN;
-        const int c = c0 + k;
-        float val = 0.0f;
-        if (c < Cin) {
-          val = __bfloat162float(
-              w[(static_cast<int64_t>(tap) * Cin + c) * Cout + n0 + col]);
-        }
-        Bs[k][col] = val;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < kBK; ++k) {
-        const float4 a4 = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
-        const float4 b4 = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
-        const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-        const float bb[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
-      }
-      __syncthreads();
     }
-  }
+  };
 
+  auto load_b = [&](int i, uint32_t sB) {
+    const int c = i / kSteps;
+    const int k0 = c * kKC;
+    // weight slices of the three taps of kernel row i % 3: 32 input
+    // channels x 64 output channels each, each 16-byte piece 8 output
+    // channels of one input channel
+    for (int e = tid; e < kRowTaps * kKC * (kBN / 8); e += T::kThreads) {
+      const int tt = e / (kKC * (kBN / 8));
+      const int r = e - tt * (kKC * (kBN / 8));
+      const int t = (i - c * kSteps) * 3 + tt;
+      const int k = r / (kBN / 8);
+      const int g = r - k * (kBN / 8);
+      const bool ok = k0 + k < Cin;
+      const __nv_bfloat16* src =
+          ok ? w + (static_cast<int64_t>(t) * Cin + k0 + k) * Cout + n0 +
+                   g * 8
+             : w;
+      cp_async16(sB + tt * kSlice + sw128(k, g), src, ok ? 16 : 0);
+    }
+  };
+
+  auto mma = [](float (&d)[kBN / 2], const uint32_t (&a)[4], uint32_t sB,
+                int ks) {
+    // 16 input channels (rows) of the MN-major 128B-swizzled slice
+    wgmma_bf16_n64(d, a, smem_desc(sB + ks * 2048, 1024, kSwizzle128));
+  };
+
+  pipeline<T>(base, tid, n_chunks, acc, load_a, load_b, mma);
   // Epilogue, in the order of the plain version:
   //   v = acc + bias; [v = v + residual;] v = max(v, 0)
+  const int rows = boards * kCells;
+  const int64_t m0 = static_cast<int64_t>(board0) * kCells;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int p = m0 + ty * 4 + i;
-    if (p >= M) continue;
-    const int64_t o = static_cast<int64_t>(p) * Cout + n0 + tx * 4;
-    const float4 b4 = *reinterpret_cast<const float4*>(bias + n0 + tx * 4);
-    float v[4] = {acc[i][0] + b4.x, acc[i][1] + b4.y, acc[i][2] + b4.z,
-                  acc[i][3] + b4.w};
-    if (residual) {
-      const float4 r4 = *reinterpret_cast<const float4*>(residual + o);
-      v[0] += r4.x;
-      v[1] += r4.y;
-      v[2] += r4.z;
-      v[3] += r4.w;
+  for (int j = 0; j < kBN / 8; ++j) {
+    const int n = n0 + j * 8 + 2 * (lane & 3);
+    const float2 bb = *reinterpret_cast<const float2*>(bias + n);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = d_row<T>(tid, mt, h);
+        if (r >= rows) continue;
+        const int64_t o = (m0 + r) * Cout + n;
+        float v0 = acc[mt][4 * j + 2 * h] + bb.x;
+        float v1 = acc[mt][4 * j + 2 * h + 1] + bb.y;
+        if (residual) {
+          const float2 rr = *reinterpret_cast<const float2*>(residual + o);
+          v0 = v0 + rr.x;
+          v1 = v1 + rr.y;
+        }
+        v0 = fmaxf(v0, 0.0f);
+        v1 = fmaxf(v1, 0.0f);
+        if (out) *reinterpret_cast<float2*>(out + o) = make_float2(v0, v1);
+        if (out_bf)
+          *reinterpret_cast<__nv_bfloat162*>(out_bf + o) =
+              __floats2bfloat162_rn(v0, v1);
+      }
     }
-    float4 o4;
-    o4.x = fmaxf(v[0], 0.0f);
-    o4.y = fmaxf(v[1], 0.0f);
-    o4.z = fmaxf(v[2], 0.0f);
-    o4.w = fmaxf(v[3], 0.0f);
-    *reinterpret_cast<float4*>(out + o) = o4;
   }
+}
+
+template <class T>
+int launch(const void* x, int x_bf16, const void* w, const void* bias,
+           const void* residual, void* out, void* out_bf, int B, int Cin,
+           int Cout, cudaStream_t stream) {
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        conv3x3_bf16_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        T::kSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr = true;
+  }
+  dim3 grid((B + T::kBoards - 1) / T::kBoards, Cout / kBN);
+  conv3x3_bf16_kernel<T><<<grid, T::kThreads, T::kSmem, stream>>>(
+      x, x_bf16, static_cast<const __nv_bfloat16*>(w),
+      static_cast<const float*>(bias), static_cast<const float*>(residual),
+      static_cast<float*>(out), static_cast<__nv_bfloat16*>(out_bf), B, Cin,
+      Cout);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// x [M, Cin] f32, w [3, 3, Cin, Cout] bf16, bias [Cout] f32, residual
-// [M, Cout] f32 or null, out [M, Cout] f32.  Cout must be a multiple of 64;
-// Cin is free.  Launches on `stream` and returns cudaGetLastError().
+// x [M, Cin] f32 (x_bf16 = 0) or bf16 (x_bf16 = 1; Cin % 8 == 0), w [3, 3,
+// Cin, Cout] bf16, bias [Cout] f32, residual [M, Cout] f32 or null; out
+// [M, Cout] f32 and out_bf [M, Cout] bf16, either may be null.  M = B*42;
+// Cout a multiple of 64; every pointer 16-byte aligned.  Launches
+// ceil(B / boards) x Cout/64 blocks of az_conv3x3_bf16_boards(B, Cout)
+// boards each on `stream` and returns cudaGetLastError()
+// (cudaErrorInvalidValue for a shape it does not take).
 extern "C" int az_conv3x3_bf16(const void* x, const void* w, const void* bias,
-                               const void* residual, void* out, int M,
-                               int Cin, int Cout, void* stream) {
-  dim3 grid((M + kBM - 1) / kBM, Cout / kBN);
-  conv3x3_bf16_kernel<<<grid, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const __nv_bfloat16*>(w),
-      static_cast<const float*>(bias), static_cast<const float*>(residual),
-      static_cast<float*>(out), M, Cin, Cout);
-  return static_cast<int>(cudaGetLastError());
+                               const void* residual, void* out, void* out_bf,
+                               int M, int Cin, int Cout, int x_bf16,
+                               void* stream) {
+  const int B = M / kCells;
+  if (M % kCells || Cout % kBN || (x_bf16 && Cin % 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return conv_boards(B, Cout) == Large::kBoards
+             ? launch<Large>(x, x_bf16, w, bias, residual, out, out_bf, B,
+                               Cin, Cout, s)
+             : launch<Small>(x, x_bf16, w, bias, residual, out, out_bf, B,
+                             Cin, Cout, s);
+}
+
+// Boards per block of a launch over B boards and Cout output channels on
+// the current card (3 or 12).
+extern "C" int az_conv3x3_bf16_boards(int B, int Cout) {
+  return conv_boards(B, Cout);
 }

@@ -113,6 +113,14 @@ class Kernel:
             self._lib, self._fn = lib, fn
         return self._fn
 
+    def query(self, symbol: str, *args: int) -> int:
+        """Call the library's int function ``symbol`` on int arguments: a
+        question about a launch (no launch, no count)."""
+        self._load()
+        fn = getattr(self._lib, symbol)
+        fn.argtypes, fn.restype = [I] * len(args), ctypes.c_int
+        return fn(*args)
+
     def launch(self, *args) -> None:
         """Launch on the current stream; raise on a CUDA error."""
         fn = self._load()
@@ -123,9 +131,13 @@ class Kernel:
         self.launches += 1
 
 
+# The tensor-core convs K1 and K4 share csrc/conv_tc.cuh.
+CONV_TC = ("conv_tc.cuh",)
+
+# q, packed w, ws, bias, s, residual, 1/s_next, h, q_next, acc, M, C
 CONV3X3_I8 = Kernel(
     "conv3x3_i8", "conv_i8.cu", "az_conv3x3_i8",
-    [P, P, P, P, P, P, P, P, P, P, I, I])
+    [P] * 10 + [I, I], headers=CONV_TC)
 
 MCTS_DESCEND = Kernel(
     "mcts_descend", "mcts_descend.cu", "az_mcts_descend",
@@ -135,10 +147,10 @@ MCTS_BACKUP = Kernel(
     "mcts_backup", "mcts_backup.cu", "az_mcts_backup",
     [P] * 8 + [I, I, I])
 
-# x, w, bias, residual, out, M, Cin, Cout
+# x, w, bias, residual, out f32, out bf16, M, Cin, Cout, x is bf16
 CONV3X3_BF16 = Kernel(
     "conv3x3_bf16", "conv_bf16.cu", "az_conv3x3_bf16",
-    [P, P, P, P, P, I, I, I], fmad=True)
+    [P] * 6 + [I] * 4, fmad=True, headers=CONV_TC)
 
 # h, 10 head weights, legal, probs, value, logits, B, C, V
 HEADS_EVAL = Kernel(
@@ -201,6 +213,13 @@ def reset_counts() -> None:
 
 def counts() -> dict[str, int]:
     return {k.name: k.launches for k in ALL}
+
+
+def require_aligned(*tensors: torch.Tensor) -> None:
+    """Raise unless every tensor starts on a 16-byte boundary (what the
+    kernels' 16-byte asynchronous copies read from)."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("kernel inputs must start on a 16-byte boundary")
 
 
 def require_cuda(*tensors: torch.Tensor) -> None:

@@ -8,19 +8,24 @@ package's keys and layouts: HWIO conv kernels, ``trunk_w`` stacked as
 ``[L, 2, 3, 3, C, C]``, dense kernels as ``[in, out]``, activations NHWC.
 
 The int8 trunk runs on kernel K1 (``csrc/conv_i8.cu``): an int8 x int8 ->
-int32 3x3 conv with the dequantize / bias / residual / ReLU / requantize
-epilogue fused (``conv3x3_i8``).  On CPU tensors ``conv3x3_i8`` computes the
-same function in plain PyTorch: the conv exactly in float64, the epilogue
-in float32 in the JAX order.
+int32 3x3 conv on the tensor cores with the dequantize / bias / residual /
+ReLU / requantize epilogue fused (``conv3x3_i8``).  It takes the trunk
+weight packed K-major, ``[L, 2, 3, 3, Cout, Cin]`` (``trunk_wqk``, made
+once by ``pack_trunk_wq`` wherever ``trunk_wq`` is made or loaded); the
+HWIO ``trunk_wq`` stays as JAX has it.  On CPU tensors ``conv3x3_i8``
+computes the same function in plain PyTorch: the conv exactly in float64,
+the epilogue in float32 in the JAX order.
 
 The bf16 stem and trunk convs run on kernel K4 (``csrc/conv_bf16.cu``,
-``conv3x3_bf16``): bf16-rounded inputs and weights, float32 accumulation
-(what JAX computes with ``preferred_element_type=float32``), with the bias,
-the residual add and the ReLU fused.  The heads and the legal-masked softmax
-run on kernel K5 (``csrc/heads_softmax.cu``, ``heads_eval``), in float32.
-On CPU tensors both wrappers compute the same functions in plain PyTorch
-(``_conv_bf16`` with its elementwise epilogue; ``_heads`` and
-``torch.softmax``).
+``conv3x3_bf16``), also on the tensor cores: bf16-rounded inputs and
+weights, float32 accumulation (what JAX computes with
+``preferred_element_type=float32``), with the bias, the residual add and the
+ReLU fused.  K4 writes its output as f32, as bf16 (the next conv's input,
+which JAX rounds to bf16), or both, so the bf16 trunk hands bf16 from conv
+to conv.  The heads and the legal-masked softmax run on kernel K5
+(``csrc/heads_softmax.cu``, ``heads_eval``), in float32.  On CPU tensors
+the wrappers compute the same functions in plain PyTorch (``_conv_bf16``
+with its elementwise epilogue; ``_heads`` and ``torch.softmax``).
 """
 
 from __future__ import annotations
@@ -87,14 +92,32 @@ def fold_params(net: AZNet, cfg: Config) -> Dict[str, torch.Tensor]:
     }
 
 
+def pack_trunk_wq(wq: torch.Tensor) -> torch.Tensor:
+    """The int8 trunk weight [..., 3, 3, Cin, Cout] (HWIO) as K1 takes it:
+    [..., 3, 3, Cout, Cin], each output channel's input channels
+    contiguous (the K-major operand of the int8 tensor cores)."""
+    return wq.transpose(-1, -2).contiguous()
+
+
 def quantize_trunk(folded: Dict[str, Any]) -> Dict[str, Any]:
-    """Add int8 trunk weights: per-output-channel symmetric scales."""
+    """Add int8 trunk weights: per-output-channel symmetric scales, and
+    the weights packed for K1 (``trunk_wqk``)."""
     w = folded["trunk_w"].to(F32)                      # [L,2,3,3,C,C]
     ws = w.abs().amax(dim=(2, 3, 4)) / 127.0           # [L,2,C]
     ws = ws.clamp(min=1e-12)
     wq = torch.round(w / ws[:, :, None, None, None, :]).clamp(-127, 127)
-    return {**folded, "trunk_wq": wq.to(I8).contiguous(),
+    wq = wq.to(I8).contiguous()
+    return {**folded, "trunk_wq": wq, "trunk_wqk": pack_trunk_wq(wq),
             "trunk_ws": ws.to(F32).contiguous()}
+
+
+def conv_tile(kernel: kernels.Kernel, boards: int, cout: int
+              ) -> tuple[int, int]:
+    """(boards per block, blocks) of a K1 or K4 launch (``kernel``) over
+    ``boards`` boards and ``cout`` output channels on the current card, as
+    the kernel's library chooses them (``csrc/conv_tc.cuh``)."""
+    per = kernel.query(kernel.symbol + "_boards", boards, cout)
+    return per, -(-boards // per) * (cout // 64)
 
 
 def _conv_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -113,47 +136,64 @@ def _conv3x3_bf16_plain(x, w, bias, residual=None):
 
 
 def conv3x3_bf16(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-                 residual: torch.Tensor | None = None) -> torch.Tensor:
+                 residual: torch.Tensor | None = None, want_f32: bool = True,
+                 want_bf16: bool = False):
     """One bf16 conv with its fused epilogue (kernel K4).
 
-    x [B,7,6,Cin] f32 NHWC (rounded to bf16 inside), w [3,3,Cin,Cout] bf16
-    HWIO, bias [Cout] f32, residual [B,7,6,Cout] f32 or None.  Returns
-    ``relu(conv(x, w) + bias [+ residual])`` as f32 NHWC.
+    x [B,7,6,Cin] NHWC, f32 (rounded to bf16 inside) or bf16 (Cin % 8 == 0
+    on the card), w [3,3,Cin,Cout] bf16 HWIO, bias [Cout] f32, residual
+    [B,7,6,Cout] f32 or None.  Computes
+    ``v = relu(conv(x, w) + bias [+ residual])`` and returns
+    ``(v as f32 or None, v.to(bfloat16) or None)`` as ``want_f32`` and
+    ``want_bf16`` ask.
 
     CPU tensors take the plain PyTorch version; CUDA tensors launch the
     kernel (no fallback).
     """
+    if not (want_f32 or want_bf16):
+        raise ValueError("conv3x3_bf16: ask for at least one output")
     if x.device.type == "cpu":
-        return _conv3x3_bf16_plain(x, w, bias, residual)
+        v = _conv3x3_bf16_plain(x, w, bias, residual)
+        return (v if want_f32 else None, v.to(BF16) if want_bf16 else None)
     extra = [] if residual is None else [residual]
     kernels.require_cuda(x, w, bias, *extra)
     b, cin, cout = x.shape[0], x.shape[-1], w.shape[-1]
-    if x.dtype != F32 or w.dtype != BF16 or bias.dtype != F32 or tuple(
-            w.shape) != (3, 3, cin, cout) or tuple(bias.shape) != (cout,):
-        raise ValueError("conv3x3_bf16 takes f32 NHWC x, bf16 HWIO w and "
-                         "f32 bias")
-    if tuple(x.shape[1:3]) != (7, 6) or cout % 64:
-        raise ValueError("conv3x3_bf16 takes a 7x6 board and Cout % 64 == 0")
-    out = torch.empty((b, 7, 6, cout), dtype=F32, device=x.device)
+    if x.dtype not in (F32, BF16) or w.dtype != BF16 or bias.dtype != F32 \
+            or tuple(w.shape) != (3, 3, cin, cout) \
+            or tuple(bias.shape) != (cout,):
+        raise ValueError("conv3x3_bf16 takes f32 or bf16 NHWC x, bf16 HWIO "
+                         "w and f32 bias")
+    if tuple(x.shape[1:3]) != (7, 6) or cout % 64 or (x.dtype == BF16
+                                                      and cin % 8):
+        raise ValueError("conv3x3_bf16 takes a 7x6 board, Cout % 64 == 0 "
+                         "and, for bf16 x, Cin % 8 == 0")
+    shape = (b, 7, 6, cout)
     if residual is not None and (residual.dtype != F32
-                                 or residual.shape != out.shape):
+                                 or tuple(residual.shape) != shape):
         raise ValueError("conv3x3_bf16 residual must be f32 [B,7,6,Cout]")
+    out = torch.empty(shape, dtype=F32, device=x.device) if want_f32 else None
+    outb = (torch.empty(shape, dtype=BF16, device=x.device) if want_bf16
+            else None)
+    kernels.require_aligned(x, w)
     P = kernels.ptr
     kernels.CONV3X3_BF16.launch(P(x), P(w), P(bias), P(residual), P(out),
-                                b * BOARD, cin, cout)
-    return out
+                                P(outb), b * BOARD, cin, cout,
+                                int(x.dtype == BF16))
+    return out, outb
 
 
-def _stem(folded, x):
-    """x [B,7,6,F] -> [B,7,6,C] f32 (post-ReLU)."""
-    return conv3x3_bf16(x.contiguous(), folded["stem_w"], folded["stem_b"])
+def _stem(folded, x, want_bf16=False):
+    """x [B,7,6,F] -> ([B,7,6,C] f32 post-ReLU, its bf16 copy or None)."""
+    return conv3x3_bf16(x.contiguous(), folded["stem_w"], folded["stem_b"],
+                        want_bf16=want_bf16)
 
 
-def _conv_i8_plain(q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """int8 x int8 -> int32 3x3 SAME conv, exact: float64 holds every
-    partial sum (|acc| <= 127*127*9*C < 2^53) without rounding."""
+def _conv_i8_plain(q: torch.Tensor, wk: torch.Tensor) -> torch.Tensor:
+    """int8 x int8 -> int32 3x3 SAME conv of q [B,7,6,Cin] with the packed
+    weight wk [3,3,Cout,Cin], exact: float64 holds every partial sum
+    (|acc| <= 127*127*9*C < 2^53) without rounding."""
     x = q.to(torch.float64).permute(0, 3, 1, 2)
-    k = w.to(torch.float64).permute(3, 2, 0, 1)
+    k = wk.to(torch.float64).permute(2, 3, 0, 1)
     y = F.conv2d(x, k, padding=1)
     return torch.round(y).to(I32).permute(0, 2, 3, 1).contiguous()
 
@@ -179,8 +219,9 @@ def conv3x3_i8(q: torch.Tensor, w: torch.Tensor, ws: torch.Tensor,
                want_h: bool = True, want_acc: bool = False):
     """One int8 trunk conv with its fused epilogue (kernel K1).
 
-    q [B,7,6,C] int8 NHWC, w [3,3,C,C] int8 HWIO, ws and bias [C] f32, s
-    the 0-d f32 activation scale of q.  Computes
+    q [B,7,6,C] int8 NHWC, w [3,3,Cout,Cin] int8 packed K-major
+    (``pack_trunk_wq``; ``trunk_wqk`` of the folded dict), ws and bias [C]
+    f32, s the 0-d f32 activation scale of q.  Computes
     ``h = relu(acc * (s * ws) + bias [+ residual])`` and, given
     ``inv_s_next`` (0-d f32), the next conv's input
     ``clip(rint(h * inv_s_next), -127, 127)``.  Returns
@@ -197,7 +238,8 @@ def conv3x3_i8(q: torch.Tensor, w: torch.Tensor, ws: torch.Tensor,
     kernels.require_cuda(q, w, ws, bias, s, *extra)
     b, c = q.shape[0], q.shape[-1]
     if q.dtype != I8 or w.dtype != I8 or tuple(w.shape) != (3, 3, c, c):
-        raise ValueError("conv3x3_i8 takes int8 NHWC q and int8 HWIO w")
+        raise ValueError("conv3x3_i8 takes int8 NHWC q and the int8 packed "
+                         "w [3,3,Cout,Cin]")
     if tuple(q.shape[1:3]) != (7, 6) or c % 64:
         raise ValueError("conv3x3_i8 takes a 7x6 board and C % 64 == 0")
     m = b * BOARD
@@ -206,6 +248,7 @@ def conv3x3_i8(q: torch.Tensor, w: torch.Tensor, ws: torch.Tensor,
           if inv_s_next is not None else None)
     acc = (torch.empty(q.shape, dtype=I32, device=q.device)
            if want_acc else None)
+    kernels.require_aligned(q, w)
     P = kernels.ptr
     kernels.CONV3X3_I8.launch(P(q), P(w), P(ws), P(bias), P(s), P(residual),
                               P(inv_s_next), P(h), P(qn), P(acc), m, c)
@@ -218,13 +261,19 @@ def _quant_dyn(h):
     return _quantize(h, 1.0 / s), s
 
 
-def _trunk_xla_bf16(folded, h):
-    """BN-folded bf16 residual trunk.  h [B,7,6,C] f32."""
+def _trunk_xla_bf16(folded, h, hb):
+    """BN-folded bf16 residual trunk.  h [B,7,6,C] f32, hb its bf16 copy.
+    Each conv hands the next one its output as bf16: conv_a writes bf16
+    only, conv_b f32 (the next residual) and bf16 (the next conv_a's
+    input), the last block f32 only."""
     w, b = folded["trunk_w"], folded["trunk_b"]
-    for l in range(w.shape[0]):
+    L = w.shape[0]
+    for l in range(L):
         x = h
-        y = conv3x3_bf16(x, w[l, 0], b[l, 0])
-        h = conv3x3_bf16(y, w[l, 1], b[l, 1], residual=x)
+        _, y = conv3x3_bf16(hb, w[l, 0], b[l, 0], want_f32=False,
+                            want_bf16=True)
+        h, hb = conv3x3_bf16(y, w[l, 1], b[l, 1], residual=x,
+                             want_bf16=l + 1 < L)
     return h
 
 
@@ -234,7 +283,7 @@ def _trunk_xla_int8(folded, h):
     Static per-conv activation scales when ``act_s`` was calibrated into
     the folded dict: each conv then also emits the next conv's int8 input.
     Dynamic per-tensor scales otherwise."""
-    w, ws, b = folded["trunk_wq"], folded["trunk_ws"], folded["trunk_b"]
+    w, ws, b = folded["trunk_wqk"], folded["trunk_ws"], folded["trunk_b"]
     L = w.shape[0]
     act_s = folded.get("act_s")          # [L, 2] f32 or None
     h = h.contiguous()
@@ -266,14 +315,16 @@ def calibrate_trunk(folded: Dict[str, Any], feats: torch.Tensor,
     representative [B,7,6,F] feature batch, times ``margin``) into the
     folded dict."""
     w, b = folded["trunk_w"], folded["trunk_b"]
-    h = _stem(folded, feats)
+    h, hb = _stem(folded, feats, want_bf16=True)
     scales = []
     for l in range(w.shape[0]):
         x = h
         scales.append(x.abs().amax())
-        y = conv3x3_bf16(x, w[l, 0], b[l, 0])
+        # conv_a's f32 output sets its scale; its bf16 copy feeds conv_b
+        y, yb = conv3x3_bf16(hb, w[l, 0], b[l, 0], want_bf16=True)
         scales.append(y.abs().amax())
-        h = conv3x3_bf16(y, w[l, 1], b[l, 1], residual=x)
+        h, hb = conv3x3_bf16(yb, w[l, 1], b[l, 1], residual=x,
+                             want_bf16=True)
     act_max = torch.stack(scales).reshape(-1, 2)
     act_s = torch.clamp(act_max * margin, min=1e-6) / 127.0
     return {**folded, "act_s": act_s.to(F32)}
@@ -340,8 +391,9 @@ def heads_eval(folded: Dict[str, Any], h: torch.Tensor,
 
 def _trunk_out(folded, x, int8):
     """Stem and trunk: x [B,7,6,F] -> [B,42,C] f32."""
-    h = _stem(folded, x)
-    h = _trunk_xla_int8(folded, h) if int8 else _trunk_xla_bf16(folded, h)
+    h, hb = _stem(folded, x, want_bf16=not int8)
+    h = _trunk_xla_int8(folded, h) if int8 else _trunk_xla_bf16(folded, h,
+                                                                 hb)
     return h.reshape(h.shape[0], BOARD, -1)
 
 

@@ -31,6 +31,7 @@ import torch
 
 from ..config import Config
 from ..device import resolve_device
+from ..models.fast_infer import pack_trunk_wq
 from ..models.resnet import AZNet, build_network
 from .learner import TrainState, train_state_of
 
@@ -148,7 +149,8 @@ def folded_from_jax(folded: Dict[str, np.ndarray],
                     device="cuda") -> Dict[str, torch.Tensor]:
     """An already folded (and possibly quantized and calibrated) JAX
     inference pytree -> the port's folded dict, value for value: bf16 stays
-    bf16, int8 stays int8, float32 stays float32."""
+    bf16, int8 stays int8, float32 stays float32.  A quantized trunk also
+    gets its weights packed for kernel K1 (``trunk_wqk``)."""
     dev = resolve_device(device)
     out = {}
     for k, v in folded.items():
@@ -158,6 +160,8 @@ def folded_from_jax(folded: Dict[str, np.ndarray],
         else:
             t = torch.from_numpy(a.copy())
         out[k] = t.to(dev)
+    if "trunk_wq" in out:
+        out["trunk_wqk"] = pack_trunk_wq(out["trunk_wq"])
     return out
 
 

@@ -14,18 +14,27 @@ when all of them pass):
    flagship's int8 eval) grows a tree; K1 runs on the flagship's
    quantized block-0 weights at B=64 on that search's last leaf batch, and
    K2/K3 on the tree it leaves.  K4 runs on the same leaf batch as the
-   stem (Cin=13) and as the two convs of block 0 (C=256, the second with
-   the residual); K5 on that batch's trunk output with its legal mask; K6
-   writes the node of one more simulation into that tree, and the roots of
-   a fresh one.  Every kernel is then held again (comparison only) at the
-   other batches the two paths launch (the play slice's 32 games, the
-   arena's 16, the benchmark's 4 and 2: ``PATH_BATCHES``), on the first
-   games of the same leaf batch, tree and roots; at 16, 4 and 2 games the
-   conv kernels' last row tile is partial.  Then at larger shapes: K1 at
-   B=1024, and K2/K3 on trees over 256 games grown by plain-version
-   simulations.  The rules kernels K7-K10 are held bit for bit on 1,024
-   states of mixed Script/Random play (every phase, fortify ties, full
-   lands, terminal games; ``mixed_states``), timed at GAMES and at 1,024,
+   stem (Cin=13, f32 in and out) and as the two convs of block 0 (C=256,
+   bf16 in; the first bf16 out, the second with the residual, f32 and bf16
+   out); K1 and K4 print their blocks, rates and yardsticks (bf16
+   ``F.conv2d``; for K1 also ``torch._int_mm`` on the prebuilt im2col
+   matrix, checked exact); K5 runs on that batch's trunk output with its
+   legal mask; K6 writes the node of one more simulation into that tree,
+   and the roots of a fresh one.  Every kernel is then held again
+   (comparison only) at the other batches the two paths launch (the play
+   slice's 32 games, the arena's 16, the benchmark's 4 and 2:
+   ``PATH_BATCHES``), on the first games of the same leaf batch, tree and
+   roots; at 16, 4 and 2 games the conv kernels' last block holds fewer
+   than 3 boards.  Then at larger shapes: K1 and K4 at B=1024; K4 at the
+   512 calibration features every int8 fold launches it on, in
+   ``check_k4``'s three forms and in each conv of ``calibrate_trunk``
+   (held against the plain conv on that conv's own inputs), and the
+   activation scales that ``calibrate_trunk`` sets on K4 against those of
+   the plain version; and K2/K3 on trees over 256 games grown by
+   plain-version simulations.  The rules kernels K7-K10 are held bit for
+   bit on 1,024 states of mixed Script/Random play (every phase, fortify
+   ties, full lands, terminal games; ``mixed_states``), timed at GAMES and
+   at 1,024,
    and compared at every batch of ``RULES_BATCHES`` and K8 also at the
    learner's batch; K7's expand entry on the main-path tree and its slices.
    The training and data phases search at ``TRAIN``'s simulations: K2,
@@ -209,7 +218,8 @@ def phase_build():
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for k in kernels.ALL:
         for line in k.build_log.splitlines():
-            if "registers" in line or "spill" in line:
+            # ptxas's resources, and any wgmma it had to serialize
+            if any(w in line for w in ("registers", "spill", "wgmma")):
                 log(f"  {k.name}: {line.strip()}")
 
 
@@ -262,16 +272,37 @@ def slice_tree(tree, n):
         for f in dataclasses.fields(tree)})
 
 
+def tile_name(per):
+    """The block shape of a K1 or K4 launch with ``per`` boards per block
+    (csrc/conv_tc.cuh)."""
+    return f"{per} boards ({per * 42} cells) x 64 channels"
+
+
+def im2col_i8(q):
+    """q [B,7,6,C] int8 -> the SAME-padded 3x3 patches [B*42, 9*C], K in
+    (tap, channel) order: the left operand of K1's function as one int8
+    matrix product (the library yardstick's input, built before timing)."""
+    import torch
+    b, c = q.shape[0], q.shape[-1]
+    qp = torch.zeros((b, 9, 8, c), dtype=q.dtype, device=q.device)
+    qp[:, 1:8, 1:7] = q
+    taps = [qp[:, dy:dy + 7, dx:dx + 6] for dy in range(3) for dx in range(3)]
+    return torch.stack(taps, dim=3).reshape(b * 42, 9 * c).contiguous()
+
+
 def check_k1(folded, feats, timed=True):
     """K1 against its plain version on the leaf features ``feats``: the
-    first block's conv_a and conv_b.  Returns the timed entry fields, or
-    None (the comparison alone) when ``timed`` is false."""
+    first block's conv_a (int8 out only) and conv_b (residual; f32 and int8
+    out).  Returns the timed entry fields (conv_b's at the top, conv_a's
+    under ``conv_a``), or None (the comparison alone) when ``timed`` is
+    false."""
     import torch
     import torch.nn.functional as F
+    from alphazero_risk_tpu_torch import kernels
     from alphazero_risk_tpu_torch.models import fast_infer as FI
 
-    h = FI._stem(folded, feats).contiguous()
-    act_s, wq, ws, b = (folded["act_s"], folded["trunk_wq"],
+    h = FI._stem(folded, feats)[0].contiguous()
+    act_s, wq, ws, b = (folded["act_s"], folded["trunk_wqk"],
                         folded["trunk_ws"], folded["trunk_b"])
     inv = 1.0 / act_s
     q = FI._quantize(h, inv[0, 0])
@@ -304,8 +335,10 @@ def check_k1(folded, feats, timed=True):
              int((qb.int() - ref_qb.int()).abs().max()))
     if dq > 1:
         fail(f"K1 requantized output differs by {dq} at B={B}")
+    per, blocks = FI.conv_tile(kernels.CONV3X3_I8, B, C)
     log(f"K1 conv3x3_i8 B={B} C={C}: acc exact, h max abs err {err:.3g}, "
-        f"q max diff {dq}, |acc| max {int(acc_b.abs().max())}")
+        f"q max diff {dq}, |acc| max {int(acc_b.abs().max())}; {blocks} "
+        f"blocks of {tile_name(per)}")
     if not timed:
         return None
 
@@ -319,31 +352,47 @@ def check_k1(folded, feats, timed=True):
         acc = FI._conv_i8_plain(ref_q2, wq[0, 1])
         FI._epilogue_plain(acc, ws[0, 1], b[0, 1], act_s[0, 1], h, inv[1, 0])
 
+    # yardsticks, neither used by the port: bf16 F.conv2d on the same
+    # values, and the exact int8 product on the prebuilt im2col matrix
     xb = ref_q2.to(torch.bfloat16).permute(0, 3, 1, 2)
-    wb = wq[0, 1].to(torch.bfloat16).permute(3, 2, 0, 1).contiguous()
+    wb = wq[0, 1].to(torch.bfloat16).permute(2, 3, 0, 1).contiguous()
+    cols = im2col_i8(ref_q2)
+    wmat = (wq[0, 1].reshape(9, C, C).permute(1, 0, 2).reshape(C, 9 * C)
+            .contiguous().t())
+    if not torch.equal(torch._int_mm(cols, wmat).reshape(ref_acc_b.shape),
+                       ref_acc_b):
+        fail("torch._int_mm on the im2col matrix is not the exact conv")
 
-    def library():
-        F.conv2d(xb, wb, padding=1)
-
-    ms_a = time_ms(run_a, 50)
-    ms_b = time_ms(run_b, 50)
+    ms_a, ms_b = time_ms(run_a, 50), time_ms(run_b, 50)
+    dev_a = device_ms(run_a, "conv3x3_i8_kernel")
     dev_b = device_ms(run_b, "conv3x3_i8_kernel")
     plain = time_ms(plain_b, 3, warmup=1)
-    lib = time_ms(library, 50)
+    lib = time_ms(lambda: F.conv2d(xb, wb, padding=1), 50)
+    lib_int = time_ms(lambda: torch._int_mm(cols, wmat), 50)
     ops = 2.0 * M * 9 * C * C
+    # bytes: q in, the residual in, h and q_next out (conv_b); q in, q_next
+    # out (conv_a); the weight, scales and bias once
     nbytes = M * C * (1 + 4 + 4 + 1) + 9 * C * C + 8 * C + 8
     bms, by = bound_ms(nbytes, ops, INT8_OPS_PER_S)
     nbytes_a = M * C * 2 + 9 * C * C + 8 * C + 8
-    bms_a, _ = bound_ms(nbytes_a, ops, INT8_OPS_PER_S)
-    log(f"K1 B={B} conv_a variant: {ms_a:.4f} ms (bound {bms_a:.5f} ms); "
-        f"conv_b variant: {ms_b:.4f} ms (bound {bms:.5f} ms, {by}, "
-        f"{ms_b / bms:.1f}x; kernel alone {fmt_ms(dev_b)}); plain "
-        f"{plain:.3f} ms; bf16 F.conv2d {lib:.4f} ms; "
-        f"{ops / ms_b / 1e9:.1f} TOP/s")
+    bms_a, by_a = bound_ms(nbytes_a, ops, INT8_OPS_PER_S)
+
+    def rate(t):
+        return "not measured" if t is None else f"{ops / t / 1e9:.1f} TOP/s"
+
+    log(f"K1 B={B} conv_a variant: {ms_a:.4f} ms, kernel alone "
+        f"{fmt_ms(dev_a)} ({rate(dev_a)}; bound {bms_a:.5f} ms, {by_a}); "
+        f"conv_b variant: {ms_b:.4f} ms, kernel alone {fmt_ms(dev_b)} "
+        f"({rate(dev_b)}; bound {bms:.5f} ms, {by}); plain {plain:.3f} ms; "
+        f"bf16 F.conv2d {lib:.4f} ms; torch._int_mm on im2col "
+        f"{lib_int:.4f} ms")
     return {"max_abs_err": err, "ms": ms_b, "device_ms": dev_b,
-            "plain_ms": plain,
-            "bound_ms": bms, "bound_by": by, "library_ms": lib,
-            "ms_conv_a": ms_a, "bound_ms_conv_a": bms_a,
+            "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib_int, "library": "torch._int_mm (im2col)",
+            "bf16_conv2d_ms": lib, "blocks": blocks,
+            "tile": tile_name(per),
+            "conv_a": {"ms": ms_a, "device_ms": dev_a, "bound_ms": bms_a,
+                       "bound_by": by_a},
             "shape": f"B={B} C={C}"}
 
 
@@ -430,14 +479,16 @@ def check_k2_k3(tree, gum, cfg, dev, timed=True):
 
 
 def check_k4(folded, feats, timed=True):
-    """K4 against its plain version at the main path's B on the leaf
-    features ``feats``: as the stem (Cin=13), as block 0's first conv
-    (C=256) and as its second conv with the residual.  Returns the timed
-    entry fields: the stem's at the top (the shape the int8 main paths
-    launch), the trunk variants under ``conv_a`` and ``conv_b``; or None
-    (the comparison alone) when ``timed`` is false."""
+    """K4 against its plain version at batch B on the leaf features
+    ``feats``, in the three forms the paths launch: the stem (Cin=13, f32
+    features in, f32 out), block 0's first conv (bf16 in, bf16 out only)
+    and its second conv with the residual (bf16 in, f32 and bf16 out).
+    Returns the timed entry fields: the stem's at the top (the shape the
+    int8 main paths launch), the trunk forms under ``conv_a`` and
+    ``conv_b``; or None (the comparison alone) when ``timed`` is false."""
     import torch
     import torch.nn.functional as F
+    from alphazero_risk_tpu_torch import kernels
     from alphazero_risk_tpu_torch.models import fast_infer as FI
 
     # the plain version is a float32 cuDNN conv on bf16-valued inputs;
@@ -448,54 +499,142 @@ def check_k4(folded, feats, timed=True):
     with full_float32():
         h = FI._conv3x3_bf16_plain(feats, folded["stem_w"], folded["stem_b"])
         y = FI._conv3x3_bf16_plain(h, w[0, 0], b[0, 0])
-    variants = {
-        "stem": (feats, folded["stem_w"], folded["stem_b"], None),
-        "conv_a": (h, w[0, 0], b[0, 0], None),
-        "conv_b": (y, w[0, 1], b[0, 1], h),
+    hb, yb = h.to(torch.bfloat16), y.to(torch.bfloat16)
+    variants = {     # args, the outputs asked for (f32, bf16)
+        "stem": ((feats, folded["stem_w"], folded["stem_b"], None),
+                 (True, False)),
+        "conv_a": ((hb, w[0, 0], b[0, 0], None), (False, True)),
+        "conv_b": ((yb, w[0, 1], b[0, 1], h), (True, True)),
     }
     out = {}
-    for name, args in variants.items():
+    for name, (args, (want_f32, want_bf16)) in variants.items():
         x, wt, bias, res = args
-        got = FI.conv3x3_bf16(*args)
+        full, got_bf = FI.conv3x3_bf16(*args, want_bf16=True)
         with full_float32():
             ref = FI._conv3x3_bf16_plain(*args)
         torch.cuda.synchronize()
         # Tolerance: bf16 x bf16 products are exact in float32, so kernel
         # and plain differ by the order of the float32 sums only: 1e-5 of
-        # the largest output.
-        err, top = float((got - ref).abs().max()), float(ref.abs().max())
+        # the largest output.  The bf16 output is the f32 one rounded to
+        # nearest even.
+        err, top = float((full - ref).abs().max()), float(ref.abs().max())
         if not err <= 1e-5 * top:
             fail(f"K4 {name} differs from the plain conv: max abs err "
                  f"{err} against max |out| {top}")
-        m, cin, cout = x.shape[0] * 42, x.shape[-1], wt.shape[-1]
+        if not torch.equal(got_bf, full.to(torch.bfloat16)):
+            fail(f"K4 {name}: the bf16 output is not the f32 one rounded")
+        B, cin, cout = x.shape[0], x.shape[-1], wt.shape[-1]
+        m = B * 42
+        per, blocks = FI.conv_tile(kernels.CONV3X3_BF16, B, cout)
+        # bf16 F.conv2d on the same bf16 values, its output rounded to
+        # bf16 and the epilogue in f32: the library's own error
+        xl = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+        wl = wt.permute(3, 2, 0, 1).contiguous()
+
+        def library():
+            return F.conv2d(xl, wl, padding=1)
+
+        lv = library().permute(0, 2, 3, 1).float() + bias
+        lv = torch.relu(lv if res is None else lv + res)
+        lib_err = float((lv - ref).abs().max())
+        outs = "+".join(k for k, on in (("f32", want_f32),
+                                         ("bf16", want_bf16)) if on)
+        msg = (f"K4 conv3x3_bf16 {name} B={B} Cin={cin} Cout={cout} "
+               f"({str(x.dtype)[6:]} in, {outs} out): max abs err "
+               f"{err:.3g} (max |out| {top:.3g}; bf16 F.conv2d's own "
+               f"{lib_err:.3g}); "
+               f"{blocks} blocks of {tile_name(per)}")
         if not timed:
-            log(f"K4 conv3x3_bf16 {name} B={x.shape[0]} Cin={cin} "
-                f"Cout={cout}: max abs err {err:.3g} (max |out| {top:.3g})")
+            log(msg)
             continue
-        xb = x.to(torch.bfloat16).permute(0, 3, 1, 2)
-        wb = wt.permute(3, 2, 0, 1).contiguous()
-        ms = time_ms(lambda: FI.conv3x3_bf16(*args), 50)
-        dev = device_ms(lambda: FI.conv3x3_bf16(*args),
-                        "conv3x3_bf16_kernel")
+
+        def run():
+            FI.conv3x3_bf16(*args, want_f32=want_f32, want_bf16=want_bf16)
+
+        ms = time_ms(run, 50)
+        dev = device_ms(run, "conv3x3_bf16_kernel")
         with full_float32():
             plain = time_ms(lambda: FI._conv3x3_bf16_plain(*args), 20)
-        lib = time_ms(lambda: F.conv2d(xb, wb, padding=1), 50)
-        nbytes = (m * cin * 4 + 9 * cin * cout * 2 + cout * 4
-                  + m * cout * 4 * (2 if res is not None else 1))
+        lib = time_ms(library, 50)
+        nbytes = (m * cin * x.element_size() + 9 * cin * cout * 2 + cout * 4
+                  + (m * cout * 4 if res is not None else 0)
+                  + m * cout * (4 * want_f32 + 2 * want_bf16))
         ops = 2.0 * m * 9 * cin * cout
         bms, by = bound_ms(nbytes, ops, BF16_OPS_PER_S)
-        log(f"K4 conv3x3_bf16 {name} B={x.shape[0]} Cin={cin} Cout={cout}: "
-            f"max abs err {err:.3g} (max |out| {top:.3g}); {ms:.4f} ms "
-            f"(bound {bms:.5f} ms, {by}, {ms / bms:.1f}x; kernel alone "
-            f"{fmt_ms(dev)}); plain {plain:.4f} ms; bf16 F.conv2d "
-            f"{lib:.4f} ms; {ops / ms / 1e9:.2f} TFLOP/s")
+        rate = ("not measured" if dev is None
+                else f"{ops / dev / 1e9:.2f} TFLOP/s")
+        log(f"{msg}; {ms:.4f} ms, kernel alone {fmt_ms(dev)} ({rate}; bound "
+            f"{bms:.5f} ms, {by}); plain {plain:.4f} ms; bf16 F.conv2d "
+            f"{lib:.4f} ms")
         out[name] = {"max_abs_err": err, "ms": ms, "device_ms": dev,
-                     "plain_ms": plain,
-                     "bound_ms": bms, "bound_by": by, "library_ms": lib,
-                     "shape": f"B={x.shape[0]} Cin={cin} Cout={cout}"}
+                     "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                     "library_ms": lib, "library_max_abs_err": lib_err,
+                     "blocks": blocks, "tile": tile_name(per),
+                     "shape": f"B={B} Cin={cin} Cout={cout}"}
     if not timed:
         return None
     return {**out["stem"], "conv_a": out["conv_a"], "conv_b": out["conv_b"]}
+
+
+def check_calibration(folded, calib):
+    """``calibrate_trunk`` on K4, each of its convs held against the plain
+    version on the same inputs, then its activation scales against those of
+    ``calibrate_trunk`` on the plain version (in full float32) from the
+    same features, the scales every int8 result follows.  Returns their
+    largest relative difference."""
+    import torch
+    from alphazero_risk_tpu_torch.models import fast_infer as FI
+
+    def plain(x, w, bias, residual=None, want_f32=True, want_bf16=False):
+        v = FI._conv3x3_bf16_plain(x, w, bias, residual)
+        return (v if want_f32 else None,
+                v.to(torch.bfloat16) if want_bf16 else None)
+
+    kernel = FI.conv3x3_bf16
+    worst = [0.0]
+
+    def held(x, w, bias, residual=None, want_f32=True, want_bf16=False):
+        # Tolerance: as in check_k4, 1e-5 of the largest output
+        got, got_bf = kernel(x, w, bias, residual, want_f32=True,
+                             want_bf16=want_bf16)
+        with full_float32():
+            ref = FI._conv3x3_bf16_plain(x, w, bias, residual)
+        err, top = float((got - ref).abs().max()), float(ref.abs().max())
+        if not err <= 1e-5 * top:
+            fail(f"K4 differs from the plain conv inside calibrate_trunk at "
+                 f"B={x.shape[0]} Cin={x.shape[-1]}: max abs err {err} "
+                 f"against max |out| {top}")
+        worst[0] = max(worst[0], err / top)
+        return (got if want_f32 else None), got_bf
+
+    try:
+        FI.conv3x3_bf16 = held
+        got = FI.calibrate_trunk(folded, calib)["act_s"]
+        FI.conv3x3_bf16 = plain
+        with full_float32():
+            ref = FI.calibrate_trunk(folded, calib)["act_s"]
+    finally:
+        FI.conv3x3_bf16 = kernel
+    per = ((got - ref).abs() / ref).amax(dim=1)         # per block
+    rel = float(per.max())
+    log(f"calibrate_trunk on K4 ({calib.shape[0]} features, "
+        f"{1 + 2 * ref.shape[0]} convs each within {worst[0]:.3g} of its "
+        f"largest output of the plain conv): act_s against the plain "
+        f"version's ({ref.numel()} scales), largest relative difference "
+        f"{rel:.3g}, per block {[round(float(v), 7) for v in per]}")
+    # Limits.  Each conv's f32 sums differ from the plain ones in the last
+    # bits, so a bf16 input of a later conv can round to the other
+    # neighbour (2^-8 relative); that grows with depth: 1.7e-3 on the
+    # flagship, NVIDIA H100 80GB HBM3.  Block 0 reads the stem's output and
+    # its bf16 copy only: 4e-7 there.  A wrong tile moves a largest
+    # activation by far more than either limit.
+    if not bool(torch.isfinite(got).all()):
+        fail("calibrate_trunk's act_s is not finite on K4")
+    if float(per[0]) > 1e-4 or rel > 1e-2:
+        fail(f"calibrate_trunk's act_s on K4 moved from the plain version's "
+             f"by {float(per[0]):.3g} in block 0 (limit 1e-4) and "
+             f"{rel:.3g} overall (limit 1e-2)")
+    return rel
 
 
 def check_k5(folded, h, legal, timed=True):
@@ -1044,8 +1183,16 @@ def phase_kernels(cfg, dev):
             check_k6(slice_tree(mtree, nb), ngum, tree_map(
                 lambda x: x[:nb].contiguous(), states), cfg,
                 trainer._eval_fn(), timed=False)
-        # the larger shapes: K1 at B=1024, K2/K3 over 256 games
-        k1["b1024"] = check_k1(folded, featurize(states, cfg))
+        # the larger shapes: K1 and K4 at B=1024, K2/K3 over 256 games
+        feats1024 = featurize(states, cfg)
+        k1["b1024"] = check_k1(folded, feats1024)
+        k4["b1024"] = check_k4(folded, feats1024)
+        # the int8 scales K4 sets, from the trainer's calibration features,
+        # the batch every int8 fold launches K4 at (512)
+        calib = FI.default_calib_feats(
+            cfg, torch.Generator(device=dev).manual_seed(17), device=dev)
+        check_k4(folded, calib, timed=False)
+        k4["act_s_max_rel_diff"] = check_calibration(folded, calib)
         gum = S.draw_gumbel(torch.Generator(device=dev).manual_seed(6), cfg,
                             256, dev)[0]
         k2["g256"], k3["g256"] = check_k2_k3(

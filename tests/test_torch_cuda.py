@@ -61,24 +61,61 @@ def _to(tree, dev):
         for f in dataclasses.fields(tree)})
 
 
-def test_conv3x3_i8_matches_plain(cuda):
-    g = torch.Generator(device=cuda).manual_seed(0)
-    q = torch.randint(-127, 128, (8, 7, 6, 128), generator=g, device=cuda,
+# every batch the paths launch: lockstep games, and 512 calibration features
+CONV_BATCHES = [2, 4, 16, 32, 64, 512, 1024]
+
+
+@pytest.mark.parametrize("boards,cout", [(1024, 256), (512, 256),
+                                         (256, 256), (64, 256), (2, 256),
+                                         (1024, 64)])
+def test_conv_tile_choice(cuda, boards, cout):
+    """K1's and K4's block shape, as their libraries choose it: 6 boards
+    per block where that still gives every SM of the card a block, else 3;
+    64 output channels per block either way."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    per = 6 if -(-boards // 6) * (cout // 64) >= sms else 3
+    for k in (kernels.CONV3X3_I8, kernels.CONV3X3_BF16):
+        assert FI.conv_tile(k, boards, cout) == (
+            per, -(-boards // per) * (cout // 64))
+
+
+@pytest.mark.parametrize("channels", [64, 128, 256])
+@pytest.mark.parametrize("batch", CONV_BATCHES)
+def test_conv3x3_i8_matches_plain(cuda, batch, channels):
+    """K1 against its plain version, with and without the residual, on
+    every output combination: int32 accumulators equal, h within 1e-6
+    relative (the same float operations in the same order, no FMA), the
+    requantized int8 within 1 (a rint tie)."""
+    g = torch.Generator(device=cuda).manual_seed(batch * channels)
+    c = channels
+    q = torch.randint(-127, 128, (batch, 7, 6, c), generator=g, device=cuda,
                       dtype=torch.int8)
-    w = torch.randint(-127, 128, (3, 3, 128, 128), generator=g, device=cuda,
-                      dtype=torch.int8)
-    ws = torch.rand(128, generator=g, device=cuda) / 127
-    b = torch.randn(128, generator=g, device=cuda)
+    w = FI.pack_trunk_wq(torch.randint(-127, 128, (3, 3, c, c), generator=g,
+                                       device=cuda, dtype=torch.int8))
+    ws = torch.rand(c, generator=g, device=cuda) / 127
+    b = torch.randn(c, generator=g, device=cuda)
     s = torch.tensor(0.01, device=cuda)
-    res = torch.randn((8, 7, 6, 128), generator=g, device=cuda)
+    res = torch.randn((batch, 7, 6, c), generator=g, device=cuda)
     inv = torch.tensor(1 / 3.0, device=cuda)
-    h, qn, acc = FI.conv3x3_i8(q, w, ws, b, s, residual=res, inv_s_next=inv,
-                               want_acc=True)
     ref_acc = FI._conv_i8_plain(q, w)
-    ref_h, ref_q = FI._epilogue_plain(ref_acc, ws, b, s, res, inv)
-    assert torch.equal(acc, ref_acc)
-    torch.testing.assert_close(h, ref_h, rtol=1e-6, atol=1e-6)
-    assert int((qn.int() - ref_q.int()).abs().max()) <= 1
+    for r in (None, res):
+        ref_h, ref_q = FI._epilogue_plain(ref_acc, ws, b, s, r, inv)
+        for want_h, inv_next, want_acc in [(True, inv, True),
+                                           (True, None, False),
+                                           (False, inv, False),
+                                           (False, None, True),
+                                           (True, inv, False)]:
+            h, qn, acc = FI.conv3x3_i8(q, w, ws, b, s, residual=r,
+                                       inv_s_next=inv_next, want_h=want_h,
+                                       want_acc=want_acc)
+            assert (h is not None, qn is not None, acc is not None) == (
+                want_h, inv_next is not None, want_acc)
+            if acc is not None:
+                assert torch.equal(acc, ref_acc)
+            if h is not None:
+                torch.testing.assert_close(h, ref_h, rtol=1e-6, atol=1e-6)
+            if qn is not None:
+                assert int((qn.int() - ref_q.int()).abs().max()) <= 1
 
 
 def test_descend_and_backup_match_plain(cuda):
@@ -116,28 +153,42 @@ def test_play_launches_every_kernel(cuda):
     assert all(n > 0 for n in counts.values()), counts
 
 
-@pytest.mark.parametrize("cin,cout,residual", [(13, 64, False),
-                                               (64, 64, False),
-                                               (128, 256, True)])
-def test_conv3x3_bf16_matches_plain(cuda, cin, cout, residual):
-    g = torch.Generator(device=cuda).manual_seed(cin)
-    x = torch.randn((5, 7, 6, cin), generator=g, device=cuda)
+@pytest.mark.parametrize("cin,cout", [(13, 64), (13, 256), (64, 64),
+                                      (128, 128), (256, 256), (128, 256)])
+@pytest.mark.parametrize("batch", CONV_BATCHES)
+def test_conv3x3_bf16_matches_plain(cuda, batch, cin, cout):
+    """K4 against its plain version with f32 and bf16 inputs (bf16 only
+    where Cin % 8 == 0), with and without the residual, on every output
+    combination: the f32 output within 1e-5 of the largest output (bf16 x
+    bf16 products are exact in float32: only the order of the float32 sums
+    differs), the bf16 output equal to ``.to(bfloat16)`` of the f32 one."""
+    g = torch.Generator(device=cuda).manual_seed(batch * cin + cout)
+    x = torch.randn((batch, 7, 6, cin), generator=g, device=cuda)
     w = (torch.randn((3, 3, cin, cout), generator=g, device=cuda)
          / (9 * cin) ** 0.5).to(torch.bfloat16)
     b = torch.randn(cout, generator=g, device=cuda)
-    res = (torch.randn((5, 7, 6, cout), generator=g, device=cuda)
-           if residual else None)
-    out = FI.conv3x3_bf16(x, w, b, res)
+    res = torch.randn((batch, 7, 6, cout), generator=g, device=cuda)
+    inputs = [x] + ([x.to(torch.bfloat16)] if cin % 8 == 0 else [])
     tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False     # the reference in full f32
-    try:
-        ref = FI._conv3x3_bf16_plain(x, w, b, res)
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32
-    # bf16 x bf16 products are exact in float32: only the order of the
-    # float32 sums differs, 1e-5 of the largest output
-    tol = 1e-5 * float(ref.abs().max())
-    assert float((out - ref).abs().max()) <= tol
+    for r in (None, res):
+        torch.backends.cudnn.allow_tf32 = False    # the reference in full f32
+        try:
+            ref = FI._conv3x3_bf16_plain(x, w, b, r)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        tol = 1e-5 * float(ref.abs().max())
+        for xin in inputs:
+            for want_f32, want_bf16 in [(True, False), (False, True),
+                                        (True, True)]:
+                out, outb = FI.conv3x3_bf16(xin, w, b, r, want_f32=want_f32,
+                                            want_bf16=want_bf16)
+                assert (out is not None, outb is not None) == (want_f32,
+                                                               want_bf16)
+                if out is not None:
+                    assert float((out - ref).abs().max()) <= tol
+                if outb is not None:
+                    full, _ = FI.conv3x3_bf16(xin, w, b, r)
+                    assert torch.equal(outb, full.to(torch.bfloat16))
 
 
 def test_heads_eval_matches_plain(cuda):

@@ -115,15 +115,42 @@ def test_kernel_flags_are_per_source():
 
 def test_kernel_library_names_follow_their_headers(tmp_path, monkeypatch):
     """A rules kernel's library name hashes the shared header too, so an
-    edit of ``rules_dev.cuh`` rebuilds all four."""
+    edit of ``rules_dev.cuh`` rebuilds all four; the two convs share
+    ``conv_tc.cuh`` the same way."""
     from alphazero_risk_tpu_torch import kernels
-    k = kernels.RULES_STEP
-    before = k.library
-    copy = tmp_path / "rules_dev.cuh"
-    copy.write_text(k.headers[0].read_text() + "\n// edited\n")
-    monkeypatch.setattr(k, "headers", (copy,))
-    assert k.library != before
-    assert kernels.CONV3X3_I8.headers == ()
+    for k, shared in ((kernels.RULES_STEP, "rules_dev.cuh"),
+                      (kernels.CONV3X3_I8, "conv_tc.cuh"),
+                      (kernels.CONV3X3_BF16, "conv_tc.cuh")):
+        assert [h.name for h in k.headers] == [shared]
+        before = k.library
+        copy = tmp_path / shared
+        copy.write_text(k.headers[0].read_text() + "\n// edited\n")
+        monkeypatch.setattr(k, "headers", (copy,))
+        assert k.library != before
+    assert kernels.MCTS_DESCEND.headers == ()
+
+
+def test_conv_ablation_parts_follow_the_header():
+    """``conv_ablation``'s part masks are those of ``enum Part`` in
+    ``conv_tc.cuh``, and each tensor-core conv exports the block-shape
+    query that ``fast_infer.conv_tile`` asks."""
+    import re
+    from alphazero_risk_tpu_torch import conv_ablation as CA
+    from alphazero_risk_tpu_torch import kernels
+    text = (kernels.CSRC / "conv_tc.cuh").read_text()
+    enum = text[text.index("enum Part"):]
+    enum = enum[:enum.index("};")]
+    assert dict(re.findall(r"k(\w+) = (\d+)", enum)) == {
+        "WeightCopy": str(CA.WEIGHT_COPY), "PlaneCopy": str(CA.PLANE_COPY),
+        "Ldmatrix": str(CA.LDMATRIX), "Wgmma": str(CA.WGMMA),
+        "Barrier": str(CA.BARRIER), "Fence": str(CA.FENCE)}
+    assert CA.VARIANTS["base"] == 0
+    for k in (kernels.CONV3X3_I8, kernels.CONV3X3_BF16):
+        assert f'extern "C" int {k.symbol}_boards(int B, int C' in \
+            k.source.read_text()
+        v = CA.variant(k, CA.WGMMA)
+        assert v.flags == k.flags + ["-DAZ_CONV_ABLATE=8"]
+        assert v.library != k.library and k.flags[-1] != v.flags[-1]
 
 
 def test_rules_kernel_tables_follow_the_topology():
@@ -150,7 +177,7 @@ def test_rules_kernel_tables_follow_the_topology():
     assert "sizeof(Tables) == 2728" in text
 
 
-@pytest.mark.parametrize("name", ["conv3x3_bf16", "heads_eval",
+@pytest.mark.parametrize("name", ["conv3x3_i8", "conv3x3_bf16", "heads_eval",
                                   "write_nodes", "rules_step", "expand",
                                   "state_views", "featurize", "script_step",
                                   "random_step"])
@@ -190,6 +217,11 @@ def test_cuda_tensor_wrappers_do_not_fall_back(name, monkeypatch):
             dice, cfg)
     elif name == "random_step":
         call = lambda: RA.random_step_recorded(st, u, dice, cfg)
+    elif name == "conv3x3_i8":
+        q = torch.empty((2, 7, 6, 64), dtype=torch.int8, device=meta)
+        w = torch.empty((3, 3, 64, 64), dtype=torch.int8, device=meta)
+        f = torch.empty(64, device=meta)
+        call = lambda: FI.conv3x3_i8(q, w, f, f, torch.empty((), device=meta))
     elif name == "conv3x3_bf16":
         x = torch.empty((2, 7, 6, 13), device=meta)
         w = torch.empty((3, 3, 13, 64), dtype=torch.bfloat16, device=meta)
@@ -208,6 +240,8 @@ def test_cuda_tensor_wrappers_do_not_fall_back(name, monkeypatch):
             m.float(), torch.zeros(s.batch_size)))
         call = lambda: S.write_nodes(tree, *args)
     monkeypatch.setattr(FI, "_conv3x3_bf16_plain", None)
+    monkeypatch.setattr(FI, "_conv_i8_plain", None)
+    monkeypatch.setattr(FI, "_epilogue_plain", None)
     monkeypatch.setattr(FI, "_heads_eval_plain", None)
     monkeypatch.setattr(S, "_write_nodes_plain", None)
     for fn in ("_step_plain", "_step_with_outcome_plain", "_expand_plain",

@@ -179,7 +179,7 @@ def test_int8_conv_accumulators_equal(layer, conv):
                                  folded["trunk_wq"][layer, conv]))
     tq = torch.from_numpy(q)
     _, _, acc = TF.conv3x3_i8(
-        tq, tf["trunk_wq"][layer, conv], tf["trunk_ws"][layer, conv],
+        tq, tf["trunk_wqk"][layer, conv], tf["trunk_ws"][layer, conv],
         tf["trunk_b"][layer, conv], tf["act_s"][layer, conv],
         want_acc=True)
     assert acc.dtype == torch.int32
@@ -309,24 +309,123 @@ def test_conv3x3_bf16_plain_matches_jax_stem_and_block():
     jfold, tfold = _bf16_folded()
     jx, tx = _inputs(CFG, 16, seed=11)
     ref = np.asarray(JF._stem(jfold, jx))
-    h = TF.conv3x3_bf16(tx, tfold["stem_w"], tfold["stem_b"])
+    h, _ = TF.conv3x3_bf16(tx, tfold["stem_w"], tfold["stem_b"])
     assert h.dtype == torch.float32 and tuple(h.shape) == (16, 7, 6, 32)
     np.testing.assert_allclose(h.numpy(), ref, rtol=0,
                                atol=1e-5 * np.abs(ref).max())
-    np.testing.assert_array_equal(TF._stem(tfold, tx).numpy(), h.numpy())
+    np.testing.assert_array_equal(TF._stem(tfold, tx)[0].numpy(), h.numpy())
     one = {"trunk_w": jfold["trunk_w"][:1], "trunk_b": jfold["trunk_b"][:1]}
     jh = jnp.asarray(ref)
     ref_blk = np.asarray(JF._trunk_xla_bf16(one, jh))
     th = torch.from_numpy(ref.copy())
     w, b = tfold["trunk_w"], tfold["trunk_b"]
-    y = TF.conv3x3_bf16(th, w[0, 0], b[0, 0])
-    blk = TF.conv3x3_bf16(y, w[0, 1], b[0, 1], residual=th)
+    y, _ = TF.conv3x3_bf16(th, w[0, 0], b[0, 0])
+    blk, _ = TF.conv3x3_bf16(y, w[0, 1], b[0, 1], residual=th)
     np.testing.assert_allclose(blk.numpy(), ref_blk, rtol=0,
                                atol=2e-3 * np.abs(ref_blk).max())
     assert (blk >= 0).all() and (blk > 0).any()
     np.testing.assert_array_equal(
-        TF._trunk_xla_bf16({"trunk_w": w[:1], "trunk_b": b[:1]}, th).numpy(),
+        TF._trunk_xla_bf16({"trunk_w": w[:1], "trunk_b": b[:1]}, th,
+                           th.to(torch.bfloat16)).numpy(),
         blk.numpy())
+
+
+@pytest.mark.parametrize("variant", ["stem", "bf16_in", "residual"])
+def test_conv3x3_bf16_outputs_agree(variant):
+    """K4's outputs: the bf16 one is ``.to(bfloat16)`` of the f32 one
+    (round to nearest even), whichever is asked for alone or both; a bf16
+    input gives what its f32 value gives (the conv rounds its input to
+    bf16 either way)."""
+    _, tfold = _bf16_folded()
+    _, tx = _inputs(CFG, 8, seed=13)
+    h, hb = TF._stem(tfold, tx, want_bf16=True)
+    w, b = tfold["trunk_w"], tfold["trunk_b"]
+    args = {"stem": (tx, tfold["stem_w"], tfold["stem_b"], None),
+            "bf16_in": (hb, w[0, 0], b[0, 0], None),
+            "residual": (hb, w[0, 1], b[0, 1], h)}[variant]
+    f32, bf = TF.conv3x3_bf16(*args, want_bf16=True)
+    assert f32.dtype == torch.float32 and bf.dtype == torch.bfloat16
+    assert torch.equal(bf, f32.to(torch.bfloat16))
+    assert TF.conv3x3_bf16(*args)[1] is None
+    only_f32, _ = TF.conv3x3_bf16(*args)
+    _, only_bf = TF.conv3x3_bf16(*args, want_f32=False, want_bf16=True)
+    assert torch.equal(only_f32, f32) and torch.equal(only_bf, bf)
+    if variant != "stem":
+        from_f32, _ = TF.conv3x3_bf16(h, *args[1:])
+        assert torch.equal(from_f32, f32)
+    with pytest.raises(ValueError):
+        TF.conv3x3_bf16(*args, want_f32=False)
+
+
+def test_bf16_trunk_hand_off_matches_jax():
+    """The 2-block bf16 trunk with the bf16 hand-off between convs against
+    JAX ``_trunk_xla_bf16``, within the per-block bound of the test above
+    (2e-3 of the largest output); and bit for bit the trunk of f32 convs
+    that round their inputs themselves, which is what it replaced."""
+    jfold, tfold = _bf16_folded()
+    jx, tx = _inputs(CFG, 16, seed=14)
+    jh = JF._stem(jfold, jx)
+    ref = np.asarray(JF._trunk_xla_bf16(jfold, jh))
+    h, hb = TF._stem(tfold, tx, want_bf16=True)
+    got = TF._trunk_xla_bf16(tfold, h, hb)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                               atol=2e-3 * np.abs(ref).max())
+    w, b = tfold["trunk_w"], tfold["trunk_b"]
+    plain = h
+    for l in range(w.shape[0]):
+        y = TF._conv3x3_bf16_plain(plain, w[l, 0], b[l, 0])
+        plain = TF._conv3x3_bf16_plain(y, w[l, 1], b[l, 1], plain)
+    np.testing.assert_array_equal(got.numpy(), plain.numpy())
+    np.testing.assert_array_equal(
+        TF._trunk_xla_bf16(tfold, h, h.to(torch.bfloat16)).numpy(),
+        got.numpy())
+
+
+@pytest.mark.parametrize("channels", [32, 64])
+def test_trunk_wq_packing_matches_jax_conv(channels):
+    """K1's weight packed at fold time: ``quantize_trunk`` and
+    ``folded_from_jax`` give the same ``trunk_wqk`` (and the HWIO
+    ``trunk_wq`` of JAX), and the plain conv on the packed layout equals
+    JAX ``_conv_i8`` exactly on int8 inputs."""
+    cfg = Config(blocks=1, filters=channels, value_hidden=16)
+    jc = jconfig.Config(**dataclasses.asdict(cfg))
+    _, variables = _randomized_variables(cfg, seed=channels)
+    jq = JF.quantize_trunk(JF.fold_params(variables, jc))
+    from_jax = folded_from_jax(jq, device="cpu")
+    ours = TF.quantize_trunk(TF.fold_params(_port_net(variables, cfg), cfg))
+    np.testing.assert_array_equal(from_jax["trunk_wq"].numpy(),
+                                  np.asarray(jq["trunk_wq"]))
+    np.testing.assert_array_equal(ours["trunk_wq"].numpy(),
+                                  np.asarray(jq["trunk_wq"]))
+    for f in (from_jax, ours):
+        assert f["trunk_wqk"].is_contiguous()
+        assert tuple(f["trunk_wqk"].shape) == (1, 2, 3, 3, channels,
+                                               channels)
+        np.testing.assert_array_equal(
+            f["trunk_wqk"].numpy(),
+            np.asarray(jq["trunk_wq"]).swapaxes(-1, -2))
+    rng = np.random.default_rng(channels)
+    q = rng.integers(-127, 128, (6, 7, 6, channels)).astype(np.int8)
+    for conv in (0, 1):
+        ref = np.asarray(JF._conv_i8(jnp.asarray(q), jq["trunk_wq"][0, conv]))
+        got = TF._conv_i8_plain(torch.from_numpy(q),
+                                from_jax["trunk_wqk"][0, conv])
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("seed", [7, 15])
+def test_calibrate_trunk_act_s_matches_jax(seed):
+    """``calibrate_trunk`` through K4's outputs (conv_a's f32 output sets
+    its scale, its bf16 copy feeds conv_b) gives JAX's ``act_s``."""
+    _, variables = _randomized_variables(CFG, seed=seed)
+    jq = JF.quantize_trunk(JF.fold_params(
+        variables, jconfig.Config(**dataclasses.asdict(CFG))))
+    jx, tx = _inputs(CFG, 24, seed=seed)
+    ref = np.asarray(JF.calibrate_trunk(jq, jx)["act_s"])
+    got = TF.calibrate_trunk(folded_from_jax(jq, device="cpu"), tx)["act_s"]
+    assert tuple(got.shape) == (CFG.blocks, 2)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5)
 
 
 def test_heads_eval_plain_matches_jax_heads_and_softmax():
