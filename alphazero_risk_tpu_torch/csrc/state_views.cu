@@ -1,4 +1,4 @@
-// K8: the state views, one thread per game.
+// K8: the state views, one warp per game.
 //
 // Replaces: alphazero_risk_tpu/env/rules.py `legal_actions` and
 // `game_status`, and alphazero_risk_tpu/env/featurize.py `featurize` (the
@@ -8,14 +8,31 @@
 // Bound on an H100: latency at the main path's batches.  A game reads
 // about 400 bytes of state and writes 43 bytes of legality, 4 of status
 // and 42 x F x 4 bytes of features (2.2 KB at F = 13): the features are
-// the bytes, and at B = 64 they take under 0.05 us at 3.35 TB/s.  The
-// plain version runs some forty small PyTorch launches for the features
-// and twenty more for the legality; here the masks of the player are
-// built once in registers and every output comes from them.
+// the bytes, and at B = 64 they take under 0.05 us at 3.35 TB/s.  So the
+// design cuts the dependent steps of one game and spreads its work:
 //
-// Exactness: the float outputs are army / land_army_max, the two shares
-// and the attack frequency, IEEE-rounded divisions as in PyTorch
-// (__fdiv_rn); a 0 / 0 share is NaN, as in the plain version.
+//   - one warp per game, four games per block; lane k holds lands k and
+//     k + 32.  The board rows, the state's scalars and the table rows a
+//     lane needs (its lands' adjacency masks; lanes 0-5 one continent
+//     each) are all loaded at once, coalesced, in one round trip;
+//   - the ownership and army masks are two __ballot_sync each;
+//     neighbors_any is an OR of the adjacency rows of the set lands, one
+//     or two per lane, reduced by __reduce_or_sync; the army sums and the
+//     continent bonuses are __reduce_add_sync;
+//   - each lane puts its lands' F features into the warp's row in shared
+//     memory (a stride of F words: no bank conflict for F = 13), and the
+//     game's contiguous 42 x F floats go out from there, consecutive lanes
+//     on consecutive addresses (computing each output float from its flat
+//     index, land i / F and plane i % F, on the way out was the slower
+//     design on an H100, 16-byte stores or not); the legality bytes are
+//     written by lanes, the status by lane 0.
+//
+// Exactness: the mask logic is integer; the float outputs are army /
+// land_army_max, the two shares and the attack frequency, IEEE-rounded
+// divisions as in PyTorch (__fdiv_rn) of the same operands as the plain
+// version, so the features agree bit for bit, a 0 / 0 share (NaN)
+// included.  The per-game functions of rules_dev.cuh (K7, K9, K10) are
+// used as they are; the warp forms live here.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -24,30 +41,181 @@
 
 namespace {
 
-__global__ void state_views_kernel(rd::StateRef in,
-                                   const rd::Tables* __restrict__ tables,
-                                   uint8_t* __restrict__ legal,
-                                   int* __restrict__ status,
-                                   float* __restrict__ feats, int B,
-                                   rd::Cfg cfg, int version) {
-  __shared__ rd::Tables t;
-  rd::load_tables(t, tables);
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+constexpr int kWarps = 4;             // games per block
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxF = 14;
+
+// A 42-land mask from the lanes' predicates on land lane (p0) and land
+// lane + 32 (p1, false where there is none).
+__device__ __forceinline__ uint64_t ballot(bool p0, bool p1) {
+  return static_cast<uint64_t>(__ballot_sync(kFull, p0)) |
+         (static_cast<uint64_t>(__ballot_sync(kFull, p1)) << 32);
+}
+
+// rules.neighbors_any: the OR of the adjacency rows adj0 (land lane) and
+// adj1 (land lane + 32, zero where there is none) of the lands set in x.
+__device__ __forceinline__ uint64_t nb_any(uint64_t x, int lane,
+                                           uint64_t adj0, uint64_t adj1) {
+  const uint64_t r = (rd::has(x, lane) ? adj0 : 0) |
+                     (rd::has(x, lane + 32) ? adj1 : 0);
+  return static_cast<uint64_t>(
+             __reduce_or_sync(kFull, static_cast<unsigned>(r))) |
+         (static_cast<uint64_t>(
+              __reduce_or_sync(kFull, static_cast<unsigned>(r >> 32)))
+          << 32);
+}
+
+// rules.calc_reinforcement; lanes 0-5 hold continent `lane`'s mask, size
+// and bonus (zero bonus elsewhere).
+__device__ __forceinline__ int reinforcement(uint64_t owned, uint64_t cont,
+                                             int size, int bonus) {
+  const int b = __reduce_add_sync(
+      kFull, rd::popc(owned & cont) == size ? bonus : 0);
+  return rd::imax(rd::popc(owned) / 3 + b, 3);
+}
+
+// rd::legal_actions from the player's masks.
+__device__ __forceinline__ uint64_t legal_from(const rd::Masks& m, int phase,
+                                               int mob_from, int mob_to,
+                                               const rd::Cfg& c) {
+  switch (phase) {
+    case rd::kSetup:
+    case rd::kReinforcement: {
+      const uint64_t base = m.owned & ~m.full;
+      uint64_t lands = base;
+      if (c.limit_reinf) {
+        const uint64_t border = base & (m.enemy_attack | m.neutral_attack);
+        lands = border ? border : base;
+      }
+      return base ? lands : rd::kSkipBit;
+    }
+    case rd::kSetupNeutral:
+      return m.neutral;
+    case rd::kAttack:
+      if (c.limit_attack) return m.attack_wa ? m.attack_wa : rd::kSkipBit;
+      return m.attack_wa | rd::kSkipBit;
+    case rd::kMobilization: {
+      uint64_t r = 0;
+      if (mob_from >= 0 && mob_from < rd::kLands) r |= rd::bit(mob_from);
+      if (mob_to >= 0 && mob_to < rd::kLands) r |= rd::bit(mob_to);
+      return r;
+    }
+    default:
+      return (c.limit_reinf ? m.owned & m.enemy_attack : m.owned) |
+             rd::kSkipBit;
+  }
+}
+
+template <int V>
+__global__ void __launch_bounds__(kWarps * 32) state_views_kernel(
+    rd::StateRef in, const rd::Tables* __restrict__ tables,
+    uint8_t* __restrict__ legal, int* __restrict__ status,
+    float* __restrict__ feats, int B, rd::Cfg cfg) {
+  constexpr int F = V == 1 ? 12 : (V == 2 ? 13 : 14);
+  constexpr int kScalars = V + 2;     // broadcast planes before the phase
+  __shared__ float s_feat[kWarps][rd::kLands * kMaxF];  // each game's row
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int b = blockIdx.x * kWarps + w;
   if (b >= B) return;
 
-  rd::St s;
-  rd::load(s, in, b);
+  // ---- every load, at once ----
+  const bool two = lane + 32 < rd::kLands;
+  const int64_t land = static_cast<int64_t>(b) * rd::kLands;
+  const int ow0 = in.owner[land + lane];
+  const int ow1 = two ? in.owner[land + lane + 32] : -1;
+  const int ar0 = in.army[land + lane];
+  const int ar1 = two ? in.army[land + lane + 32] : 0;
+  const int phase = in.phase[b];
+  const int cur = in.cur[b];
+  const uint64_t adj0 = tables->adj[lane];
+  const uint64_t adj1 = two ? tables->adj[lane + 32] : 0;
+  const bool cl = lane < rd::kConts;
+  const uint64_t cont = cl ? tables->cont[lane] : 0;
+  const int csize = cl ? tables->cont_size[lane] : 0;
+  const int cbonus = cl ? tables->cont_bonus[lane] : 0;
+  int round = 0, mob_from = -1, mob_to = -1, attacks = 0;
+  bool can_draw = false;
+  if (status != nullptr || V == 3) round = in.round[b];
   if (legal != nullptr) {
-    const uint64_t m = rd::legal_actions(s, t, cfg);
-    for (int k = 0; k < rd::kActions; ++k)
-      legal[b * rd::kActions + k] = rd::has(m, k);
+    mob_from = in.mob_from[b];
+    mob_to = in.mob_to[b];
   }
-  if (status != nullptr) status[b] = rd::game_status(s, cfg);
   if (feats != nullptr) {
-    const int F = version == 1 ? 12 : (version == 2 ? 13 : 14);
-    rd::features(s, version, cfg, t,
-                 feats + static_cast<int64_t>(b) * rd::kLands * F);
+    attacks = in.attacks[b];
+    can_draw = in.can_draw[b] != 0;
   }
+
+  const uint64_t owned = ballot(ow0 == cur, ow1 == cur);
+  const uint64_t enemy = ballot(ow0 == 1 - cur, ow1 == 1 - cur);
+
+  if (status != nullptr && lane == 0) {
+    rd::St s;
+    s.own[0] = cur == 0 ? owned : enemy;
+    s.own[1] = cur == 0 ? enemy : owned;
+    s.round = round;
+    status[b] = rd::game_status(s, cfg);
+  }
+
+  if (legal != nullptr) {
+    rd::Masks m;
+    m.owned = owned;
+    m.enemy = enemy;
+    m.neutral = ballot(ow0 == rd::kNeutral, ow1 == rd::kNeutral);
+    m.owa = owned & ballot(ar0 >= 2, two && ar1 >= 2);
+    m.full = owned & ballot(ar0 >= cfg.army_max, two && ar1 >= cfg.army_max);
+    m.attack_wa = ~owned & nb_any(m.owa, lane, adj0, adj1);
+    m.enemy_attack = ~enemy & nb_any(enemy, lane, adj0, adj1);
+    m.neutral_attack = nb_any(m.neutral, lane, adj0, adj1) & ~m.neutral;
+    const uint64_t mask = legal_from(m, phase, mob_from, mob_to, cfg);
+    uint8_t* out = legal + static_cast<int64_t>(b) * rd::kActions;
+    out[lane] = rd::has(mask, lane);
+    if (lane + 32 < rd::kActions) out[lane + 32] = rd::has(mask, lane + 32);
+  }
+
+  if (feats == nullptr) return;
+  // ---- features (rd::features, cell-major, planes in the JAX order) ----
+  const float ref =
+      static_cast<float>(reinforcement(owned, cont, csize, cbonus));
+  const float eref =
+      static_cast<float>(reinforcement(enemy, cont, csize, cbonus));
+  const int ta = __reduce_add_sync(
+      kFull, (rd::has(owned, lane) ? ar0 : 0) +
+                 (rd::has(owned, lane + 32) ? ar1 : 0));
+  const int eta = __reduce_add_sync(
+      kFull, (rd::has(enemy, lane) ? ar0 : 0) +
+                 (rd::has(enemy, lane + 32) ? ar1 : 0));
+  // the broadcast planes: (round share V3, army share V2+) reinforcement
+  // share, attack frequency, can-draw; then the phase one-hot
+  const float fa = static_cast<float>(ta), fe = static_cast<float>(eta);
+  const float af = rd::fdiv(static_cast<float>(attacks), 8.0f);
+  const float all5[5] = {
+      V == 3 ? rd::fdiv(static_cast<float>(round),
+                        static_cast<float>(cfg.max_rounds))
+             : 0.0f,
+      V >= 2 ? rd::fdiv(fa, fa + fe) : 0.0f, rd::fdiv(ref, ref + eref),
+      af > 1.0f ? 1.0f : af, can_draw ? 1.0f : 0.0f};
+  const float army_max = static_cast<float>(cfg.army_max);
+  float* row = s_feat[w];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = lane + 32 * h;
+    if (j >= rd::kLands) break;
+    const float a = rd::fdiv(static_cast<float>(h ? ar1 : ar0), army_max);
+    const bool mine = rd::has(owned, j), theirs = rd::has(enemy, j);
+    float* o = row + j * F;
+    o[0] = mine ? a : 0.0f;
+    o[1] = theirs ? a : 0.0f;
+    o[2] = (!mine && !theirs) ? a : 0.0f;
+#pragma unroll
+    for (int k = 0; k < kScalars; ++k) o[3 + k] = all5[k + 3 - V];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) o[3 + kScalars + k] = phase == k ? 1.0f : 0.0f;
+  }
+  __syncwarp();
+  constexpr int kTotal = rd::kLands * F;
+  float* out = feats + static_cast<int64_t>(b) * kTotal;
+  for (int i = lane; i < kTotal; i += 32) out[i] = row[i];
 }
 
 }  // namespace
@@ -55,22 +223,28 @@ __global__ void state_views_kernel(rd::StateRef in,
 // The 12 first GameState fields of B games (reinf, cards and sets are not
 // read and may be null); legal [B, 43] bool, status [B] int32 and feats
 // [B, 42, F] f32 (F = 12, 13, 14 for feature version 1, 2, 3), each
-// written when non-null.  flags as in az_rules_step.  Returns
-// cudaGetLastError().
+// written when non-null.  flags as in az_rules_step.
+// Returns cudaGetLastError().
 extern "C" int az_state_views(
     void* owner, void* army, void* phase, void* round, void* cur,
     void* mob_from, void* mob_to, void* can_draw, void* attacks,
     const void* tables, void* legal, void* status, void* feats, int B,
     int army_max, int max_rounds, int flags, int version, void* stream) {
-  const int threads = 32;
   const rd::StateRef in = rd::state_ref(owner, army, phase, round, cur,
                                         nullptr, nullptr, nullptr, mob_from,
                                         mob_to, can_draw, attacks);
-  state_views_kernel<<<(B + threads - 1) / threads, threads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      in, static_cast<const rd::Tables*>(tables),
-      static_cast<uint8_t*>(legal), static_cast<int*>(status),
-      static_cast<float*>(feats), B,
-      rd::make_cfg(army_max, 0, max_rounds, flags), version);
+  const rd::Cfg cfg = rd::make_cfg(army_max, 0, max_rounds, flags);
+  const dim3 grid((B + kWarps - 1) / kWarps), block(kWarps * 32);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* t = static_cast<const rd::Tables*>(tables);
+  auto* l = static_cast<uint8_t*>(legal);
+  auto* st = static_cast<int*>(status);
+  auto* f = static_cast<float*>(feats);
+  if (version == 1)
+    state_views_kernel<1><<<grid, block, 0, s>>>(in, t, l, st, f, B, cfg);
+  else if (version == 2)
+    state_views_kernel<2><<<grid, block, 0, s>>>(in, t, l, st, f, B, cfg);
+  else
+    state_views_kernel<3><<<grid, block, 0, s>>>(in, t, l, st, f, B, cfg);
   return static_cast<int>(cudaGetLastError());
 }

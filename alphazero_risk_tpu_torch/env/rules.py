@@ -27,14 +27,15 @@ The JAX engine has three fixpoint ``while_loop``s.  Here:
 Only the simple-cards rules are ported: ``simple_cards=False`` raises
 ``NotImplementedError``.
 
-On the card two kernels carry the engine (one thread per game, the game's
-own phase branch only, the graph walks as mask walks):
+On the card two kernels carry the engine (the game's own phase branch
+only, the graph walks as mask walks):
 
-- K7 (``csrc/rules_step.cu``): ``step``, ``step_with_outcome`` and
-  ``expand`` (the child of a search tree's node, with its status and
-  legality);
-- K8 (``csrc/state_views.cu``, ``state_views``): ``legal_actions``,
-  ``game_status`` and ``featurize``, any of them from one read.
+- K7 (``csrc/rules_step.cu``, one thread per game): ``step``,
+  ``step_with_outcome`` and ``expand`` (the child of a search tree's node,
+  with its status and legality);
+- K8 (``csrc/state_views.cu``, ``state_views``, one warp per game):
+  ``legal_actions``, ``game_status`` and ``featurize``, any of them from
+  one read.
 
 CPU tensors take the plain versions (``_step_plain``,
 ``_step_with_outcome_plain``, ``_expand_plain``, ``_legal_actions_plain``,
@@ -771,6 +772,7 @@ CARDS_SPEC = (("player_cards", B8, (2, NUM_LANDS)),
 # What K8 reads.
 VIEW_FIELDS = ("owner", "army", "phase", "round", "cur_player", "mob_from",
                "mob_to", "can_draw_card", "attacks_during_turn")
+VIEW_SPEC = tuple(f for f in STATE_SPEC if f[0] in VIEW_FIELDS)
 
 
 def checked(t: torch.Tensor, dtype, shape, what: str) -> torch.Tensor:
@@ -938,8 +940,7 @@ def state_views(state: GameState, cfg: Config, *, legal: bool = False,
     if state.device.type == "cpu":
         return _state_views_plain(state, cfg, legal, status, features)
     b, dev = state.batch_size, state.phase.device
-    ins = state_fields(state, (b,), tuple(
-        f for f in STATE_SPEC if f[0] in VIEW_FIELDS))
+    ins = state_fields(state, (b,), VIEW_SPEC)
     outs = (torch.empty((b, NUM_ACTIONS), dtype=B8, device=dev)
             if legal else None,
             torch.empty((b,), dtype=I32, device=dev) if status else None,

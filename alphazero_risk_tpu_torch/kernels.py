@@ -124,7 +124,10 @@ class Kernel:
     def launch(self, *args) -> None:
         """Launch on the current stream; raise on a CUDA error."""
         fn = self._load()
-        stream = torch.cuda.current_stream().cuda_stream
+        # the handle torch.cuda.current_stream().cuda_stream gives, without
+        # building a Stream object on every launch
+        stream = torch._C._cuda_getCurrentRawStream(
+            torch.cuda.current_device())
         err = fn(*args, stream)
         if err != 0:
             raise RuntimeError(f"kernel {self.name}: CUDA error {err}")
@@ -139,9 +142,11 @@ CONV3X3_I8 = Kernel(
     "conv3x3_i8", "conv_i8.cu", "az_conv3x3_i8",
     [P] * 10 + [I, I], headers=CONV_TC)
 
+# root, 10 tree and node-state arrays, gumbel, logp, nrank (int8);
+# c_keep, c_add, cpuct, B, N, D; the paths and ends output buffers
 MCTS_DESCEND = Kernel(
     "mcts_descend", "mcts_descend.cu", "az_mcts_descend",
-    [P] * 14 + [F, F, F, I, I, I] + [P] * 8)
+    [P] * 14 + [F, F, F, I, I, I, P, P])
 
 MCTS_BACKUP = Kernel(
     "mcts_backup", "mcts_backup.cu", "az_mcts_backup",

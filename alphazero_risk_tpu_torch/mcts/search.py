@@ -8,7 +8,7 @@ sign flips only across player changes (alphazero_mcts.cpp:363-375).
 Three kernels carry the simulation on the card:
 
 - K2 (``csrc/mcts_descend.cu``, ``descend``): the whole descent, PUCT
-  select and outcome sampling included, one thread per game;
+  select and outcome sampling included, one warp per game;
 - K6 (``csrc/tree_write.cu``, ``write_nodes``): the new node's state and
   tree entries, the child link, ``next_free`` and the leaf select; also the
   root write of ``init_tree``;
@@ -50,7 +50,7 @@ from ..config import (
     STATUS_DRAW,
     STATUS_NOT_ENDED,
 )
-from ..env import rules
+from ..env import rules, topology
 from ..env.rules import argmax_first, take
 from ..env.state import GameState, tree_map
 from .outcomes import OUTCOME_PROBS
@@ -348,37 +348,42 @@ def _descend_plain(tree: Tree, gumbel: torch.Tensor,
     return Descent(pn, pa, pp, depth, cur, exp_n, exp_a, exp_o)
 
 
+@functools.lru_cache(maxsize=None)
+def _descend_tables(device: torch.device):
+    """K2's constant inputs on ``device``: the outcome logits
+    (``outcome_logp``) and NEIGHBOR_RANK as int8 [42, 42]."""
+    nrank = torch.from_numpy(topology.NEIGHBOR_RANK.astype(np.int8))
+    return outcome_logp(device), nrank.to(device)
+
+
 def descend(tree: Tree, gumbel: torch.Tensor, cfg: Config) -> Descent:
     """One simulation's descent from each game's root (kernel K2).
 
     ``gumbel`` [max_depth, B, 3] f32 is the outcome noise of this
     simulation.  CPU tensors take ``_descend_plain``; CUDA tensors launch
-    the kernel (no fallback)."""
+    the kernel (no fallback).  On the card the outputs are views of two
+    int32 buffers, [3, B, max_depth] paths and [5, B] ends."""
     if tree.visit.device.type == "cpu":
         return _descend_plain(tree, gumbel, cfg)
     b, n = tree.player.shape
     d_cap = cfg.max_depth
-    dev = tree.visit.device
     st = tree.states
-    logp = outcome_logp(dev)
-    nrank = rules.tables(dev).neighbor_rank
     ins = (tree.root, tree.terminal, tree.player, tree.legal, tree.prior,
            tree.visit, tree.wsum, tree.children, st.phase, st.army,
-           st.owner, gumbel, logp, nrank)
+           st.owner, gumbel)
     kernels.require_cuda(*ins)
     if tuple(gumbel.shape) != (d_cap, b, 3) or gumbel.dtype != F32:
         raise ValueError("gumbel must be [max_depth, B, 3] float32")
-    out = Descent(*(torch.empty((b, d_cap), dtype=I32, device=dev)
-                    for _ in range(3)),
-                  *(torch.empty((b,), dtype=I32, device=dev)
-                    for _ in range(5)))
-    c_keep = 1.0 - cfg.noise_eps
-    c_add = cfg.noise_eps * cfg.noise_value
-    P = kernels.ptr
-    kernels.MCTS_DESCEND.launch(
-        *(P(t) for t in ins), c_keep, c_add, cfg.cpuct, b, n, d_cap,
-        *(P(t) for t in out))
-    return out
+    dev = gumbel.device
+    paths = torch.empty((3, b, d_cap), dtype=I32, device=dev)
+    ends = torch.empty((5, b), dtype=I32, device=dev)
+    if b:
+        kernels.MCTS_DESCEND.launch(
+            *(t.data_ptr() for t in ins),
+            *(t.data_ptr() for t in _descend_tables(dev)),
+            1.0 - cfg.noise_eps, cfg.noise_eps * cfg.noise_value, cfg.cpuct,
+            b, n, d_cap, paths.data_ptr(), ends.data_ptr())
+    return Descent(*paths.unbind(0), *ends.unbind(0))
 
 
 def _backup_plain(tree: Tree, path: Descent, leaf_v: torch.Tensor,

@@ -25,18 +25,23 @@ when all of them pass):
    slice's 32 games, the arena's 16, the benchmark's 4 and 2:
    ``PATH_BATCHES``), on the first games of the same leaf batch, tree and
    roots; at 16, 4 and 2 games the conv kernels' last block holds fewer
-   than 3 boards.  Then at larger shapes: K1 and K4 at B=1024; K4 at the
+   than 3 boards.  K2/K3 also at 1 and 33 games and on the main-path tree
+   rewritten into ties (``tie_tree``: every legal action tied, rows with
+   no legal action, attack sources with equal armies or none).  Then at
+   larger shapes: K1 and K4 at B=1024; K4 at the
    512 calibration features every int8 fold launches it on, in
    ``check_k4``'s three forms and in each conv of ``calibrate_trunk``
    (held against the plain conv on that conv's own inputs), and the
    activation scales that ``calibrate_trunk`` sets on K4 against those of
    the plain version; and K2/K3 on trees over 256 games grown by
-   plain-version simulations.  The rules kernels K7-K10 are held bit for
-   bit on 1,024 states of mixed Script/Random play (every phase, fortify
-   ties, full lands, terminal games; ``mixed_states``), timed at GAMES and
-   at 1,024,
-   and compared at every batch of ``RULES_BATCHES`` and K8 also at the
-   learner's batch; K7's expand entry on the main-path tree and its slices.
+   plain-version simulations and over 1,024 grown on the card (timed, with
+   K2's path depths).  The rules kernels K7-K10 are held bit for bit on
+   1,024 states of mixed Script/Random play (every phase, fortify ties,
+   full lands, terminal games; ``mixed_states``), timed at GAMES and at
+   1,024 (K8 also at the learner's batch, 512, and in its three forms:
+   all three outputs, the features alone, legality and status), and
+   compared at every batch of ``RULES_BATCHES``; K7's expand entry on the
+   main-path tree and its slices.
    The training and data phases search at ``TRAIN``'s simulations: K2,
    K3, K6 and K7's expand are held on such a tree at each of their
    batches (``TRAIN_BATCHES``);
@@ -396,17 +401,17 @@ def check_k1(folded, feats, timed=True):
             "shape": f"B={B} C={C}"}
 
 
-def check_k2_k3(tree, gum, cfg, dev, timed=True):
+def check_k2_k3(tree, gum, cfg, dev, timed=True, what=""):
     """K2 and K3 against their plain versions on ``tree`` with one
     simulation's noise ``gum`` [max_depth, B, 3].  Returns the timed entry
-    fields of each, or None (the comparison alone) when ``timed`` is
-    false."""
+    fields of each (with K2's path depths: its time per depth step), or
+    None (the comparison alone) when ``timed`` is false."""
     import torch
     from alphazero_risk_tpu_torch.config import PH_ATTACK, SKIP_ACTION
     from alphazero_risk_tpu_torch.mcts import search as S
 
     B, N = tree.player.shape
-    shape = f"B={B} N={N} D={cfg.max_depth}"
+    shape = f"B={B} N={N} D={cfg.max_depth}{what}"
     path = S.descend(tree, gum, cfg)
     ref = S._descend_plain(tree, gum, cfg)
     torch.cuda.synchronize()
@@ -471,11 +476,39 @@ def check_k2_k3(tree, gum, cfg, dev, timed=True):
     return ({"max_abs_err": err2, "ms": ms2, "device_ms": dev2,
              "plain_ms": plain2,
              "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
-             "shape": shape},
+             "shape": shape, "depth_mean": float(depth.float().mean()),
+             "depth_max": int(depth.max())},
             {"max_abs_err": err3, "ms": ms3, "device_ms": dev3,
              "plain_ms": plain3,
              "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None,
              "shape": shape})
+
+
+TIE_CASES = ("fresh_ties", "no_legal", "equal_armies", "no_source")
+
+
+def tie_tree(tree, case):
+    """A copy of ``tree`` rewritten so that K2's warp reductions meet
+    ties: ``fresh_ties`` zeroes visits and values and spreads each row's
+    prior evenly over its legal actions (every legal action ties in U, the
+    first wins); ``no_legal`` also clears every legal row of the odd games
+    (index 0 wins); ``equal_armies`` and ``no_source`` also put every node
+    in the attack phase with 3 armies (the attack sources tie in army, the
+    neighbour rank decides) or 1 army (no source: every land ties at -1)
+    on every land."""
+    import torch
+    from alphazero_risk_tpu_torch.config import PH_ATTACK
+    t = clone_tree(tree)
+    t.visit.zero_()
+    t.wsum.zero_()
+    legal = t.legal.to(torch.float32)
+    t.prior.copy_(legal / legal.sum(-1, keepdim=True).clamp(min=1))
+    if case == "no_legal":
+        t.legal[1::2] = False
+    elif case in ("equal_armies", "no_source"):
+        t.states.phase.fill_(PH_ATTACK)
+        t.states.army.fill_(3 if case == "equal_armies" else 1)
+    return t
 
 
 def check_k4(folded, feats, timed=True):
@@ -969,24 +1002,39 @@ def check_k8(st, cfg, timed=True, what=""):
     nan_games = int(torch.isnan(want[2]).flatten(1).any(-1).sum())
     msg = (f"K8 state_views B={n}{what}: legal, status and features equal, "
            f"alone and together ({nan_games} games with a 0/0 share)")
+    log(msg)
     if not timed:
-        log(msg)
         return None
-    view = sum(getattr(st, name)[0].numel() * getattr(st, name).element_size()
-               for name in rules.VIEW_FIELDS)
 
-    def run():
-        rules.state_views(st, cfg, legal=True, status=True, features=True)
+    def read(names):
+        return sum(getattr(st, f)[0].numel() * getattr(st, f).element_size()
+                   for f in names)
 
-    def plain():
-        rules._state_views_plain(st, cfg, True, True, True)
-
-    e = timed_entry(run, plain, "state_views_kernel",
-                    n * (view + 43 + 4 + want[2][0].numel() * 4)
-                    + TABLE_BYTES, n)
-    log(f"{msg}; all three {e['ms']:.4f} ms (kernel alone "
-        f"{fmt_ms(e['device_ms'])}; bound {e['bound_ms']:.6f} ms) plain "
-        f"{e['plain_ms']:.3f} ms")
+    # the three forms the paths launch: each reads its fields and writes
+    # its outputs once per game, and the board tables once
+    feat = want[2][0].numel() * 4
+    board = ("owner", "army", "phase", "cur_player")
+    forms = (
+        ("all three", (True, True, True), rules.VIEW_FIELDS, 43 + 4 + feat),
+        ("features", (False, False, True), board + (
+            "can_draw_card", "attacks_during_turn")
+            + (("round",) if cfg.feature_version == 3 else ()), feat),
+        ("legal and status", (True, True, False),
+         board + ("round", "mob_from", "mob_to"), 43 + 4))
+    out = {}
+    for name, (lg, stt, ft), fields, written in forms:
+        e = timed_entry(
+            lambda: rules.state_views(st, cfg, legal=lg, status=stt,
+                                      features=ft),
+            lambda: rules._state_views_plain(st, cfg, lg, stt, ft),
+            "state_views_kernel", n * (read(fields) + written) + TABLE_BYTES,
+            n)
+        log(f"K8 B={n} {name}: {e['ms']:.4f} ms (kernel alone "
+            f"{fmt_ms(e['device_ms'])}; bound {e['bound_ms']:.6f} ms) plain "
+            f"{e['plain_ms']:.3f} ms")
+        out[name] = e
+    e = out.pop("all three")
+    e["features"], e["legal_status"] = out["features"], out["legal and status"]
     return e
 
 
@@ -1054,6 +1102,23 @@ def plain_grown_tree(states, cfg, dev):
     log(f"K2/K3 trees: 256 games x {scfg.mcts_simulations} plain sims on "
         f"the CPU in {time.perf_counter() - t0:.1f} s")
     return tree_to(tree, dev)
+
+
+def card_grown_tree(states, cfg, dev):
+    """Trees over every game of ``states`` grown on the card by 8
+    simulations (the kernels) with the stand-in network."""
+    import torch
+    from alphazero_risk_tpu_torch.mcts import search as S
+
+    scfg, b = cfg.replace(mcts_simulations=8), states.batch_size
+    grow = S.draw_gumbel(torch.Generator(device=dev).manual_seed(5), scfg,
+                         b, dev)
+    t0 = time.perf_counter()
+    tree = S.search(states, grow, scfg, heuristic_eval).tree
+    torch.cuda.synchronize()
+    log(f"K2/K3 trees: {b} games x {scfg.mcts_simulations} sims on the "
+        f"card in {time.perf_counter() - t0:.1f} s")
+    return tree
 
 
 def main_path_tree(trainer, states, cfg):
@@ -1183,6 +1248,14 @@ def phase_kernels(cfg, dev):
             check_k6(slice_tree(mtree, nb), ngum, tree_map(
                 lambda x: x[:nb].contiguous(), states), cfg,
                 trainer._eval_fn(), timed=False)
+        # K2 also at ragged batches (one game; a warp past a block of
+        # four) and on the main-path tree rewritten into ties
+        for nb in (1, GAMES // 2 + 1):
+            check_k2_k3(slice_tree(mtree, nb), mgum[:, :nb].contiguous(),
+                        cfg, dev, timed=False)
+        for case in TIE_CASES:
+            check_k2_k3(tie_tree(mtree, case), mgum, cfg, dev, timed=False,
+                        what=f" {case}")
         # the larger shapes: K1 and K4 at B=1024, K2/K3 over 256 games
         feats1024 = featurize(states, cfg)
         k1["b1024"] = check_k1(folded, feats1024)
@@ -1197,6 +1270,10 @@ def phase_kernels(cfg, dev):
                             256, dev)[0]
         k2["g256"], k3["g256"] = check_k2_k3(
             plain_grown_tree(states, cfg, dev), gum, cfg, dev)
+        gum = S.draw_gumbel(torch.Generator(device=dev).manual_seed(6), cfg,
+                            states.batch_size, dev)[0]
+        k2["g1024"], k3["g1024"] = check_k2_k3(
+            card_grown_tree(states, cfg, dev), gum, cfg, dev)
         # the rules kernels: timed at GAMES and at MIXED, K7's expand entry
         # on the main-path tree, then held at every other path batch
         mx = mixed_states(cfg, dev)
@@ -1215,7 +1292,7 @@ def phase_kernels(cfg, dev):
                 check_k7_expand(slice_tree(mtree, nb),
                                 mgum[:, :nb].contiguous(), cfg, timed=False)
         # K8 at the learner's batch (on its real input in the data phase)
-        check_k8(first(mx, TRAIN["batch_size"]).state, cfg, timed=False)
+        k8["b512"] = check_k8(first(mx, TRAIN["batch_size"]).state, cfg)
         check_train_trees(trainer, states, dev)
     entries = [
         {"name": "conv3x3_i8", "route": "cuda",

@@ -25,6 +25,8 @@ from alphazero_risk_tpu_torch.mcts import search as S
 from alphazero_risk_tpu_torch.training import actor as A
 from alphazero_risk_tpu_torch.training.trainer import Trainer
 
+from chip_smoke import TIE_CASES, tie_tree
+
 pytestmark = pytest.mark.cuda
 
 
@@ -137,6 +139,77 @@ def test_descend_and_backup_match_plain(cuda):
     S._backup_plain(tree, path, leaf_v, leaf_p)
     assert torch.equal(kv, tree.visit)
     torch.testing.assert_close(kw, tree.wsum, rtol=1e-6, atol=0)
+
+
+def _games(tree, n):
+    """A contiguous copy of the first ``n`` games of ``tree``."""
+    return type(tree)(**{
+        f.name: (tree_map(lambda x: x[:n].clone(), getattr(tree, f.name))
+                 if isinstance(getattr(tree, f.name), GameState)
+                 else getattr(tree, f.name)[:n].clone())
+        for f in dataclasses.fields(tree)})
+
+
+@pytest.fixture(scope="module")
+def grown_trees():
+    """Search trees over 1,024 games of random play, grown on the card with
+    8 and 32 simulations (N = 10 and 34), by N."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    cfg = Config()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    st = new_game(1024, generator=gen, device="cuda")
+    for _ in range(120):
+        legal = rules.legal_actions(st, cfg)
+        g = torch.rand(legal.shape, generator=gen, device="cuda")
+        st = rules.step_key(st, torch.argmax(torch.where(legal, g, -1.0), -1)
+                            .to(torch.int32), gen, cfg)
+    trees = {}
+    for sims in (8, 32):
+        c = Config(mcts_simulations=sims)
+        gum = S.draw_gumbel(gen, c, 1024, "cuda")
+        trees[c.num_nodes] = S.search(st, gum, c, uniform_eval).tree
+    return trees
+
+
+def _assert_descent_matches_plain(tree, gum, cfg):
+    path = S.descend(tree, gum, cfg)
+    for name, a, r in zip(S.Descent._fields, path,
+                          S._descend_plain(tree, gum, cfg)):
+        assert torch.equal(a, r), name
+    return path
+
+
+@pytest.mark.parametrize("n_nodes", [10, 34])
+@pytest.mark.parametrize("batch", [1, 2, 4, 16, 32, 33, 64, 256, 1024])
+def test_descend_batches_match_plain(cuda, grown_trees, batch, n_nodes):
+    """K2 (one warp per game, four per block) against ``_descend_plain``:
+    every output equal on the first ``batch`` games of a grown tree, at
+    max_depth 48 and at 3 (which cuts paths), for three simulations'
+    noise."""
+    tree = _games(grown_trees[n_nodes], batch)
+    for d_cap in (48, 3):
+        cfg = Config(mcts_simulations=3, max_depth=d_cap)
+        gen = torch.Generator(device="cuda").manual_seed(batch + d_cap)
+        for gum in S.draw_gumbel(gen, cfg, batch, cuda):
+            path = _assert_descent_matches_plain(tree, gum, cfg)
+            assert int(path.depth.max()) <= d_cap
+
+
+@pytest.mark.parametrize("case", TIE_CASES)
+def test_descend_tie_trees_match_plain(cuda, grown_trees, case):
+    """K2 against ``_descend_plain`` on the grown trees rewritten into
+    ties (``chip_smoke.tie_tree``: every legal action tied, rows with no
+    legal action, attack sources with equal armies or none), at 33 and
+    1,024 games."""
+    cfg = Config(mcts_simulations=2)
+    for tree in grown_trees.values():
+        tied = tie_tree(tree, case)
+        for batch in (33, 1024):
+            t = _games(tied, batch)
+            gen = torch.Generator(device="cuda").manual_seed(batch)
+            for gum in S.draw_gumbel(gen, cfg, batch, cuda):
+                _assert_descent_matches_plain(t, gum, cfg)
 
 
 def test_play_launches_every_kernel(cuda):
@@ -364,6 +437,31 @@ def test_state_views_match_plain(cuda, mixed_play, version):
         for g, w in zip(got, want):
             torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0,
                                        equal_nan=True)
+
+
+@pytest.mark.parametrize("version", [1, 2, 3])
+@pytest.mark.parametrize("batch", [1, 31, 33, 64, 512, 1024])
+def test_state_views_batches_match_plain(cuda, mixed_play, batch, version):
+    """K8 (one warp per game, four per block) at ragged and large batches:
+    each output alone, legality with status, and all three, bit for bit
+    against the plain versions (the first game's lands all neutral: a 0/0
+    army share, NaN)."""
+    cfg = Config(feature_version=version)
+    state = tree_map(lambda x: x[:batch].clone(), mixed_play.state)
+    state.owner[0] = 2
+    cs = _on(state, cuda)
+    names = ("legal", "status", "features")
+    want = rules._state_views_plain(state, cfg, True, True, True)
+    for wanted in [(True, False, False), (False, True, False),
+                   (False, False, True), (True, True, False),
+                   (True, True, True)]:
+        got = rules.state_views(cs, cfg, **dict(zip(names, wanted)))
+        refs = [w for w, on in zip(want, wanted) if on]
+        assert len(got) == len(refs)
+        for g, w in zip(got, refs):
+            torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0,
+                                       equal_nan=True)
+    assert bool(torch.isnan(want[2][0]).any()) == (version >= 2)
 
 
 @pytest.mark.parametrize("cfg", [Config(),
