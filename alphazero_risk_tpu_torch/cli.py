@@ -2,7 +2,8 @@
 
 Port of the ``play``, ``train``, ``train-script`` and ``train-data`` modes of
 ``alphazero_risk_tpu/cli.py``.
-``play``: AlphaZero (``--p1 az``) against the ScriptPlayer (``--p2 sp``),
+``play``: AlphaZero (``--p1 az``, the weights of ``--c1``, by default the
+checkpoint role ``latest``) against the ScriptPlayer (``--p2 sp``),
 the RandomPlayer (``--p2 rp``) or another checkpoint role (``--p2 az
 --c2 ROLE``) in mirrored pairs, with argmax moves; or two heuristic players
 (``--p1 sp|rp --p2 sp|rp``) through ``agents.driver.play_match``.
@@ -50,11 +51,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="opponent in play mode: ScriptPlayer, RandomPlayer "
                         "or AlphaZero from --c2")
     p.add_argument("--c1", default=None,
-                   help="weights of player 1 (play) or to start training "
-                        "from (train modes): a checkpoint role (latest, "
-                        "best, iter-N) or a params npz in the "
-                        "save_params_npz format; random weights from --seed "
-                        "when omitted")
+                   help="weights of player 1 (play; the role latest when "
+                        "omitted, fresh weights from --seed when it does "
+                        "not exist) or to start training from (train "
+                        "modes; only when given): a checkpoint role "
+                        "(latest, best, iter-N) or a params npz in the "
+                        "save_params_npz format")
     p.add_argument("--c2", default="best",
                    help="checkpoint role of player 2 (play --p2 az)")
     p.add_argument("--games", "--cg", type=int, default=1000,
@@ -184,11 +186,14 @@ def main(argv=None):
                 f.write(f"{field.name}={getattr(cfg, field.name)}\n")
 
     trainer = Trainer(cfg, seed=args.seed, device=device)
-    if args.c1 is not None:
-        if args.c1.endswith(".npz"):
-            trainer.load_weights(load_params_npz(args.c1, cfg, device=device))
+    # play restores the role latest by default, as the JAX CLI does; the
+    # train modes resume by themselves and start from --c1 only if given
+    c1 = args.c1 or ("latest" if args.mode == "play" else None)
+    if c1 is not None:
+        if c1.endswith(".npz"):
+            trainer.load_weights(load_params_npz(c1, cfg, device=device))
         else:
-            trainer.train_state = trainer.ckpt.restore(args.c1,
+            trainer.train_state = trainer.ckpt.restore(c1,
                                                        trainer.train_state)
             trainer.load_weights(trainer.train_state.net)
     if args.mode == "play":

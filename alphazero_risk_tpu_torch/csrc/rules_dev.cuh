@@ -1,23 +1,24 @@
-// The Risk rules for one game, shared by K7 (rules_step.cu), K8
-// (state_views.cu), K9 (script_step.cu) and K10 (random_step.cu).
+// The Risk rules for one game held by one thread, run by K9
+// (script_step.cu) and K10 (random_step.cu); K7 (rules_step.cu) and K8
+// (state_views.cu) run one game per warp (rules_warp.cuh) and reuse the
+// helpers here that take masks and scalars.
 //
-// Each function here works on one game held by one thread: the 42-land
-// sets are uint64_t masks (bit j = land j), the armies an int[42] array,
-// the scalars plain ints.  They are the per-game form of the plain PyTorch
-// code in env/rules.py, agents/script_agent.py and agents/random_agent.py,
-// which compute every phase branch for every game and blend: here only the
-// branch of the game's phase runs.  Every output is an integer, a bool or a
-// float32 computed in the order of the plain version, so each agrees with
-// it bit for bit (the sources are built with --fmad=false).
+// The 42-land sets are uint64_t masks (bit j = land j), the armies an
+// int[42] array, the scalars plain ints.  The functions are the per-game
+// form of the plain PyTorch code in env/rules.py, agents/script_agent.py
+// and agents/random_agent.py, which compute every phase branch for every
+// game and blend: here only the branch of the game's phase runs.  Every
+// output is an integer, a bool or a float32 computed in the order of the
+// plain version, so each agrees with it bit for bit (the sources are built
+// with --fmad=false).
 //
 // The graph walks of rules.py are mask walks: `connected_to` is a BFS over
 // the owned lands, `component_labels` one BFS from each lowest unlabelled
-// owned land, and `dfs_preorder_rank` the stackless DFS of the JAX code,
-// run per game and only where the fortify tie-break needs it.
+// owned land.
 //
 // The board tables come from env/topology.py: the wrapper packs them into
 // one device buffer (rules.kernel_tables) laid out as `Tables`, and each
-// block copies it into shared memory.
+// block of K9 and K10 copies it into shared memory.
 //
 // The same text compiles as host C++ (RD_FN is then `static inline`), so
 // the per-game functions can be exercised without a card.
@@ -313,12 +314,14 @@ RD_FN int calc_reinforcement(uint64_t owned, const Tables& t) {
   return imax(popc(owned) / 3 + bonus, 3);
 }
 
-// rules.game_status: -1 running, -2 draw, else the winner.
-RD_FN int game_status(const St& s, const Cfg& c) {
-  const int p0 = popc(s.own[0]);
-  const int p1 = popc(s.own[1]);
+// rules.game_status from the two players' lands and the round: -1
+// running, -2 draw, else the winner.
+RD_FN int game_status(uint64_t own0, uint64_t own1, int round,
+                      const Cfg& c) {
+  const int p0 = popc(own0);
+  const int p1 = popc(own1);
   int st = kNotEnded;
-  if (s.round > c.max_rounds) st = p0 > p1 ? 0 : (p0 < p1 ? 1 : kDraw);
+  if (round > c.max_rounds) st = p0 > p1 ? 0 : (p0 < p1 ? 1 : kDraw);
   if (c.allow_yield) {
     if (p1 >= 30) st = 1;
     if (p0 >= 30) st = 0;
@@ -328,10 +331,15 @@ RD_FN int game_status(const St& s, const Cfg& c) {
   return st;
 }
 
-// rules.legal_actions as a 43-bit mask (bit 42 = skip).
-RD_FN uint64_t legal_actions(const St& s, const Tables& t, const Cfg& c) {
-  const Masks m = player_masks(s, t, c);
-  switch (s.phase) {
+RD_FN int game_status(const St& s, const Cfg& c) {
+  return game_status(s.own[0], s.own[1], s.round, c);
+}
+
+// rules.legal_actions as a 43-bit mask (bit 42 = skip), from the mover's
+// masks (PlayerMasks.attack is not read).
+RD_FN uint64_t legal_from(const Masks& m, int phase, int mob_from,
+                          int mob_to, const Cfg& c) {
+  switch (phase) {
     case kSetup:
     case kReinforcement: {
       const uint64_t base = m.owned & ~m.full;
@@ -349,8 +357,8 @@ RD_FN uint64_t legal_actions(const St& s, const Tables& t, const Cfg& c) {
       return m.attack_wa | kSkipBit;
     case kMobilization: {
       uint64_t r = 0;
-      if (s.mob_from >= 0 && s.mob_from < kLands) r |= bit(s.mob_from);
-      if (s.mob_to >= 0 && s.mob_to < kLands) r |= bit(s.mob_to);
+      if (mob_from >= 0 && mob_from < kLands) r |= bit(mob_from);
+      if (mob_to >= 0 && mob_to < kLands) r |= bit(mob_to);
       return r;
     }
     default:
@@ -371,52 +379,6 @@ RD_FN uint64_t connected_to(uint64_t owned, int src, const Tables& t) {
     frontier = next;
   }
   return comp;
-}
-
-// rules.dfs_preorder_rank for one game: rank[j] = DFS pre-order of land j
-// in the component of root, NUM_LANDS elsewhere.  `active` admits the
-// game; the walk stops once every land of `until` is visited.  The next
-// land is the unvisited owned neighbour first in the neighbour list; at a
-// dead end the walk goes back through the parent pointers.
-RD_FN void dfs_preorder_rank(uint64_t owned, int root, bool active,
-                             uint64_t until, const Tables& t,
-                             int8_t* rank) {
-  int8_t parent[kLands];
-  for (int j = 0; j < kLands; ++j) {
-    rank[j] = kLands;
-    parent[j] = -1;
-  }
-  const bool at_root = has(owned, root) && active;
-  uint64_t visited = has(owned, root) ? bit(root) : 0;
-  if (at_root) rank[root] = 0;
-  int cur = at_root ? root : -1;
-  if (!(until & ~visited)) cur = -1;
-  int count = at_root ? 1 : 0;
-  while (cur >= 0) {
-    uint64_t nbr = t.adj[cur] & owned & ~visited;
-    int next;
-    if (nbr) {
-      int best = kMaxDegree + 1, nxt = 0;
-      while (nbr) {
-        const int j = low(nbr);
-        nbr &= nbr - 1;
-        const int r = t.nrank[cur * kLands + j];
-        if (r < best) {
-          best = r;
-          nxt = j;
-        }
-      }
-      visited |= bit(nxt);
-      rank[nxt] = static_cast<int8_t>(count);
-      parent[nxt] = static_cast<int8_t>(cur);
-      count += 1;
-      next = nxt;
-    } else {
-      next = parent[cur];
-    }
-    if (!(until & ~visited)) next = -1;
-    cur = next;
-  }
 }
 
 // ---------------------------------------------------------------- engine
@@ -557,116 +519,6 @@ RD_FN int argmax_lands(F score) {
     }
   }
   return idx;
-}
-
-// rules.best_attack_from_army: the owned, armed neighbour of target with
-// the largest army, first in target's neighbour list on ties.
-RD_FN int best_attack_from(const St& s, int target, uint64_t owa,
-                           const Tables& t) {
-  const uint64_t cand = t.adj[target] & owa;
-  return argmax_lands([&](int j) {
-    return has(cand, j) ? (s.army[j] - 1) * 8 - t.nrank[target * kLands + j]
-                        : -1;
-  });
-}
-
-// The fortify move of rules.step: the source in the target's owned
-// component (interior before border, most armies, the reference's DFS
-// pre-order on ties), then end_turn.
-RD_FN void fortify_step(St& s, int li, bool is_skip, const Tables& t,
-                        const Cfg& c) {
-  const uint64_t owned = s.own[s.cur];
-  const bool target_full = s.army[li] >= c.army_max;
-  const uint64_t comp = connected_to(owned, li, t);
-  const uint64_t cand = comp & ~bit(li) & army_at_least(s, 2);
-  const uint64_t hen = nb_any(kAll & ~owned, t);
-  const uint64_t interior = cand & ~hen, border = cand & hen;
-  const uint64_t pick = interior ? interior : border;
-  int f_from;
-  if (c.exact_tb) {
-    int top = -1;
-    for (uint64_t m = pick; m; m &= m - 1) top = imax(top, s.army[low(m)]);
-    uint64_t tied = 0;
-    for (uint64_t m = pick; m; m &= m - 1)
-      if (s.army[low(m)] == top) tied |= bit(low(m));
-    const bool need = s.phase == kFortify && !is_skip && !target_full &&
-                      popc(tied) >= 2;
-    int8_t rank[kLands];
-    dfs_preorder_rank(owned, first_set_bit(comp), need, tied, t, rank);
-    f_from = argmax_lands([&](int j) {
-      return has(pick, j) ? s.army[j] * 64 + (kLands - rank[j]) : -1;
-    });
-  } else {
-    f_from = argmax_lands([&](int j) { return has(pick, j) ? s.army[j] : -1; });
-  }
-  const bool can_move = pick && !target_full && !is_skip;
-  const int famount =
-      can_move ? imin(s.army[f_from] - 1, c.army_max - s.army[li]) : 0;
-  s.army[f_from] -= famount;
-  s.army[li] += famount;
-  end_turn(s, t);
-}
-
-// rules.step (dice [5]) or, with use_outcome, rules.step_with_outcome.
-// Terminal games are left unchanged.
-RD_FN void step(St& s, int action, const int* dice, int outcome,
-                bool use_outcome, const Tables& t, const Cfg& c) {
-  if (game_status(s, c) != kNotEnded) return;
-  const int li = clamp_land(action);
-  const bool is_skip = action == kSkip;
-  switch (s.phase) {
-    case kSetup:
-      s.reinf -= 2;
-      s.army[li] += 2;
-      s.phase = kSetupNeutral;
-      break;
-    case kSetupNeutral:
-      s.army[li] += 1;
-      s.round += 1;
-      s.cur = 1 - s.cur;
-      if (s.reinf == 0) {
-        s.phase = kReinforcement;
-        s.reinf = calc_reinforcement(s.own[s.cur], t);
-      } else {
-        s.phase = kSetup;
-      }
-      break;
-    case kReinforcement:
-      if (is_skip) {
-        goto_attack(s, t);
-      } else {
-        play_cards(s, t);
-        const int amount =
-            imin(move_amount(s.reinf, c), c.army_max - s.army[li]);
-        apply_reinforcement(s, li, amount, t);
-      }
-      break;
-    case kAttack:
-      if (is_skip) {
-        s.phase = kFortify;
-      } else {
-        const int frm = best_attack_from(
-            s, li, s.own[s.cur] & army_at_least(s, 2), t);
-        int a1, d1, units;
-        if (use_outcome)
-          battle_with_outcome(s.army[frm], s.army[li], outcome, a1, d1, units);
-        else
-          battle(s.army[frm], s.army[li], dice, a1, d1, units);
-        apply_battle(s, frm, li, a1, d1, units, t);
-      }
-      break;
-    case kMobilization:
-      if (action == s.mob_from) {
-        goto_attack(s, t);
-      } else {
-        const int mf = clamp_land(s.mob_from);
-        apply_mobilization(s, move_amount(s.army[mf] - 1, c), t);
-      }
-      break;
-    default:
-      fortify_step(s, li, is_skip, t, c);
-      break;
-  }
 }
 
 // The SETUP_NEUTRAL move of both agents: +1 on land li, next setup turn.
@@ -947,49 +799,6 @@ RD_FN void random_step(St& s, const float* u, const int* dice, int& action,
   }
   record = live;
   if (live) s = o;
-}
-
-// ---------------------------------------------------------------- views
-
-// featurize for one game into out[42 * F] (cell-major, planes in the JAX
-// order): 3 army planes, then the broadcast scalars (round share for V3,
-// army share for V2+, reinforcement share, attack frequency, can-draw),
-// then the phase one-hot.
-RD_FN void features(const St& s, int version, const Cfg& c, const Tables& t,
-                    float* out) {
-  const uint64_t own = s.own[s.cur], enemy = s.own[1 - s.cur];
-  const float ref = static_cast<float>(calc_reinforcement(own, t));
-  const float eref = static_cast<float>(calc_reinforcement(enemy, t));
-  int ta = 0, eta = 0;
-  for (int j = 0; j < kLands; ++j) {
-    if (has(own, j)) ta += s.army[j];
-    if (has(enemy, j)) eta += s.army[j];
-  }
-  float sc[5];
-  int ns = 0;
-  if (version == 3)
-    sc[ns++] = fdiv(static_cast<float>(s.round),
-                    static_cast<float>(c.max_rounds));
-  if (version >= 2) {
-    const float fa = static_cast<float>(ta), fe = static_cast<float>(eta);
-    sc[ns++] = fdiv(fa, fa + fe);
-  }
-  sc[ns++] = fdiv(ref, ref + eref);
-  const float af = fdiv(static_cast<float>(s.attacks), 8.0f);
-  sc[ns++] = af > 1.0f ? 1.0f : af;
-  sc[ns++] = s.can_draw ? 1.0f : 0.0f;
-  const int F = 3 + ns + 6;
-  const float army_max = static_cast<float>(c.army_max);
-  for (int j = 0; j < kLands; ++j) {
-    float* o = out + j * F;
-    const float a = fdiv(static_cast<float>(s.army[j]), army_max);
-    const bool mine = has(own, j), theirs = has(enemy, j);
-    o[0] = mine ? a : 0.0f;
-    o[1] = theirs ? a : 0.0f;
-    o[2] = (!mine && !theirs) ? a : 0.0f;
-    for (int k = 0; k < ns; ++k) o[3 + k] = sc[k];
-    for (int k = 0; k < 6; ++k) o[3 + ns + k] = s.phase == k ? 1.0f : 0.0f;
-  }
 }
 
 }  // namespace rd

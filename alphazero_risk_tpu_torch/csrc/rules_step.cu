@@ -1,4 +1,4 @@
-// K7: the rules transition, one thread per game.
+// K7: the rules transition, one warp per game.
 //
 // Replaces: alphazero_risk_tpu/env/rules.py `step` (the phase machine over
 // the 43-way action with dice) and `step_with_outcome` (the same with a
@@ -7,15 +7,28 @@
 // node out of the search tree and `game_status` / `legal_actions` of the
 // child (mcts/search.py, the expansion of `simulate_once`).
 //
-// Bound on an H100: latency.  A game reads and writes about 1 KB of state
-// (two [42] int32 rows and a few scalars) and does a few thousand integer
-// operations, most of them serial inside the game (the BFS and the DFS of
-// the fortify move).  The plain PyTorch version computes every phase
-// branch for every game in some three hundred small launches, and its DFS
-// asks the host whether to go on every four moves.  Here one thread runs
-// the game's own branch to its end in registers and local memory, from one
-// launch; the board tables sit in shared memory; blocks are one warp, so
-// a batch of a few hundred games spreads over as many SMs as it can.
+// Bound on an H100: latency.  A game reads and writes about 380 bytes
+// (two [42] int32 rows and a few scalars): 16 ns at B = 64 at 3.35 TB/s.
+// What takes the time is the dependent chain of one game, so the design
+// shortens it and spreads the game over a warp (rules_warp.cuh):
+//
+//   - one warp per game, four games per block; lane k holds lands k and
+//     k + 32.  The action, the five dice, the battle outcome, the 12 state
+//     fields, the card masks of expand and the lane's adjacency rows are
+//     all loaded at once, coalesced: one round trip (two in expand, whose
+//     tree row depends on the node index);
+//   - land masks are ballots, neighbors_any an OR-reduction, the army of a
+//     land known at run time a shuffle from its owner lane, an argmax two
+//     reductions; the phase machine's scalars are warp-uniform;
+//   - the fortify tie-break DFS stays serial (it is a walk), but stops at
+//     the first tied land it visits (the source the ranks would pick),
+//     with the parent pointers in the owner lanes' registers and the next
+//     land picked by one reduction;
+//   - no table copy into shared memory: each lane reads the rows it needs
+//     (L1/L2-resident after the first warps); NEIGHBOR_RANK's row of the
+//     action's land is read up front, with the state;
+//   - the card masks (84 + 42 bytes) and the 43 legal bytes of expand are
+//     written by the lanes, coalesced; the scalars by lane 0.
 //
 // Outputs go to fresh tensors (no in-place update): the caller keeps the
 // input state (the actor records it).
@@ -24,46 +37,74 @@
 #include <cuda_runtime.h>
 
 #include "rules_dev.cuh"
+#include "rules_warp.cuh"
 
 namespace {
 
-__global__ void rules_step_kernel(rd::StateRef in, const int* __restrict__ node,
-                                  int N, const int* __restrict__ action,
-                                  const int* __restrict__ dice,
-                                  const int* __restrict__ outcome,
-                                  rd::StateRef out,
-                                  const uint8_t* __restrict__ pc_in,
-                                  const uint8_t* __restrict__ dc_in,
-                                  uint8_t* __restrict__ pc_out,
-                                  uint8_t* __restrict__ dc_out,
-                                  int* __restrict__ status,
-                                  uint8_t* __restrict__ legal,
-                                  const rd::Tables* __restrict__ tables,
-                                  int B, rd::Cfg cfg) {
-  __shared__ rd::Tables t;
-  rd::load_tables(t, tables);
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+constexpr int kWarps = 4;             // games per block
+constexpr int kPc = 2 * rd::kLands;   // player_cards bytes per game
+
+__global__ void __launch_bounds__(kWarps * 32) rules_step_kernel(
+    rd::StateRef in, const int* __restrict__ node, int N,
+    const int* __restrict__ action, const int* __restrict__ dice,
+    const int* __restrict__ outcome, rd::StateRef out,
+    const uint8_t* __restrict__ pc_in, const uint8_t* __restrict__ dc_in,
+    uint8_t* __restrict__ pc_out, uint8_t* __restrict__ dc_out,
+    int* __restrict__ status, uint8_t* __restrict__ legal,
+    const rd::Tables* __restrict__ tables, int B, rd::Cfg cfg) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (b >= B) return;
 
+  // ---- every load, at once ----
   int n = 0;
-  if (node != nullptr) n = node[b] < 0 ? 0 : node[b];
+  if (node != nullptr) n = rd::imax(node[b], 0);
   const int64_t row = static_cast<int64_t>(b) * N + n;
-  rd::St s;
-  rd::load(s, in, row);
-  rd::step(s, action[b], dice != nullptr ? dice + 5 * b : nullptr,
-           outcome != nullptr ? outcome[b] : 0, outcome != nullptr, t, cfg);
-  rd::store(s, out, b);
-  if (pc_out != nullptr)
-    for (int k = 0; k < 2 * rd::kLands; ++k)
-      pc_out[b * 2 * rd::kLands + k] = pc_in[row * 2 * rd::kLands + k];
-  if (dc_out != nullptr)
-    for (int k = 0; k < rd::kLands; ++k)
-      dc_out[b * rd::kLands + k] = dc_in[row * rd::kLands + k];
-  if (status != nullptr) status[b] = rd::game_status(s, cfg);
+  const int act = action[b];
+  const int die = (dice != nullptr && lane < 5) ? dice[5 * b + lane] : 0;
+  const int oc = outcome != nullptr ? outcome[b] : 0;
+  const rw::Board d = rw::load_board(tables, lane);
+  const int8_t* nr = tables->nrank + rd::clamp_land(act) * rd::kLands;
+  const int nr0 = nr[lane];
+  const int nr1 = rw::two(lane) ? nr[lane + 32] : 0;
+  rw::WSt s;
+  rw::load(s, in, row, lane);
+  uint8_t pc[3] = {0, 0, 0}, dc[2] = {0, 0};
+  if (pc_out != nullptr) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      if (lane + 32 * k < kPc) pc[k] = pc_in[row * kPc + lane + 32 * k];
+  }
+  if (dc_out != nullptr) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      if (lane + 32 * k < rd::kLands)
+        dc[k] = dc_in[row * rd::kLands + lane + 32 * k];
+  }
+
+  rw::step(s, act, die, oc, outcome != nullptr, nr0, nr1, tables, d, cfg,
+           lane);
+  rw::store(s, out, b, lane);
+
+  if (pc_out != nullptr) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      if (lane + 32 * k < kPc)
+        pc_out[static_cast<int64_t>(b) * kPc + lane + 32 * k] = pc[k];
+  }
+  if (dc_out != nullptr) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      if (lane + 32 * k < rd::kLands)
+        dc_out[static_cast<int64_t>(b) * rd::kLands + lane + 32 * k] = dc[k];
+  }
+  if (status != nullptr && lane == 0) status[b] = rw::game_status(s, cfg);
   if (legal != nullptr) {
-    const uint64_t m = rd::legal_actions(s, t, cfg);
-    for (int k = 0; k < rd::kActions; ++k)
-      legal[b * rd::kActions + k] = rd::has(m, k);
+    const uint64_t m = rd::legal_from(rw::player_masks(s, d, cfg, lane),
+                                      s.phase, s.mob_from, s.mob_to, cfg);
+    uint8_t* o = legal + static_cast<int64_t>(b) * rd::kActions;
+    o[lane] = rd::has(m, lane);
+    if (lane + 32 < rd::kActions) o[lane + 32] = rd::has(m, lane + 32);
   }
 }
 
@@ -91,7 +132,6 @@ extern "C" int az_rules_step(
     void* out_attacks, void* pc_out, void* dc_out, void* status,
     void* legal, const void* tables, int B,
     int army_max, int min_move, int max_rounds, int flags, void* stream) {
-  const int threads = 32;
   const rd::StateRef in = rd::state_ref(
       in_owner, in_army, in_phase, in_round, in_cur, in_reinf, in_cards,
       in_sets, in_mob_from, in_mob_to, in_can_draw, in_attacks);
@@ -99,7 +139,7 @@ extern "C" int az_rules_step(
       out_owner, out_army, out_phase, out_round, out_cur, out_reinf,
       out_cards, out_sets, out_mob_from, out_mob_to, out_can_draw,
       out_attacks);
-  rules_step_kernel<<<(B + threads - 1) / threads, threads, 0,
+  rules_step_kernel<<<(B + kWarps - 1) / kWarps, kWarps * 32, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       in, static_cast<const int*>(node), N, static_cast<const int*>(action),
       static_cast<const int*>(dice), static_cast<const int*>(outcome), out,

@@ -1,0 +1,490 @@
+// The Risk rules for one game held by one warp, shared by K7
+// (rules_step.cu) and K8 (state_views.cu).
+//
+// Lane k owns lands k and k + 32 (the second only for k < 10): it holds
+// their armies in registers and reads their adjacency rows; lanes 0-5 also
+// hold one continent each.  Land sets are warp-uniform uint64_t masks
+// (bit j = land j): a predicate on the lanes' lands becomes a mask by two
+// __ballot_sync, and rules.neighbors_any is the OR of the adjacency rows of
+// the set lands, reduced over the lanes by __reduce_or_sync on the two
+// 32-bit halves.  So player_masks costs one reduction per mask, and a BFS
+// step of connected_to one reduction, not a walk over the set bits.  The
+// army of a land known only at run time comes from its owner lane by
+// __shfl_sync; a first argmax over the lands is two reductions (the largest
+// key, then the lowest land holding it), which keeps jnp.argmax's
+// first-index rule.
+//
+// Every function here is called by all 32 lanes of the warp with the same
+// (warp-uniform) arguments; the scalars of the game and the phase machine's
+// branches are warp-uniform, so no lane diverges on the game's phase.  The
+// per-game logic is that of the plain PyTorch version (env/rules.py), each
+// side effect in its order, so every output agrees with it bit for bit.
+//
+// The board adjacency is symmetric (rules.kernel_tables checks it): land j
+// neighbours land i iff bit i of j's own row is set, so a lane tests its
+// lands against a land known at run time with the rows it already holds.
+
+#pragma once
+
+#include <climits>
+#include <cstdint>
+
+#include "rules_dev.cuh"
+
+namespace rw {
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kNoLand = INT_MIN;      // argmax key of a land past the 42nd
+
+// Whether the lane owns a second land (lane + 32 < 42).
+__device__ __forceinline__ bool two(int lane) {
+  return lane + 32 < rd::kLands;
+}
+
+// A 42-land mask from the lanes' predicates on land lane (p0) and land
+// lane + 32 (p1, false where there is none).
+__device__ __forceinline__ uint64_t ballot(bool p0, bool p1) {
+  return static_cast<uint64_t>(__ballot_sync(kFull, p0)) |
+         (static_cast<uint64_t>(__ballot_sync(kFull, p1)) << 32);
+}
+
+__device__ __forceinline__ uint64_t reduce_or(uint64_t r) {
+  return static_cast<uint64_t>(
+             __reduce_or_sync(kFull, static_cast<unsigned>(r))) |
+         (static_cast<uint64_t>(
+              __reduce_or_sync(kFull, static_cast<unsigned>(r >> 32)))
+          << 32);
+}
+
+// What a lane holds of the board tables.
+struct Board {
+  uint64_t adj0, adj1;   // adjacency rows of lands lane, lane + 32 (or 0)
+  uint64_t cont;         // continent `lane`'s mask (lanes 0-5, else 0)
+  int csize, cbonus;     // its size and bonus (else 0)
+};
+
+__device__ __forceinline__ Board load_board(const rd::Tables* __restrict__ t,
+                                            int lane) {
+  Board d;
+  d.adj0 = t->adj[lane];
+  d.adj1 = two(lane) ? t->adj[lane + 32] : 0;
+  const bool cl = lane < rd::kConts;
+  d.cont = cl ? t->cont[lane] : 0;
+  d.csize = cl ? t->cont_size[lane] : 0;
+  d.cbonus = cl ? t->cont_bonus[lane] : 0;
+  return d;
+}
+
+// rules.neighbors_any: lands adjacent to any land of x.
+__device__ __forceinline__ uint64_t nb_any(uint64_t x, const Board& d,
+                                           int lane) {
+  return reduce_or((rd::has(x, lane) ? d.adj0 : 0) |
+                   (rd::has(x, lane + 32) ? d.adj1 : 0));
+}
+
+// rules.calc_reinforcement.
+__device__ __forceinline__ int reinforcement(uint64_t owned, const Board& d) {
+  const int b = __reduce_add_sync(
+      kFull, rd::popc(owned & d.cont) == d.csize ? d.cbonus : 0);
+  return rd::imax(rd::popc(owned) / 3 + b, 3);
+}
+
+// The first land of the largest key (jnp.argmax over the 42 lands): k0 is
+// the key of land lane, k1 that of land lane + 32 (kNoLand where there is
+// none).
+__device__ __forceinline__ int argmax_lands(int k0, int k1, int lane) {
+  const bool hi = k1 > k0;
+  const int key = hi ? k1 : k0;
+  const int top = __reduce_max_sync(kFull, key);
+  return static_cast<int>(__reduce_min_sync(
+      kFull, key == top ? static_cast<unsigned>(hi ? lane + 32 : lane)
+                        : 64u));
+}
+
+// One game: the lane's two armies, the rest warp-uniform.
+struct WSt {
+  int ar0, ar1;          // armies of lands lane and lane + 32 (0 if none)
+  uint64_t own[3];       // owner == 0, 1, 2
+  int phase, round, cur, reinf, cards[2], sets, mob_from, mob_to, attacks;
+  bool can_draw;
+};
+
+// own[p] with p known at run time, without indexing a register array
+// (which would put it in local memory; cards[cur] is selected the same
+// way where it is used).
+__device__ __forceinline__ uint64_t own_of(const WSt& s, int p) {
+  return p == 0 ? s.own[0] : (p == 1 ? s.own[1] : s.own[2]);
+}
+
+__device__ __forceinline__ int army(const WSt& s, int li) {
+  return __shfl_sync(kFull, li < 32 ? s.ar0 : s.ar1, li & 31);
+}
+
+__device__ __forceinline__ void set_army(WSt& s, int li, int v, int lane) {
+  if (lane == (li & 31)) {
+    if (li < 32) s.ar0 = v;
+    else s.ar1 = v;
+  }
+}
+
+__device__ __forceinline__ void add_army(WSt& s, int li, int v, int lane) {
+  if (lane == (li & 31)) {
+    if (li < 32) s.ar0 += v;
+    else s.ar1 += v;
+  }
+}
+
+// Lands whose army is at least `thr`.
+__device__ __forceinline__ uint64_t at_least(const WSt& s, int thr,
+                                             int lane) {
+  return ballot(s.ar0 >= thr, two(lane) && s.ar1 >= thr);
+}
+
+__device__ __forceinline__ void set_owner(WSt& s, int li, int p) {
+  const uint64_t m = ~rd::bit(li);
+  s.own[0] &= m;
+  s.own[1] &= m;
+  s.own[2] &= m;
+  if (p == 0) s.own[0] |= rd::bit(li);
+  else if (p == 1) s.own[1] |= rd::bit(li);
+  else s.own[2] |= rd::bit(li);
+}
+
+// Reads row `row` of the 12 fields (all non-null): one round trip.
+__device__ __forceinline__ void load(WSt& s, const rd::StateRef& r,
+                                     int64_t row, int lane) {
+  const int* ow = r.owner + row * rd::kLands;
+  const int* ar = r.army + row * rd::kLands;
+  const bool t2 = two(lane);
+  const int o0 = ow[lane];
+  const int o1 = t2 ? ow[lane + 32] : -1;
+  s.ar0 = ar[lane];
+  s.ar1 = t2 ? ar[lane + 32] : 0;
+  s.phase = r.phase[row];
+  s.round = r.round[row];
+  s.cur = r.cur[row];
+  s.reinf = r.reinf[row];
+  s.cards[0] = r.cards[row * 2];
+  s.cards[1] = r.cards[row * 2 + 1];
+  s.sets = r.sets[row];
+  s.mob_from = r.mob_from[row];
+  s.mob_to = r.mob_to[row];
+  s.can_draw = r.can_draw[row] != 0;
+  s.attacks = r.attacks[row];
+  s.own[0] = ballot(o0 == 0, o1 == 0);
+  s.own[1] = ballot(o0 == 1, o1 == 1);
+  s.own[2] = ballot(o0 == 2, o1 == 2);
+}
+
+__device__ __forceinline__ void store(const WSt& s, const rd::StateRef& r,
+                                      int64_t row, int lane) {
+  int* ow = r.owner + row * rd::kLands;
+  int* ar = r.army + row * rd::kLands;
+  auto owner = [&](int j) {
+    return rd::has(s.own[1], j) ? 1 : (rd::has(s.own[2], j) ? 2 : 0);
+  };
+  ow[lane] = owner(lane);
+  ar[lane] = s.ar0;
+  if (two(lane)) {
+    ow[lane + 32] = owner(lane + 32);
+    ar[lane + 32] = s.ar1;
+  }
+  if (lane == 0) {
+    r.phase[row] = s.phase;
+    r.round[row] = s.round;
+    r.cur[row] = s.cur;
+    r.reinf[row] = s.reinf;
+    r.cards[row * 2] = s.cards[0];
+    r.cards[row * 2 + 1] = s.cards[1];
+    r.sets[row] = s.sets;
+    r.mob_from[row] = s.mob_from;
+    r.mob_to[row] = s.mob_to;
+    r.can_draw[row] = s.can_draw ? 1 : 0;
+    r.attacks[row] = s.attacks;
+  }
+}
+
+__device__ __forceinline__ int game_status(const WSt& s, const rd::Cfg& c) {
+  return rd::game_status(s.own[0], s.own[1], s.round, c);
+}
+
+// rules.PlayerMasks but `attack`, which no warp caller reads.
+__device__ __forceinline__ rd::Masks player_masks(const WSt& s,
+                                                  const Board& d,
+                                                  const rd::Cfg& c,
+                                                  int lane) {
+  rd::Masks m;
+  m.owned = own_of(s, s.cur);
+  m.enemy = own_of(s, 1 - s.cur);
+  m.neutral = s.own[rd::kNeutral];
+  m.owa = m.owned & at_least(s, 2, lane);
+  m.full = m.owned & at_least(s, c.army_max, lane);
+  m.attack = 0;
+  m.attack_wa = ~m.owned & nb_any(m.owa, d, lane);
+  m.enemy_attack = ~m.enemy & nb_any(m.enemy, d, lane);
+  m.neutral_attack = nb_any(m.neutral, d, lane) & ~m.neutral;
+  return m;
+}
+
+// attack_lands_with_army alone.
+__device__ __forceinline__ uint64_t attack_wa(const WSt& s, const Board& d,
+                                              int lane) {
+  const uint64_t owned = own_of(s, s.cur);
+  return ~owned & nb_any(owned & at_least(s, 2, lane), d, lane);
+}
+
+// rules.connected_to: a BFS whose frontier step is one OR-reduction.
+__device__ __forceinline__ uint64_t connected_to(uint64_t owned, int src,
+                                                 const Board& d, int lane) {
+  if (!rd::has(owned, src)) return 0;
+  uint64_t comp = rd::bit(src), frontier = comp;
+  while (frontier) {
+    const uint64_t next = nb_any(frontier, d, lane) & owned & ~comp;
+    comp |= next;
+    frontier = next;
+  }
+  return comp;
+}
+
+// The fortify tie-break of rules.step: the land of `tied` that comes first
+// in rules.dfs_preorder_rank's pre-order of the owned component from
+// `root` (root owned, tied in its component).  The source argmax keys a
+// land by army * 64 + (42 - rank), and the tied lands share the top army,
+// so the source is the tied land of least rank: the walk stops at the
+// first one it visits instead of ranking every land until all of them are
+// visited.  The next land, the unvisited owned neighbour first in the
+// current land's neighbour list, is one __reduce_min_sync over
+// (NEIGHBOR_RANK, land) keys; the parent pointers sit in the owner lanes'
+// registers, and a step back reads one by a shuffle.
+__device__ __forceinline__ int dfs_first_tied(
+    uint64_t owned, int root, uint64_t tied, const Board& d,
+    const int8_t* __restrict__ nrank, int lane) {
+  if (rd::has(tied, root)) return root;
+  int par0 = -1, par1 = -1;
+  uint64_t visited = rd::bit(root);
+  int cur = root;
+  const bool t2 = two(lane);
+  while (cur >= 0) {
+    const uint64_t open = owned & ~visited;
+    const int8_t* nr = nrank + cur * rd::kLands;
+    const int c0 = rd::has(open, lane) && rd::has(d.adj0, cur)
+                       ? nr[lane] * 64 + lane
+                       : INT_MAX;
+    const int c1 = t2 && rd::has(open, lane + 32) && rd::has(d.adj1, cur)
+                       ? nr[lane + 32] * 64 + lane + 32
+                       : INT_MAX;
+    const int best = __reduce_min_sync(kFull, rd::imin(c0, c1));
+    if (best != INT_MAX) {
+      const int nxt = best & 63;
+      if (rd::has(tied, nxt)) return nxt;
+      visited |= rd::bit(nxt);
+      if (lane == (nxt & 31)) {
+        if (nxt < 32) par0 = cur;
+        else par1 = cur;
+      }
+      cur = nxt;
+    } else {
+      cur = __shfl_sync(kFull, cur < 32 ? par0 : par1, cur & 31);
+    }
+  }
+  return -1;  // not reached: the component holds the tied lands
+}
+
+// ---------------------------------------------------------------- engine
+
+__device__ __forceinline__ void goto_attack(WSt& s, const Board& d,
+                                            int lane) {
+  s.reinf = 0;
+  s.mob_from = -1;
+  s.mob_to = -1;
+  s.phase = attack_wa(s, d, lane) ? rd::kAttack : rd::kFortify;
+}
+
+__device__ __forceinline__ void end_turn(WSt& s, const Board& d) {
+  const int drawn = s.can_draw ? 1 : 0;
+  if (s.cur == 0) s.cards[0] += drawn;
+  else s.cards[1] += drawn;
+  const int nxt = 1 - s.cur;
+  s.can_draw = false;
+  s.round += 1;
+  s.cur = nxt;
+  s.attacks = 0;
+  s.phase = rd::kReinforcement;
+  s.reinf = reinforcement(own_of(s, nxt), d);
+}
+
+__device__ __forceinline__ void play_cards(WSt& s,
+                                           const rd::Tables* __restrict__ t) {
+  const int have = s.cur == 0 ? s.cards[0] : s.cards[1];
+  if (have >= 3) {
+    if (s.cur == 0) s.cards[0] -= 3;
+    else s.cards[1] -= 3;
+    s.sets += 1;
+    s.reinf += t->card_gain[s.sets < 0 ? 0 : (s.sets > 63 ? 63 : s.sets)];
+  }
+}
+
+__device__ __forceinline__ void apply_reinforcement(WSt& s, int li,
+                                                    int amount,
+                                                    const Board& d,
+                                                    int lane) {
+  s.reinf -= amount;
+  add_army(s, li, amount, lane);
+  if (s.reinf == 0) goto_attack(s, d, lane);
+}
+
+__device__ __forceinline__ void apply_battle(WSt& s, int frm, int li, int a1,
+                                             int d1, int units,
+                                             const Board& d, int lane) {
+  const bool conquest = d1 == 0;
+  const int a2 = conquest ? a1 - units : a1;
+  const bool mob = conquest && a2 > 1;
+  set_army(s, frm, a2, lane);
+  set_army(s, li, conquest ? units : d1, lane);
+  if (conquest) set_owner(s, li, s.cur);
+  s.attacks += 1;
+  s.can_draw = s.can_draw || conquest;
+  if (mob) {
+    s.phase = rd::kMobilization;
+    s.mob_from = frm;
+    s.mob_to = li;
+  }
+  if (s.phase == rd::kAttack && !attack_wa(s, d, lane)) s.phase = rd::kFortify;
+}
+
+__device__ __forceinline__ void apply_mobilization(WSt& s, int amount,
+                                                   const Board& d,
+                                                   int lane) {
+  const int mf = rd::clamp_land(s.mob_from), mt = rd::clamp_land(s.mob_to);
+  add_army(s, mf, -amount, lane);
+  add_army(s, mt, amount, lane);
+  if (army(s, mf) == 1) goto_attack(s, d, lane);
+}
+
+// rules.best_attack_from_army: the owned, armed neighbour of target with
+// the largest army, first in target's neighbour list on ties.  nr0/nr1:
+// NEIGHBOR_RANK[target] of the lane's lands.
+__device__ __forceinline__ int best_attack_from(const WSt& s, int target,
+                                                uint64_t owa, int nr0,
+                                                int nr1, const Board& d,
+                                                int lane) {
+  const int k0 = rd::has(owa, lane) && rd::has(d.adj0, target)
+                     ? (s.ar0 - 1) * 8 - nr0
+                     : -1;
+  const int k1 = !two(lane) ? kNoLand
+                 : (rd::has(owa, lane + 32) && rd::has(d.adj1, target)
+                        ? (s.ar1 - 1) * 8 - nr1
+                        : -1);
+  return argmax_lands(k0, k1, lane);
+}
+
+// The fortify move of rules.step (rd::fortify_step).
+__device__ __forceinline__ void fortify_step(WSt& s, int li, bool is_skip,
+                                             const int8_t* __restrict__ nrank,
+                                             const Board& d,
+                                             const rd::Cfg& c, int lane) {
+  const uint64_t owned = own_of(s, s.cur);
+  const int a_li = army(s, li);
+  const bool target_full = a_li >= c.army_max;
+  const uint64_t comp = connected_to(owned, li, d, lane);
+  const uint64_t cand = comp & ~rd::bit(li) & at_least(s, 2, lane);
+  const uint64_t hen = nb_any(rd::kAll & ~owned, d, lane);
+  const uint64_t interior = cand & ~hen, border = cand & hen;
+  const uint64_t pick = interior ? interior : border;
+  const bool p0 = rd::has(pick, lane), p1 = rd::has(pick, lane + 32);
+  // the first land of the most armies (unranked lands all rank 42 in the
+  // plain version's key army * 64 + (42 - rank), so this is its argmax
+  // wherever no DFS runs)
+  int f_from = argmax_lands(p0 ? s.ar0 : -1,
+                            !two(lane) ? kNoLand : (p1 ? s.ar1 : -1), lane);
+  if (c.exact_tb) {
+    const int top = army(s, f_from);
+    const uint64_t tied = ballot(p0 && s.ar0 == top, p1 && s.ar1 == top);
+    if (s.phase == rd::kFortify && !is_skip && !target_full &&
+        rd::popc(tied) >= 2)
+      f_from = dfs_first_tied(owned, rd::first_set_bit(comp), tied, d,
+                              nrank, lane);
+  }
+  const bool can_move = pick && !target_full && !is_skip;
+  const int famount =
+      can_move ? rd::imin(army(s, f_from) - 1, c.army_max - a_li) : 0;
+  add_army(s, f_from, -famount, lane);
+  add_army(s, li, famount, lane);
+  end_turn(s, d);
+}
+
+// rules.step (the five dice held by lanes 0-4 in `die`) or, with
+// use_outcome, rules.step_with_outcome.  nr0/nr1: NEIGHBOR_RANK[clamp_land
+// (action)] of the lane's lands (read only in the attack phase).  Terminal
+// games are left unchanged.
+__device__ __forceinline__ void step(WSt& s, int action, int die,
+                                     int outcome, bool use_outcome, int nr0,
+                                     int nr1,
+                                     const rd::Tables* __restrict__ t,
+                                     const Board& d, const rd::Cfg& c,
+                                     int lane) {
+  if (game_status(s, c) != rd::kNotEnded) return;
+  const int li = rd::clamp_land(action);
+  const bool is_skip = action == rd::kSkip;
+  switch (s.phase) {
+    case rd::kSetup:
+      s.reinf -= 2;
+      add_army(s, li, 2, lane);
+      s.phase = rd::kSetupNeutral;
+      break;
+    case rd::kSetupNeutral:
+      add_army(s, li, 1, lane);
+      s.round += 1;
+      s.cur = 1 - s.cur;
+      if (s.reinf == 0) {
+        s.phase = rd::kReinforcement;
+        s.reinf = reinforcement(own_of(s, s.cur), d);
+      } else {
+        s.phase = rd::kSetup;
+      }
+      break;
+    case rd::kReinforcement:
+      if (is_skip) {
+        goto_attack(s, d, lane);
+      } else {
+        play_cards(s, t);
+        const int amount =
+            rd::imin(rd::move_amount(s.reinf, c), c.army_max - army(s, li));
+        apply_reinforcement(s, li, amount, d, lane);
+      }
+      break;
+    case rd::kAttack:
+      if (is_skip) {
+        s.phase = rd::kFortify;
+      } else {
+        const int frm = best_attack_from(
+            s, li, own_of(s, s.cur) & at_least(s, 2, lane), nr0, nr1, d,
+            lane);
+        const int af = army(s, frm), at = army(s, li);
+        int a1, d1, units;
+        if (use_outcome) {
+          rd::battle_with_outcome(af, at, outcome, a1, d1, units);
+        } else {
+          int dice[5];
+#pragma unroll
+          for (int k = 0; k < 5; ++k) dice[k] = __shfl_sync(kFull, die, k);
+          rd::battle(af, at, dice, a1, d1, units);
+        }
+        apply_battle(s, frm, li, a1, d1, units, d, lane);
+      }
+      break;
+    case rd::kMobilization:
+      if (action == s.mob_from) {
+        goto_attack(s, d, lane);
+      } else {
+        const int mf = rd::clamp_land(s.mob_from);
+        apply_mobilization(s, rd::move_amount(army(s, mf) - 1, c), d, lane);
+      }
+      break;
+    default:
+      fortify_step(s, li, is_skip, t->nrank, d, c, lane);
+      break;
+  }
+}
+
+}  // namespace rw

@@ -31,80 +31,20 @@
 // land_army_max, the two shares and the attack frequency, IEEE-rounded
 // divisions as in PyTorch (__fdiv_rn) of the same operands as the plain
 // version, so the features agree bit for bit, a 0 / 0 share (NaN)
-// included.  The per-game functions of rules_dev.cuh (K7, K9, K10) are
-// used as they are; the warp forms live here.
+// included.  The warp helpers (ballots, neighbors_any, the
+// reinforcement) are rules_warp.cuh's, shared with K7; legality and status
+// are rules_dev.cuh's `legal_from` and `game_status` on the masks.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "rules_dev.cuh"
+#include "rules_warp.cuh"
 
 namespace {
 
 constexpr int kWarps = 4;             // games per block
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxF = 14;
-
-// A 42-land mask from the lanes' predicates on land lane (p0) and land
-// lane + 32 (p1, false where there is none).
-__device__ __forceinline__ uint64_t ballot(bool p0, bool p1) {
-  return static_cast<uint64_t>(__ballot_sync(kFull, p0)) |
-         (static_cast<uint64_t>(__ballot_sync(kFull, p1)) << 32);
-}
-
-// rules.neighbors_any: the OR of the adjacency rows adj0 (land lane) and
-// adj1 (land lane + 32, zero where there is none) of the lands set in x.
-__device__ __forceinline__ uint64_t nb_any(uint64_t x, int lane,
-                                           uint64_t adj0, uint64_t adj1) {
-  const uint64_t r = (rd::has(x, lane) ? adj0 : 0) |
-                     (rd::has(x, lane + 32) ? adj1 : 0);
-  return static_cast<uint64_t>(
-             __reduce_or_sync(kFull, static_cast<unsigned>(r))) |
-         (static_cast<uint64_t>(
-              __reduce_or_sync(kFull, static_cast<unsigned>(r >> 32)))
-          << 32);
-}
-
-// rules.calc_reinforcement; lanes 0-5 hold continent `lane`'s mask, size
-// and bonus (zero bonus elsewhere).
-__device__ __forceinline__ int reinforcement(uint64_t owned, uint64_t cont,
-                                             int size, int bonus) {
-  const int b = __reduce_add_sync(
-      kFull, rd::popc(owned & cont) == size ? bonus : 0);
-  return rd::imax(rd::popc(owned) / 3 + b, 3);
-}
-
-// rd::legal_actions from the player's masks.
-__device__ __forceinline__ uint64_t legal_from(const rd::Masks& m, int phase,
-                                               int mob_from, int mob_to,
-                                               const rd::Cfg& c) {
-  switch (phase) {
-    case rd::kSetup:
-    case rd::kReinforcement: {
-      const uint64_t base = m.owned & ~m.full;
-      uint64_t lands = base;
-      if (c.limit_reinf) {
-        const uint64_t border = base & (m.enemy_attack | m.neutral_attack);
-        lands = border ? border : base;
-      }
-      return base ? lands : rd::kSkipBit;
-    }
-    case rd::kSetupNeutral:
-      return m.neutral;
-    case rd::kAttack:
-      if (c.limit_attack) return m.attack_wa ? m.attack_wa : rd::kSkipBit;
-      return m.attack_wa | rd::kSkipBit;
-    case rd::kMobilization: {
-      uint64_t r = 0;
-      if (mob_from >= 0 && mob_from < rd::kLands) r |= rd::bit(mob_from);
-      if (mob_to >= 0 && mob_to < rd::kLands) r |= rd::bit(mob_to);
-      return r;
-    }
-    default:
-      return (c.limit_reinf ? m.owned & m.enemy_attack : m.owned) |
-             rd::kSkipBit;
-  }
-}
 
 template <int V>
 __global__ void __launch_bounds__(kWarps * 32) state_views_kernel(
@@ -128,12 +68,7 @@ __global__ void __launch_bounds__(kWarps * 32) state_views_kernel(
   const int ar1 = two ? in.army[land + lane + 32] : 0;
   const int phase = in.phase[b];
   const int cur = in.cur[b];
-  const uint64_t adj0 = tables->adj[lane];
-  const uint64_t adj1 = two ? tables->adj[lane + 32] : 0;
-  const bool cl = lane < rd::kConts;
-  const uint64_t cont = cl ? tables->cont[lane] : 0;
-  const int csize = cl ? tables->cont_size[lane] : 0;
-  const int cbonus = cl ? tables->cont_bonus[lane] : 0;
+  const rw::Board d = rw::load_board(tables, lane);
   int round = 0, mob_from = -1, mob_to = -1, attacks = 0;
   bool can_draw = false;
   if (status != nullptr || V == 3) round = in.round[b];
@@ -146,28 +81,26 @@ __global__ void __launch_bounds__(kWarps * 32) state_views_kernel(
     can_draw = in.can_draw[b] != 0;
   }
 
-  const uint64_t owned = ballot(ow0 == cur, ow1 == cur);
-  const uint64_t enemy = ballot(ow0 == 1 - cur, ow1 == 1 - cur);
+  const uint64_t owned = rw::ballot(ow0 == cur, ow1 == cur);
+  const uint64_t enemy = rw::ballot(ow0 == 1 - cur, ow1 == 1 - cur);
 
-  if (status != nullptr && lane == 0) {
-    rd::St s;
-    s.own[0] = cur == 0 ? owned : enemy;
-    s.own[1] = cur == 0 ? enemy : owned;
-    s.round = round;
-    status[b] = rd::game_status(s, cfg);
-  }
+  if (status != nullptr && lane == 0)
+    status[b] = rd::game_status(cur == 0 ? owned : enemy,
+                                cur == 0 ? enemy : owned, round, cfg);
 
   if (legal != nullptr) {
     rd::Masks m;
     m.owned = owned;
     m.enemy = enemy;
-    m.neutral = ballot(ow0 == rd::kNeutral, ow1 == rd::kNeutral);
-    m.owa = owned & ballot(ar0 >= 2, two && ar1 >= 2);
-    m.full = owned & ballot(ar0 >= cfg.army_max, two && ar1 >= cfg.army_max);
-    m.attack_wa = ~owned & nb_any(m.owa, lane, adj0, adj1);
-    m.enemy_attack = ~enemy & nb_any(enemy, lane, adj0, adj1);
-    m.neutral_attack = nb_any(m.neutral, lane, adj0, adj1) & ~m.neutral;
-    const uint64_t mask = legal_from(m, phase, mob_from, mob_to, cfg);
+    m.neutral = rw::ballot(ow0 == rd::kNeutral, ow1 == rd::kNeutral);
+    m.owa = owned & rw::ballot(ar0 >= 2, two && ar1 >= 2);
+    m.full =
+        owned & rw::ballot(ar0 >= cfg.army_max, two && ar1 >= cfg.army_max);
+    m.attack = 0;
+    m.attack_wa = ~owned & rw::nb_any(m.owa, d, lane);
+    m.enemy_attack = ~enemy & rw::nb_any(enemy, d, lane);
+    m.neutral_attack = rw::nb_any(m.neutral, d, lane) & ~m.neutral;
+    const uint64_t mask = rd::legal_from(m, phase, mob_from, mob_to, cfg);
     uint8_t* out = legal + static_cast<int64_t>(b) * rd::kActions;
     out[lane] = rd::has(mask, lane);
     if (lane + 32 < rd::kActions) out[lane + 32] = rd::has(mask, lane + 32);
@@ -175,15 +108,13 @@ __global__ void __launch_bounds__(kWarps * 32) state_views_kernel(
 
   if (feats == nullptr) return;
   // ---- features (rd::features, cell-major, planes in the JAX order) ----
-  const float ref =
-      static_cast<float>(reinforcement(owned, cont, csize, cbonus));
-  const float eref =
-      static_cast<float>(reinforcement(enemy, cont, csize, cbonus));
+  const float ref = static_cast<float>(rw::reinforcement(owned, d));
+  const float eref = static_cast<float>(rw::reinforcement(enemy, d));
   const int ta = __reduce_add_sync(
-      kFull, (rd::has(owned, lane) ? ar0 : 0) +
+      rw::kFull, (rd::has(owned, lane) ? ar0 : 0) +
                  (rd::has(owned, lane + 32) ? ar1 : 0));
   const int eta = __reduce_add_sync(
-      kFull, (rd::has(enemy, lane) ? ar0 : 0) +
+      rw::kFull, (rd::has(enemy, lane) ? ar0 : 0) +
                  (rd::has(enemy, lane + 32) ? ar1 : 0));
   // the broadcast planes: (round share V3, army share V2+) reinforcement
   // share, attack frequency, can-draw; then the phase one-hot

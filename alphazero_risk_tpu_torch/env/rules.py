@@ -30,7 +30,7 @@ Only the simple-cards rules are ported: ``simple_cards=False`` raises
 On the card two kernels carry the engine (the game's own phase branch
 only, the graph walks as mask walks):
 
-- K7 (``csrc/rules_step.cu``, one thread per game): ``step``,
+- K7 (``csrc/rules_step.cu``, one warp per game): ``step``,
   ``step_with_outcome`` and ``expand`` (the child of a search tree's node,
   with its status and legality);
 - K8 (``csrc/state_views.cu``, ``state_views``, one warp per game):
@@ -744,18 +744,47 @@ def kernel_tables(device: torch.device) -> torch.Tensor:
     buf = np.concatenate([p.ravel().view(np.uint8) for p in parts])
     if buf.size != 2728:
         raise AssertionError("kernel_tables no longer matches rd::Tables")
+    adj = np.asarray(topology.ADJACENCY, bool)
+    if not (adj == adj.T).all():
+        # csrc/rules_warp.cuh tests "j neighbours i" on j's own row
+        raise AssertionError("the rules kernels need a symmetric adjacency")
     return torch.from_numpy(buf).to(device)
+
+
+# kernel_tables' device pointer by device index: a dict lookup on an int
+# costs less than hashing a torch.device on every launch.
+_TABLES_PTR: dict = {}
+
+
+def tables_ptr(device: torch.device) -> int:
+    """The device pointer of ``kernel_tables(device)``."""
+    p = _TABLES_PTR.get(device.index)
+    if p is None:
+        p = _TABLES_PTR[device.index] = kernel_tables(device).data_ptr()
+    return p
+
+
+# kernel_flags by Config object: (the Config, its flags).  The identity
+# check rules out an id reused by another object; a Config is frozen, so a
+# cached entry never goes stale.
+_FLAGS: dict = {}
 
 
 def kernel_flags(cfg: Config) -> tuple:
     """The trailing ints of the rules kernels: land_army_max,
-    min_unit_move, max_game_rounds and the switch bits.  (Computed on each
-    call: hashing the frozen Config for a cache costs more.)"""
+    min_unit_move, max_game_rounds and the switch bits."""
+    hit = _FLAGS.get(id(cfg))
+    if hit is not None and hit[0] is cfg:
+        return hit[1]
     flags = (int(cfg.allow_yield) | int(cfg.limit_reinforcement_moves) << 1
              | int(cfg.limit_attack_moves) << 2
              | int(cfg.fast_attack_mobilization) << 3
              | int(cfg.exact_fortify_tiebreak) << 4)
-    return (cfg.land_army_max, cfg.min_unit_move, cfg.max_game_rounds, flags)
+    out = (cfg.land_army_max, cfg.min_unit_move, cfg.max_game_rounds, flags)
+    if len(_FLAGS) > 64:
+        _FLAGS.clear()
+    _FLAGS[id(cfg)] = (cfg, out)
+    return out
 
 
 B8 = torch.bool
@@ -796,20 +825,23 @@ def state_fields(state: GameState, lead: tuple, spec=STATE_SPEC):
 @functools.lru_cache(maxsize=None)
 def _layout(spec) -> tuple:
     """``spec``'s fields grouped by type: (type, names, shapes after the
-    game axis, elements per game)."""
+    game axis, elements per game, their sum)."""
     groups = {}
     for name, dtype, tail in spec:
         groups.setdefault(dtype, []).append((name, tail, math.prod(tail)))
-    return tuple((dtype, *zip(*fields)) for dtype, fields in groups.items())
+    return tuple((dtype, *zip(*fields), sum(f[2] for f in fields))
+                 for dtype, fields in groups.items())
 
 
 def empty_fields(b: int, device, spec=STATE_SPEC) -> dict:
     """Fresh contiguous [b, *shape] tensors of ``spec``'s fields by name,
-    cut from one allocation per type: a wrapper's allocations cost more
-    than the rules kernels run."""
+    cut from one allocation per type by one ``split_with_sizes``: a
+    wrapper's allocations and views cost more than the rules kernels
+    run."""
     out = {}
-    for dtype, names, tails, sizes in _layout(spec):
-        parts = torch.empty(b * sum(sizes), dtype=dtype, device=device).split(
+    for dtype, names, tails, sizes, total in _layout(spec):
+        parts = torch.split_with_sizes(
+            torch.empty(b * total, dtype=dtype, device=device),
             [b * n for n in sizes])
         for name, tail, t in zip(names, tails, parts):
             out[name] = t.view((b,) + tail) if tail else t
@@ -834,7 +866,7 @@ def launch_rules(kernel, states: GameState, lead: tuple, pre: tuple,
             *(t.data_ptr() for t in ins), *pre,
             *(new[name].data_ptr() for name, _, _ in STATE_SPEC),
             *(new[o[0]].data_ptr() if o else None for o in outs),
-            kernel_tables(dev).data_ptr(), b, *kernel_flags(cfg))
+            tables_ptr(dev), b, *kernel_flags(cfg))
     result = GameState(
         **{name: new[name] for name, _, _ in STATE_SPEC},
         player_cards=new.get("player_cards", states.player_cards),
@@ -862,11 +894,15 @@ def _launch_step(states: GameState, action: torch.Tensor, cfg: Config, *,
         lead = (b, n)
         checked(node, I32, (b,), "node")
     cards = state_fields(states, lead, CARDS_SPEC)
-    action = checked(action.to(I32), I32, (b,), "action")
+    if action.dtype != I32:
+        action = action.to(I32)
+    checked(action, I32, (b,), "action")
     if dice is not None:
         checked(dice, I32, (b, 5), "dice")
     if outcome is not None:
-        outcome = checked(outcome.to(I32), I32, (b,), "outcome")
+        if outcome.dtype != I32:
+            outcome = outcome.to(I32)
+        checked(outcome, I32, (b,), "outcome")
     P = kernels.ptr
     result, new = launch_rules(
         kernels.RULES_STEP, states, lead,
@@ -951,7 +987,7 @@ def state_views(state: GameState, cfg: Config, *, legal: bool = False,
         army_max, _, max_rounds, flags = kernel_flags(cfg)
         P = kernels.ptr
         kernels.STATE_VIEWS.launch(
-            *(t.data_ptr() for t in ins), kernel_tables(dev).data_ptr(),
+            *(t.data_ptr() for t in ins), tables_ptr(dev),
             *(P(t) for t in outs), b, army_max, max_rounds, flags,
             cfg.feature_version)
     return tuple(t for t in outs if t is not None)

@@ -157,10 +157,10 @@ CONV3X3_BF16 = Kernel(
     "conv3x3_bf16", "conv_bf16.cu", "az_conv3x3_bf16",
     [P] * 6 + [I] * 4, fmad=True, headers=CONV_TC)
 
-# h, 10 head weights, legal, probs, value, logits, B, C, V
+# h, the packed head weights, legal, probs, value, logits, B, C, V
 HEADS_EVAL = Kernel(
     "heads_eval", "heads_softmax.cu", "az_heads_eval",
-    [P] * 15 + [I, I, I], fmad=True)
+    [P] * 6 + [I, I, I], fmad=True)
 
 # 14 tree state fields, 9 tree arrays, root, 14 source state fields, term,
 # node_value, legal, prior, exp_n, exp_a, exp_o, cur, leaf_v, leaf_p, B, N,
@@ -169,22 +169,24 @@ TREE_WRITE = Kernel(
     "write_nodes", "tree_write.cu", "az_write_nodes",
     [P] * 48 + [I, I, I])
 
-# The rules kernels share csrc/rules_dev.cuh.  The trailing ints of each:
-# B, land_army_max, min_unit_move, max_game_rounds, flags (rules.
+# The rules kernels share csrc/rules_dev.cuh, and K7 and K8, one warp per
+# game, also csrc/rules_warp.cuh.  The trailing ints of each: B,
+# land_army_max, min_unit_move, max_game_rounds, flags (rules.
 # kernel_flags), and for K8 the feature version.
 RULES = ("rules_dev.cuh",)
+RULES_WARP = RULES + ("rules_warp.cuh",)
 
 # 12 state fields and player/drawn cards in, node, N, action, dice,
 # outcome, 12 state fields and player/drawn cards out, status, legal,
 # tables
 RULES_STEP = Kernel(
     "rules_step", "rules_step.cu", "az_rules_step",
-    [P] * 15 + [I] + [P] * 20 + [I] * 5, headers=RULES)
+    [P] * 15 + [I] + [P] * 20 + [I] * 5, headers=RULES_WARP)
 
 # 9 state fields, tables, legal, status, features
 STATE_VIEWS = Kernel(
     "state_views", "state_views.cu", "az_state_views",
-    [P] * 13 + [I] * 5, headers=RULES)
+    [P] * 13 + [I] * 5, headers=RULES_WARP)
 
 # 12 state fields, 3 carry fields, reset, u, dice in; 12 state fields,
 # 3 carry fields, action, record out; tables

@@ -23,13 +23,16 @@ weights, float32 accumulation (what JAX computes with
 ReLU fused.  K4 writes its output as f32, as bf16 (the next conv's input,
 which JAX rounds to bf16), or both, so the bf16 trunk hands bf16 from conv
 to conv.  The heads and the legal-masked softmax run on kernel K5
-(``csrc/heads_softmax.cu``, ``heads_eval``), in float32.  On CPU tensors
+(``csrc/heads_softmax.cu``, ``heads_eval``), in float32, on the ten head
+tensors packed once at fold time into one buffer (``pack_heads``,
+``heads_pack`` of the folded dict).  On CPU tensors
 the wrappers compute the same functions in plain PyTorch (``_conv_bf16``
 with its elementwise epilogue; ``_heads`` and ``torch.softmax``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
@@ -77,7 +80,7 @@ def fold_params(net: AZNet, cfg: Config) -> Dict[str, torch.Tensor]:
     pd_w, pd_b = dense(net.policy_dense)
     d1_w, d1_b = dense(net.value_dense1)
     d2_w, d2_b = dense(net.value_dense2)
-    return {
+    folded = {
         "stem_w": stem_w.to(BF16).contiguous(),
         "stem_b": stem_b.to(F32),
         "trunk_w": torch.stack(trunk_w).to(BF16).contiguous(),
@@ -90,6 +93,71 @@ def fold_params(net: AZNet, cfg: Config) -> Dict[str, torch.Tensor]:
         "val_d1_w": d1_w, "val_d1_b": d1_b,
         "val_d2_w": d2_w, "val_d2_b": d2_b,
     }
+    return {**folded, "heads_pack": pack_heads(folded)}
+
+
+@functools.lru_cache(maxsize=None)
+def heads_layout(c: int, v: int) -> dict:
+    """Offsets, in floats, of the sections of K5's packed head weights for
+    C channels and V value-hidden units (``csrc/heads_softmax.cu`` computes
+    the same): ``conv`` [C, 4] the three 1x1-conv columns per channel
+    (pol_w[:, 0], pol_w[:, 1], val_w[:, 0], 0); ``bias`` [4] pol_b[0],
+    pol_b[1], val_b[0], val_d2_b[0]; ``pol_dense_w`` [43, 84] transposed;
+    ``pol_dense_b`` [44]; ``val_d1_w`` [42, Vp]; ``val_d1_b`` and
+    ``val_d2_w`` [Vp] (Vp: V rounded up to 4, zeros past V).  The policy
+    part [pol_dense_w, val_d1_w) and the value part [val_d1_w, end) each
+    start on a 16-byte boundary.  (Cached: callers do not modify it.)"""
+    vp = -(-v // 4) * 4
+    o = {"conv": 0, "bias": 4 * c}
+    o["pol_dense_w"] = o["bias"] + 4
+    o["pol_dense_b"] = o["pol_dense_w"] + 43 * 2 * BOARD
+    o["val_d1_w"] = o["pol_dense_b"] + 44
+    o["val_d1_b"] = o["val_d1_w"] + BOARD * vp
+    o["val_d2_w"] = o["val_d1_b"] + vp
+    o["end"] = o["val_d2_w"] + vp
+    return o
+
+
+_HEAD_SHAPES = {"pol_w": ("c", 2), "pol_b": (2,),
+                "pol_dense_w": (2 * BOARD, 43), "pol_dense_b": (43,),
+                "val_w": ("c", 1), "val_b": (1,), "val_d1_w": (BOARD, "v"),
+                "val_d1_b": ("v",), "val_d2_w": ("v", 1), "val_d2_b": (1,)}
+
+
+@torch.no_grad()
+def pack_heads(folded: Dict[str, Any]) -> torch.Tensor:
+    """The ten head tensors of ``folded`` packed once into one f32 buffer
+    in K5's layout (``heads_layout``), on their device.  Raises unless
+    they are f32 of the shapes ``_heads`` takes."""
+    c, v = folded["pol_w"].shape[0], folded["val_d1_w"].shape[-1]
+    for k, shape in _HEAD_SHAPES.items():
+        want = tuple({"c": c, "v": v}.get(d, d) for d in shape)
+        t = folded[k]
+        if t.dtype != F32 or tuple(t.shape) != want:
+            raise ValueError(f"pack_heads: {k} must be f32 {want}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    lay = heads_layout(c, v)
+    vp = (lay["end"] - lay["val_d1_w"]) // (BOARD + 2)
+    buf = torch.zeros(lay["end"], dtype=F32, device=folded["pol_w"].device)
+    conv = buf[:4 * c].view(c, 4)
+    conv[:, :2] = folded["pol_w"]
+    conv[:, 2] = folded["val_w"][:, 0]
+    b = lay["bias"]
+    buf[b:b + 2] = folded["pol_b"]
+    buf[b + 2] = folded["val_b"][0]
+    buf[b + 3] = folded["val_d2_b"][0]
+    o = lay["pol_dense_w"]
+    buf[o:o + 43 * 2 * BOARD].view(43, 2 * BOARD).copy_(
+        folded["pol_dense_w"].T)
+    o = lay["pol_dense_b"]
+    buf[o:o + 43] = folded["pol_dense_b"]
+    o = lay["val_d1_w"]
+    buf[o:o + BOARD * vp].view(BOARD, vp)[:, :v] = folded["val_d1_w"]
+    o = lay["val_d1_b"]
+    buf[o:o + v] = folded["val_d1_b"]
+    o = lay["val_d2_w"]
+    buf[o:o + v] = folded["val_d2_w"][:, 0]
+    return buf
 
 
 def pack_trunk_wq(wq: torch.Tensor) -> torch.Tensor:
@@ -343,10 +411,6 @@ def _heads(folded, h):
     return logits, torch.tanh(v).squeeze(-1)
 
 
-_HEAD_KEYS = ("pol_w", "pol_b", "pol_dense_w", "pol_dense_b", "val_w",
-              "val_b", "val_d1_w", "val_d1_b", "val_d2_w", "val_d2_b")
-
-
 def _heads_eval_plain(folded, h, legal):
     logits, value = _heads(folded, h)
     neg_inf = torch.tensor(float("-inf"), device=logits.device)
@@ -363,29 +427,39 @@ def heads_eval(folded: Dict[str, Any], h: torch.Tensor,
     all f32.  A row with no legal action gives NaN probabilities.
 
     CPU tensors take the plain PyTorch version; CUDA tensors launch the
-    kernel (no fallback).
+    kernel (no fallback) on the head weights that ``fold_params`` (or
+    ``folded_from_jax``) packed once, ``folded["heads_pack"]``: it was
+    checked where it was made, so here only its size is held against h's
+    channels and the value width.
     """
     if h.device.type == "cpu":
         return _heads_eval_plain(folded, h, legal)
-    ws = [folded[k] for k in _HEAD_KEYS]
-    kernels.require_cuda(h, legal, *ws)
-    b, cells, c = h.shape
+    pack = folded.get("heads_pack")
+    if pack is None:
+        raise ValueError("heads_eval: the folded dict holds no heads_pack "
+                         "(fold with fold_params or folded_from_jax)")
+    kernels.require_cuda(h, legal, pack)
+    if h.dtype != F32 or h.dim() != 3 or h.shape[1] != BOARD \
+            or h.shape[2] % 4 or legal.dtype != torch.bool \
+            or legal.shape != (h.shape[0], 43):
+        raise ValueError("heads_eval takes f32 h [B,42,C] with C % 4 == 0 "
+                         "and bool legal [B,43]")
+    b, _, c = h.shape
     v = folded["val_d1_w"].shape[1]
-    if h.dtype != F32 or cells != BOARD or legal.dtype != torch.bool or tuple(
-            legal.shape) != (b, 43) or any(w.dtype != F32 for w in ws):
-        raise ValueError("heads_eval takes f32 h [B,42,C], bool legal "
-                         "[B,43] and f32 head weights")
-    if (tuple(folded["pol_w"].shape) != (c, 2)
-            or tuple(folded["val_w"].shape) != (c, 1)
-            or tuple(folded["pol_dense_w"].shape) != (2 * BOARD, 43)
-            or tuple(folded["val_d1_w"].shape) != (BOARD, v)):
-        raise ValueError("heads_eval: head weight shapes do not fit h")
+    if pack.numel() != heads_layout(c, v)["end"]:
+        raise ValueError("heads_eval: the packed head weights do not fit h")
+    if c > 512 or v > 512:
+        raise ValueError("heads_eval: K5 takes at most 512 channels and 512 "
+                         "value-hidden units")
+    kernels.require_aligned(h, pack)
     probs = torch.empty((b, 43), dtype=F32, device=h.device)
     logits = torch.empty((b, 43), dtype=F32, device=h.device)
     value = torch.empty((b,), dtype=F32, device=h.device)
-    P = kernels.ptr
-    kernels.HEADS_EVAL.launch(P(h), *(P(w) for w in ws), P(legal), P(probs),
-                              P(value), P(logits), b, c, v)
+    if b:
+        kernels.HEADS_EVAL.launch(h.data_ptr(), pack.data_ptr(),
+                                  legal.data_ptr(), probs.data_ptr(),
+                                  value.data_ptr(), logits.data_ptr(), b, c,
+                                  v)
     return probs, value, logits
 
 

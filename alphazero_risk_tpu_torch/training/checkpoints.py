@@ -31,7 +31,7 @@ import torch
 
 from ..config import Config
 from ..device import resolve_device
-from ..models.fast_infer import pack_trunk_wq
+from ..models.fast_infer import pack_heads, pack_trunk_wq
 from ..models.resnet import AZNet, build_network
 from .learner import TrainState, train_state_of
 
@@ -150,7 +150,8 @@ def folded_from_jax(folded: Dict[str, np.ndarray],
     """An already folded (and possibly quantized and calibrated) JAX
     inference pytree -> the port's folded dict, value for value: bf16 stays
     bf16, int8 stays int8, float32 stays float32.  A quantized trunk also
-    gets its weights packed for kernel K1 (``trunk_wqk``)."""
+    gets its weights packed for kernel K1 (``trunk_wqk``), and the heads
+    theirs for kernel K5 (``heads_pack``)."""
     dev = resolve_device(device)
     out = {}
     for k, v in folded.items():
@@ -162,6 +163,7 @@ def folded_from_jax(folded: Dict[str, np.ndarray],
         out[k] = t.to(dev)
     if "trunk_wq" in out:
         out["trunk_wqk"] = pack_trunk_wq(out["trunk_wq"])
+    out["heads_pack"] = pack_heads(out)
     return out
 
 

@@ -19,8 +19,9 @@ when all of them pass):
    out); K1 and K4 print their blocks, rates and yardsticks (bf16
    ``F.conv2d``; for K1 also ``torch._int_mm`` on the prebuilt im2col
    matrix, checked exact); K5 runs on that batch's trunk output with its
-   legal mask; K6 writes the node of one more simulation into that tree,
-   and the roots of a fresh one.  Every kernel is then held again
+   legal mask (and is timed at 128, 512 and 1,024 played states); K6
+   writes the node of one more simulation into that tree, and the roots
+   of a fresh one.  Every kernel is then held again
    (comparison only) at the other batches the two paths launch (the play
    slice's 32 games, the arena's 16, the benchmark's 4 and 2:
    ``PATH_BATCHES``), on the first games of the same leaf batch, tree and
@@ -40,8 +41,9 @@ when all of them pass):
    full lands, terminal games; ``mixed_states``), timed at GAMES and at
    1,024 (K8 also at the learner's batch, 512, and in its three forms:
    all three outputs, the features alone, legality and status), and
-   compared at every batch of ``RULES_BATCHES``; K7's expand entry on the
-   main-path tree and its slices.
+   compared at every batch of ``RULES_BATCHES`` (K7 also timed there); K7's
+   expand entry on the main-path tree and its slices (timed at GAMES on
+   it and on the training phase's tree).
    The training and data phases search at ``TRAIN``'s simulations: K2,
    K3, K6 and K7's expand are held on such a tree at each of their
    batches (``TRAIN_BATCHES``);
@@ -700,7 +702,9 @@ def check_k5(folded, h, legal, timed=True):
         log(f"K5 heads_eval B={b} C={c} V={v}: max abs err logits {e_l:.3g} "
             f"value {e_v:.3g} probs {e_p:.3g}")
         return None
-    wbytes = sum(folded[k].numel() * 4 for k in FI._HEAD_KEYS)
+    # the ten head tensors, each read once (the pack's zero padding is
+    # not the function's work)
+    wbytes = sum(folded[k].numel() * 4 for k in FI._HEAD_SHAPES)
     nbytes = h.numel() * 4 + wbytes + legal.numel() + b * (43 * 2 + 1) * 4
     ops = 2.0 * b * (42 * c * 3 + 84 * 43 + 42 * v + v)
     bms, by = bound_ms(nbytes, ops, F32_OPS_PER_S)
@@ -1144,7 +1148,8 @@ def main_path_tree(trainer, states, cfg):
 def check_train_trees(trainer, states, dev):
     """The training and data phases search at TRAIN's simulations: K7's
     expand, K2, K3 and K6 held on such a tree (N = sims + 2) at each of
-    their lockstep batches (``TRAIN_BATCHES``), comparison only."""
+    their lockstep batches (``TRAIN_BATCHES``), comparison only but K7's
+    expand at GAMES, whose timed entry is returned."""
     import torch
     from alphazero_risk_tpu_torch.env.state import tree_map
     from alphazero_risk_tpu_torch.mcts import search as S
@@ -1154,12 +1159,15 @@ def check_train_trees(trainer, states, dev):
     tree = main_path_tree(trainer, states, cfg)
     gum = S.draw_gumbel(torch.Generator(device=dev).manual_seed(10), cfg,
                         GAMES, dev)[0]
+    timed = None
     for nb in TRAIN_BATCHES:
         ntree, ngum = slice_tree(tree, nb), gum[:, :nb].contiguous()
-        check_k7_expand(ntree, ngum, cfg, timed=False)
+        e = check_k7_expand(ntree, ngum, cfg, timed=nb == GAMES)
+        timed = e or timed
         check_k2_k3(clone_tree(ntree), ngum, cfg, dev, timed=False)
         check_k6(ntree, ngum, tree_map(lambda x: x[:nb].contiguous(), states),
                  cfg, trainer._eval_fn(), timed=False)
+    return timed
 
 
 def check_forward(trainer, states, cfg):
@@ -1260,6 +1268,13 @@ def phase_kernels(cfg, dev):
         feats1024 = featurize(states, cfg)
         k1["b1024"] = check_k1(folded, feats1024)
         k4["b1024"] = check_k4(folded, feats1024)
+        # K5 at the data phase's batch (128), the calibration batch (512)
+        # and 1,024, on the trunk output of played states
+        legal1024 = rules.legal_actions(states, cfg)
+        for nb in (DATA["env_batch_per_device"], 512, 1024):
+            k5[f"b{nb}"] = check_k5(
+                folded, FI._trunk_out(folded, feats1024[:nb].contiguous(),
+                                      True), legal1024[:nb])
         # the int8 scales K4 sets, from the trainer's calibration features,
         # the batch every int8 fold launches K4 at (512)
         calib = FI.default_calib_feats(
@@ -1285,7 +1300,7 @@ def phase_kernels(cfg, dev):
         k9, k10 = check_k9_k10(first(mx, GAMES), cfg)
         k9["b1024"], k10["b1024"] = check_k9_k10(mx, cfg)
         for nb in RULES_BATCHES:
-            check_k7(first(mx, nb), cfg, timed=False)
+            k7[f"b{nb}"] = check_k7(first(mx, nb), cfg)
             check_k8(first(mx, nb).state, cfg, timed=False)
             check_k9_k10(first(mx, nb), cfg, timed=False)
             if nb < GAMES:
@@ -1293,7 +1308,7 @@ def phase_kernels(cfg, dev):
                                 mgum[:, :nb].contiguous(), cfg, timed=False)
         # K8 at the learner's batch (on its real input in the data phase)
         k8["b512"] = check_k8(first(mx, TRAIN["batch_size"]).state, cfg)
-        check_train_trees(trainer, states, dev)
+        k7["expand_train"] = check_train_trees(trainer, states, dev)
     entries = [
         {"name": "conv3x3_i8", "route": "cuda",
          "source": "alphazero_risk_tpu_torch/csrc/conv_i8.cu",

@@ -25,7 +25,7 @@ from alphazero_risk_tpu_torch.mcts import search as S
 from alphazero_risk_tpu_torch.training import actor as A
 from alphazero_risk_tpu_torch.training.trainer import Trainer
 
-from chip_smoke import TIE_CASES, tie_tree
+from chip_smoke import TIE_CASES, mixed_states, tie_tree
 
 pytestmark = pytest.mark.cuda
 
@@ -283,6 +283,78 @@ def test_heads_eval_matches_plain(cuda):
     assert torch.isnan(probs[1]).all() and torch.isnan(rp[1]).all()
 
 
+def _random_heads(c, v, dev, seed):
+    """A folded dict holding random head weights of C channels and V
+    value-hidden units, and their K5 pack."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shapes = {k: tuple({"c": c, "v": v}.get(d, d) for d in shape)
+              for k, shape in FI._HEAD_SHAPES.items()}
+    folded = {k: 0.2 * torch.randn(shape, generator=g, device=dev)
+              for k, shape in shapes.items()}
+    return {**folded, "heads_pack": FI.pack_heads(folded)}
+
+
+def _assert_heads_match(got, ref, legal):
+    """K5's stated bound: logits within 1e-5 of the largest |logit| (at
+    least 1), the value within 1e-5, probs a distribution over the legal
+    moves within 1e-5 of the plain ones (NaN rows where none is legal)."""
+    (probs, value, logits), (rp, rv, rl) = got, ref
+    top = max(float(rl.abs().max()), 1.0)
+    assert float((logits - rl).abs().max()) <= 1e-5 * top
+    assert float((value - rv).abs().max()) <= 1e-5 * max(
+        float(rv.abs().max()), 1.0)
+    some = legal.any(-1)
+    assert torch.isnan(probs[~some]).all() and torch.isnan(rp[~some]).all()
+    assert float((probs[some] - rp[some]).abs().max()) <= 1e-5
+    assert bool((probs[some][~legal[some]] == 0).all())
+    torch.testing.assert_close(probs[some].sum(-1),
+                               torch.ones_like(probs[some][:, 0]),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("c,v", [(32, 16), (64, 48), (128, 256),
+                                 (256, 256), (256, 16), (32, 256), (96, 10)])
+@pytest.mark.parametrize("batch", [1, 3, 64, 65, 128, 512, 1024])
+def test_heads_eval_shapes_match_plain(cuda, batch, c, v):
+    """K5 (one block per game, one per SM looping over games past 132)
+    against ``_heads_eval_plain`` at batches the paths launch it with and
+    on both sides of one block per SM, C = 32..256, V = 16..256 (and a V
+    that is no multiple of 4), with rows that have no legal action."""
+    folded = _random_heads(c, v, cuda, seed=batch + c + v)
+    g = torch.Generator(device=cuda).manual_seed(batch)
+    h = torch.randn((batch, 42, c), generator=g, device=cuda).relu()
+    legal = torch.rand((batch, 43), generator=g, device=cuda) < 0.3
+    legal[0] = True
+    if batch > 1:
+        legal[1] = False
+    legal[2::7] = False
+    _assert_heads_match(FI.heads_eval(folded, h, legal),
+                        FI._heads_eval_plain(folded, h, legal), legal)
+
+
+def test_heads_pack_is_rebuilt_by_each_fold(cuda):
+    """``fold_params`` packs the heads anew on every fold: after the net's
+    weights change, a second fold's K5 matches the plain heads of the new
+    weights, with the first fold's pack spoiled (so it is never read)."""
+    cfg = Config(blocks=1, filters=64, value_hidden=48)
+    trainer = Trainer(cfg, seed=3, device=cuda)
+    first = FI.fold_params(trainer.net, cfg)
+    with torch.no_grad():
+        for p in trainer.net.parameters():
+            p.mul_(1.5).add_(0.01)
+    second = FI.fold_params(trainer.net, cfg)
+    assert second["heads_pack"].data_ptr() != first["heads_pack"].data_ptr()
+    g = torch.Generator(device=cuda).manual_seed(4)
+    h = torch.randn((9, 42, 64), generator=g, device=cuda).relu()
+    legal = torch.rand((9, 43), generator=g, device=cuda) < 0.4
+    legal[:, 42] = True
+    old = FI._heads_eval_plain(first, h, legal)
+    first["heads_pack"].fill_(float("nan"))
+    got = FI.heads_eval(second, h, legal)
+    _assert_heads_match(got, FI._heads_eval_plain(second, h, legal), legal)
+    assert float((got[2] - old[2]).abs().max()) > 1e-3
+
+
 def _clone_tree(tree):
     return type(tree)(**{
         f.name: (tree_map(torch.clone, getattr(tree, f.name))
@@ -415,6 +487,70 @@ def test_rules_expand_matches_plain(cuda):
     _assert_states_equal(got[0], ref[0])
     assert torch.equal(got[1].cpu(), ref[1])
     assert torch.equal(got[2].cpu(), ref[2])
+
+
+@pytest.fixture(scope="module")
+def mixed_mix():
+    """1,024 states of mixed play on the card in a shuffled order whose
+    prefixes mix every phase, fortify ties under the random action, full
+    lands and terminal games (``chip_smoke.mixed_states``), on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    return mixed_states(Config(), torch.device("cuda"))
+
+
+RULES_BATCHES = [1, 3, 4, 5, 31, 33, 64, 512, 1024]
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("batch", RULES_BATCHES)
+def test_rules_step_batches_match_plain(cuda, mixed_mix, batch, exact):
+    """K7 (one warp per game, four per block) at batches ragged against
+    the block: ``step`` with the dice and ``step_with_outcome`` against the
+    plain versions, every field bit for bit, on the random legal action and
+    on an arbitrary one, the fortify tie-break exact and not."""
+    cfg = Config(exact_fortify_tiebreak=exact)
+    mx = mixed_mix.apply(lambda x: x[:batch].contiguous())
+    st, dice = mx.state, mx.dice
+    g = torch.Generator(device=cuda).manual_seed(batch)
+    anyway = torch.randint(0, 43, (batch,), generator=g, device=cuda,
+                           dtype=torch.int32)
+    outcome = torch.randint(0, 3, (batch,), generator=g, device=cuda,
+                            dtype=torch.int32)
+    for act in (mx.action, anyway):
+        _assert_states_equal(rules.step(st, act, dice, cfg),
+                             rules._step_plain(st, act, dice, cfg))
+        _assert_states_equal(
+            rules.step_with_outcome(st, act, outcome, cfg),
+            rules._step_with_outcome_plain(st, act, outcome, cfg))
+    if batch == 1024:
+        status = rules._game_status_plain(st, cfg)
+        assert set(st.phase.tolist()) == set(range(6))
+        assert bool((status != -1).any())
+        assert bool((st.army >= cfg.land_army_max).any())
+        assert bool(rules.fortify_needs_rank(st, mx.action, cfg).any())
+
+
+@pytest.mark.parametrize("n_nodes", [10, 34])
+@pytest.mark.parametrize("batch", RULES_BATCHES)
+def test_rules_expand_batches_match_plain(cuda, grown_trees, batch,
+                                          n_nodes):
+    """K7's expand entry on the first ``batch`` games of the trees grown
+    with 8 and 32 simulations: the child of the node the descent picks
+    (node 0 where it picks none), its status and legal mask, bit for
+    bit."""
+    tree = _games(grown_trees[n_nodes], batch)
+    cfg = Config(mcts_simulations=2)
+    gen = torch.Generator(device=cuda).manual_seed(batch + n_nodes)
+    path = S._descend_plain(tree, S.draw_gumbel(gen, cfg, batch, cuda)[0],
+                            cfg)
+    exp_n = path.exp_n.clone()
+    exp_n[::5] = -1
+    args = (tree.states, exp_n, path.exp_a, path.exp_o, cfg)
+    got, ref = rules.expand(*args), rules._expand_plain(*args)
+    _assert_states_equal(got[0], ref[0])
+    assert torch.equal(got[1], ref[1])
+    assert torch.equal(got[2], ref[2])
 
 
 @pytest.mark.parametrize("version", [1, 2, 3])

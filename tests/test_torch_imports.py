@@ -114,19 +114,28 @@ def test_kernel_flags_are_per_source():
 
 
 def test_kernel_library_names_follow_their_headers(tmp_path, monkeypatch):
-    """A rules kernel's library name hashes the shared header too, so an
-    edit of ``rules_dev.cuh`` rebuilds all four; the two convs share
+    """A rules kernel's library name hashes the shared headers too, so an
+    edit of ``rules_dev.cuh`` rebuilds all four and one of
+    ``rules_warp.cuh`` the two warp kernels (K7, K8); the two convs share
     ``conv_tc.cuh`` the same way."""
     from alphazero_risk_tpu_torch import kernels
-    for k, shared in ((kernels.RULES_STEP, "rules_dev.cuh"),
-                      (kernels.CONV3X3_I8, "conv_tc.cuh"),
-                      (kernels.CONV3X3_BF16, "conv_tc.cuh")):
-        assert [h.name for h in k.headers] == [shared]
-        before = k.library
-        copy = tmp_path / shared
-        copy.write_text(k.headers[0].read_text() + "\n// edited\n")
-        monkeypatch.setattr(k, "headers", (copy,))
-        assert k.library != before
+    warp = ["rules_dev.cuh", "rules_warp.cuh"]
+    for k, shared in ((kernels.RULES_STEP, warp),
+                      (kernels.STATE_VIEWS, warp),
+                      (kernels.SCRIPT_STEP, ["rules_dev.cuh"]),
+                      (kernels.RANDOM_STEP, ["rules_dev.cuh"]),
+                      (kernels.CONV3X3_I8, ["conv_tc.cuh"]),
+                      (kernels.CONV3X3_BF16, ["conv_tc.cuh"])):
+        assert [h.name for h in k.headers] == shared
+        for i, name in enumerate(shared):
+            before = k.library
+            copy = tmp_path / name
+            copy.write_text(k.headers[i].read_text() + "\n// edited\n")
+            headers = list(k.headers)
+            headers[i] = copy
+            monkeypatch.setattr(k, "headers", tuple(headers))
+            assert k.library != before
+            monkeypatch.undo()
     assert kernels.MCTS_DESCEND.headers == ()
 
 
@@ -175,6 +184,42 @@ def test_rules_kernel_tables_follow_the_topology():
                                   topology.SCRIPT_LAND_RANK)
     text = (rules.kernels.CSRC / "rules_dev.cuh").read_text()
     assert "sizeof(Tables) == 2728" in text
+
+
+def test_rules_kernel_tables_need_a_symmetric_adjacency(monkeypatch):
+    """K7 and K8 test "land j neighbours land i" on j's own adjacency row
+    (``csrc/rules_warp.cuh``), so packing the tables refuses a board whose
+    adjacency is not symmetric."""
+    import numpy as np
+    from alphazero_risk_tpu_torch.env import rules, topology
+    adj = np.array(topology.ADJACENCY, bool)
+    adj[0, 41] = not adj[41, 0]
+    monkeypatch.setattr(topology, "ADJACENCY", adj)
+    with pytest.raises(AssertionError, match="symmetric"):
+        rules.kernel_tables.__wrapped__(torch.device("cpu"))
+
+
+def test_rules_kernel_flags_follow_each_config():
+    """The rules kernels' trailing ints, cached by Config object: each
+    switch sets its bit, and a cached entry answers only for its own
+    (frozen) Config."""
+    from alphazero_risk_tpu_torch.config import Config
+    from alphazero_risk_tpu_torch.env import rules
+    base = Config()
+    names = ("allow_yield", "limit_reinforcement_moves", "limit_attack_moves",
+             "fast_attack_mobilization", "exact_fortify_tiebreak")
+    want = sum(1 << i for i, n in enumerate(names) if getattr(base, n))
+    assert rules.kernel_flags(base) == (base.land_army_max,
+                                        base.min_unit_move,
+                                        base.max_game_rounds, want)
+    assert rules.kernel_flags(base) is rules.kernel_flags(base)
+    for i, n in enumerate(names):
+        other = base.replace(**{n: not getattr(base, n)})
+        assert rules.kernel_flags(other)[3] == want ^ (1 << i)
+    small = base.replace(land_army_max=7, min_unit_move=2,
+                         max_game_rounds=99)
+    assert rules.kernel_flags(small)[:3] == (7, 2, 99)
+    assert rules.kernel_flags(base)[3] == want
 
 
 @pytest.mark.parametrize("name", ["conv3x3_i8", "conv3x3_bf16", "heads_eval",
@@ -227,7 +272,9 @@ def test_cuda_tensor_wrappers_do_not_fall_back(name, monkeypatch):
         w = torch.empty((3, 3, 13, 64), dtype=torch.bfloat16, device=meta)
         call = lambda: FI.conv3x3_bf16(x, w, torch.empty(64, device=meta))
     elif name == "heads_eval":
-        folded = {k: torch.empty(1, device=meta) for k in FI._HEAD_KEYS}
+        folded = {k: torch.empty(1, device=meta) for k in FI._HEAD_SHAPES}
+        folded["heads_pack"] = torch.empty(
+            FI.heads_layout(64, 1)["end"], device=meta)
         call = lambda: FI.heads_eval(
             folded, torch.empty((2, 42, 64), device=meta),
             torch.empty((2, 43), dtype=torch.bool, device=meta))

@@ -453,6 +453,87 @@ def test_heads_eval_plain_matches_jax_heads_and_softmax():
     assert (probs[2:].numpy()[~legal[2:]] == 0).all()
 
 
+@pytest.mark.parametrize("channels,hidden", [(32, 16), (32, 10), (16, 7)])
+def test_heads_pack_decodes_to_the_head_weights(channels, hidden):
+    """K5's pack (``fold_params``), decoded in PyTorch by ``heads_layout``,
+    holds exactly the ten head tensors ``_heads`` reads, and zeros in its
+    padding; ``folded_from_jax`` packs a JAX fold the same way."""
+    cfg = Config(blocks=1, filters=channels, value_hidden=hidden)
+    _, variables = _randomized_variables(cfg)
+    net = _port_net(variables, cfg)
+    for f in (TF.fold_params(net, cfg), folded_from_jax(JF.fold_params(
+            variables, jconfig.Config(**dataclasses.asdict(cfg))),
+            device="cpu")):
+        pack, lay = f["heads_pack"], TF.heads_layout(channels, hidden)
+        vp = -(-hidden // 4) * 4
+        assert pack.dtype == torch.float32 and pack.numel() == lay["end"]
+        assert lay["pol_dense_w"] % 4 == 0 and lay["val_d1_w"] % 4 == 0
+
+        def part(name, *shape):
+            o = lay[name]
+            return pack[o:o + int(np.prod(shape))].view(*shape)
+
+        conv = part("conv", channels, 4)
+        bias = part("bias", 4)
+        d1w = part("val_d1_w", 42, vp)
+        d1b, d2w = part("val_d1_b", vp), part("val_d2_w", vp)
+        decoded = {
+            "pol_w": conv[:, :2], "val_w": conv[:, 2:3],
+            "pol_b": bias[:2], "val_b": bias[2:3], "val_d2_b": bias[3:],
+            "pol_dense_w": part("pol_dense_w", 43, 84).T,
+            "pol_dense_b": part("pol_dense_b", 44)[:43],
+            "val_d1_w": d1w[:, :hidden], "val_d1_b": d1b[:hidden],
+            "val_d2_w": d2w[:hidden, None]}
+        assert decoded.keys() == TF._HEAD_SHAPES.keys()
+        for k, v in decoded.items():
+            assert torch.equal(v, f[k]), k
+        pads = (conv[:, 3], part("pol_dense_b", 44)[43:], d1w[:, hidden:],
+                d1b[hidden:], d2w[hidden:])
+        assert all(bool((p == 0).all()) for p in pads)
+
+
+def test_heads_eval_plain_on_the_port_fold_matches_jax_heads():
+    """K5's plain version on the port's own fold (``fold_params`` of a net
+    holding the JAX weights) against JAX ``_heads`` and the softmax on the
+    JAX fold, on the same numpy inputs.  The two folds differ by float32
+    rounding of the BN fold (1e-6 relative), the sums by their order: 1e-5
+    of the largest |logit| and |value|, probabilities within 1e-5."""
+    _, variables = _randomized_variables(CFG)
+    jfold = JF.fold_params(variables, jconfig.Config(
+        **dataclasses.asdict(CFG)))
+    tfold = TF.fold_params(_port_net(variables), CFG)
+    rng = np.random.default_rng(13)
+    h = np.maximum(rng.normal(0, 1, (24, 42, CFG.filters)), 0).astype(
+        np.float32)
+    legal = rng.random((24, 43)) < 0.4
+    legal[0], legal[1] = True, False
+    jl, jv = (np.asarray(a) for a in JF._heads(jfold, jnp.asarray(h)))
+    jp = np.asarray(jax.nn.softmax(
+        jnp.where(jnp.asarray(legal), jl, -jnp.inf), axis=-1))
+    probs, value, logits = (a.numpy() for a in TF._heads_eval_plain(
+        tfold, torch.from_numpy(h), torch.from_numpy(legal)))
+    assert np.abs(logits - jl).max() <= 1e-5 * max(np.abs(jl).max(), 1.0)
+    assert np.abs(value - jv).max() <= 1e-5 * max(np.abs(jv).max(), 1.0)
+    np.testing.assert_allclose(probs, jp, rtol=0, atol=1e-5, equal_nan=True)
+    assert np.isnan(probs[1]).all() and np.isnan(jp[1]).all()
+    assert (probs[2:][~legal[2:]] == 0).all()
+
+
+def test_heads_eval_takes_only_the_packed_heads():
+    """On a card the wrapper reads the head weights from the fold's pack:
+    a folded dict without one, or with one of another width, raises before
+    any launch (meta tensors stand for the card's)."""
+    meta = torch.device("meta")
+    f = {k: torch.empty(1, device=meta) for k in TF._HEAD_SHAPES}
+    f["val_d1_w"] = torch.empty((42, 16), device=meta)
+    h = torch.empty((2, 42, 32), device=meta)
+    legal = torch.empty((2, 43), dtype=torch.bool, device=meta)
+    with pytest.raises(ValueError, match="heads_pack"):
+        TF.heads_eval(f, h, legal)
+    with pytest.raises(ValueError, match="pack_heads: pol_w"):
+        TF.pack_heads({**f, "pol_w": torch.empty((32, 3))})
+
+
 @pytest.mark.parametrize("int8", [False, True])
 def test_fast_paired_eval_matches_jax(int8):
     """Two folded nets, selected per game by ``use_a``: the port's paired

@@ -402,3 +402,45 @@ def test_cli_train_and_play_random(tmp_path, monkeypatch, capsys):
               *tiny])
     res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert res["p2"] == "rp" and res["games"] == 2
+
+
+@pytest.mark.parametrize("trained", [True, False])
+def test_cli_play_without_c1_plays_latest(tmp_path, monkeypatch, capsys,
+                                          trained):
+    """``-m play`` with no ``--c1`` plays the checkpoint role ``latest``,
+    as the JAX CLI does (``--c1`` defaults to ``latest``,
+    ``alphazero_risk_tpu/cli.py:37-38,207-211``): the weights played are
+    those of the ``latest`` that a one-iteration ``-m train`` under another
+    seed wrote, not the fresh weights of the play's own ``--seed``.  With
+    no ``latest`` the restore keeps the fresh weights, as JAX's
+    ``CheckpointManager.restore`` does."""
+    monkeypatch.chdir(tmp_path)
+    tiny = ["--cpu", "--blocks", "1", "--filters", "16", "--value-hidden",
+            "8", "--mcts", "2", "--env-batch", "4", "--max-steps", "128",
+            "--bench-random", "2", "--bench-script", "2", "--fast", "--int8"]
+    if trained:
+        cli.main(["-m", "train", "--ti", "1", "--tg", "4", "--games", "2",
+                  "--e", "1", "--bs", "32", "--seed", "3", *tiny])
+        assert os.path.exists("checkpoints/latest.pt")
+    played = []
+    real_play = Trainer.play
+
+    def play(self, opponent, games):
+        played.append({k: v.clone() for k, v in self.net.state_dict().items()})
+        return real_play(self, opponent, games)
+
+    monkeypatch.setattr(Trainer, "play", play)
+    capsys.readouterr()
+    cli.main(["-m", "play", "--p2", "rp", "--games", "2", *tiny])
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert res["p2"] == "rp" and res["games"] == 2 and len(played) == 1
+    fresh = Trainer(cli.config_from_args(cli.build_parser().parse_args(
+        tiny)), seed=0, device="cpu").net.state_dict()
+    if trained:
+        want = torch.load("checkpoints/latest.pt", weights_only=True)["net"]
+        assert any(not torch.equal(fresh[k], want[k]) for k in want)
+    else:
+        want = fresh
+    assert played[0].keys() == want.keys()
+    for k, v in want.items():
+        assert torch.equal(played[0][k], v), k
