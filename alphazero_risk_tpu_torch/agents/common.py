@@ -29,3 +29,30 @@ def draw_step_randoms(generator: torch.Generator, batch_size: int, device):
                          generator=generator, device=gdev,
                          dtype=torch.int32)
     return u.to(device), dice.to(device)
+
+
+class BlockDraws:
+    """``draw_step_randoms`` draws from one generator in blocks that can be
+    put back.  ``block(k)`` makes k sequential per-step draws (one draw of
+    shape [k, B, ...] would give other numbers) and stacks them into
+    ``(u [k, B, 4], dice [k, B, 5])``; ``rewind(m)`` sets the generator
+    back to where it stood after the block's first m draws.  A snapshot is
+    ``Generator.get_state()``, which for a CUDA generator is its seed and
+    offset on the host: no sync."""
+
+    def __init__(self, generator: torch.Generator, batch_size: int, device):
+        self.gen, self.batch, self.device = generator, batch_size, device
+        self._states = []
+
+    def block(self, k: int):
+        us, dice, self._states = [], [], []
+        for _ in range(k):
+            self._states.append(self.gen.get_state())
+            u, d = draw_step_randoms(self.gen, self.batch, self.device)
+            us.append(u)
+            dice.append(d)
+        return torch.stack(us), torch.stack(dice)
+
+    def rewind(self, m: int) -> None:
+        if m < len(self._states):
+            self.gen.set_state(self._states[m])

@@ -21,7 +21,7 @@ from ..env import rules
 from ..env.state import (GameState, invert_players, new_game, tree_map,
                          tree_select)
 from . import random_agent, script_agent
-from .common import draw_step_randoms
+from .common import BlockDraws, draw_step_randoms
 
 AGENT_SCRIPT = 0
 AGENT_RANDOM = 1
@@ -55,14 +55,34 @@ def _agent_step(agent_kind: int, state, carry, reset, u, dice, cfg):
     return random_agent.random_step(state, u, dice, cfg), carry
 
 
+# The Script-vs-Script match's blocks of draws, MATCH_BLOCK steps each.
+# Data (b)'s 1,024 games end in 1,118 steps: three blocks (a launch and a
+# sync each), the unused draws of the last put back.  Blocks of 64 or 128
+# doubling to 512 timed within the runs' spread on an H100
+# (``tools/time_kernels.py --parts match_blocks``).
+MATCH_BLOCK = 512
+
+
 def play_match(generator: torch.Generator, state: GameState, agent0: int,
                agent1: int, cfg: Config, max_steps: int) -> MatchResult:
     """Play until every game ends (or ``max_steps``); ``agent0`` sits in
-    seat 0.  The step's ``u`` and dice come from ``generator``."""
+    seat 0.  The step's ``u`` and dice come from ``generator``.
+
+    Two ScriptPlayers run in blocks of ``MATCH_BLOCK`` steps on the card
+    (K9's multi-step entry, one host sync per block); the draws consumed, and so the result, are those of
+    one step per iteration.  A RandomPlayer seat steps once per
+    iteration."""
     b, dev = state.batch_size, state.device
     started_by = state.cur_player
     carry = script_agent.init_carry(b, dev)
     prev = torch.full((b,), -1, dtype=torch.int32, device=dev)
+    if agent0 == agent1 == AGENT_SCRIPT:
+        draws = BlockDraws(generator, b, dev)
+        state, _, _, t, _ = script_agent.run_script_blocks(
+            state, carry, prev, cfg, draws.block, draws.rewind,
+            k=MATCH_BLOCK, k_max=MATCH_BLOCK, limit=max_steps)
+        return MatchResult(status=rules.game_status(state, cfg),
+                           rounds=state.round, steps=t, started_by=started_by)
     t = 0
     while t < max_steps and bool(
             (rules.game_status(state, cfg) == STATUS_NOT_ENDED).any()):

@@ -1,12 +1,12 @@
-// The Risk rules for one game held by one thread, run by K9
-// (script_step.cu) and K10 (random_step.cu); K7 (rules_step.cu) and K8
-// (state_views.cu) run one game per warp (rules_warp.cuh) and reuse the
+// The Risk rules for one game held by one thread, run by K10
+// (random_step.cu); K7 (rules_step.cu), K8 (state_views.cu) and K9
+// (script_step.cu) run one game per warp (rules_warp.cuh) and reuse the
 // helpers here that take masks and scalars.
 //
 // The 42-land sets are uint64_t masks (bit j = land j), the armies an
 // int[42] array, the scalars plain ints.  The functions are the per-game
-// form of the plain PyTorch code in env/rules.py, agents/script_agent.py
-// and agents/random_agent.py, which compute every phase branch for every
+// form of the plain PyTorch code in env/rules.py and
+// agents/random_agent.py, which compute every phase branch for every
 // game and blend: here only the branch of the game's phase runs.  Every
 // output is an integer, a bool or a float32 computed in the order of the
 // plain version, so each agrees with it bit for bit (the sources are built
@@ -18,7 +18,7 @@
 //
 // The board tables come from env/topology.py: the wrapper packs them into
 // one device buffer (rules.kernel_tables) laid out as `Tables`, and each
-// block of K9 and K10 copies it into shared memory.
+// block of K10 copies it into shared memory.
 //
 // The same text compiles as host C++ (RD_FN is then `static inline`), so
 // the per-game functions can be exercised without a card.
@@ -507,21 +507,8 @@ RD_FN void apply_fortify(St& s, int frm, int li, int amount) {
   s.army[li] += amount;
 }
 
-// Index of the first maximum of score over the 42 lands (jnp.argmax).
-template <typename F>
-RD_FN int argmax_lands(F score) {
-  int best = score(0), idx = 0;
-  for (int j = 1; j < kLands; ++j) {
-    const int v = score(j);
-    if (v > best) {
-      best = v;
-      idx = j;
-    }
-  }
-  return idx;
-}
-
-// The SETUP_NEUTRAL move of both agents: +1 on land li, next setup turn.
+// The SETUP_NEUTRAL move of the RandomPlayer: +1 on land li, next setup
+// turn.
 RD_FN void setup_neutral_move(St& s, int li, const Tables& t) {
   s.army[li] += 1;
   s.round += 1;
@@ -531,197 +518,6 @@ RD_FN void setup_neutral_move(St& s, int li, const Tables& t) {
     s.reinf = calc_reinforcement(s.own[s.cur], t);
   } else {
     s.phase = kSetup;
-  }
-}
-
-// ---------------------------------------------------------------- script
-
-// script_agent._select_target: continent priority, then the first
-// attackable land in the continent's declared order.
-RD_FN int select_target(uint64_t owned, uint64_t attack_mask,
-                        const Tables& t) {
-  int best = 0, cont = 0;
-  for (int c = 0; c < kConts; ++c) {
-    const int unowned = popc(~owned & t.cont[c]);
-    const int att = popc(~owned & attack_mask & t.cont[c]);
-    const int score =
-        att > 0 ? unowned * 1000 - att * 10 + t.cont_tie_rank[c] : 100000000;
-    if (c == 0 || score < best) {
-      best = score;
-      cont = c;
-    }
-  }
-  int best_r = 0, tgt = 0;
-  for (int j = 0; j < kLands; ++j) {
-    const int r = has(attack_mask, j) ? t.land_rank[cont * kLands + j]
-                                      : kLands + 1;
-    if (j == 0 || r < best_r) {
-      best_r = r;
-      tgt = j;
-    }
-  }
-  return tgt;
-}
-
-// script_agent._select_from: the max-army land of owned_mask next to the
-// target, first in the target's neighbour list on ties.
-RD_FN int select_from(const St& s, int target, uint64_t owned_mask,
-                      const Tables& t) {
-  const uint64_t cand = t.adj[target] & owned_mask;
-  return argmax_lands([&](int j) {
-    return has(cand, j) ? s.army[j] * 8 - t.nrank[target * kLands + j] : -1;
-  });
-}
-
-// The ScriptPlayer's carry.
-struct Carry {
-  int to, from;
-  bool mode_b;
-};
-
-// script_agent.script_step_recorded for one game: the state and carry
-// advance only while the game runs; action and record are the recorded
-// 43-way action and its sample mask.
-RD_FN void script_step(St& s, Carry& carry, bool reset, const float* u,
-                       const int* dice, int& action, bool& record,
-                       const Tables& t, const Cfg& c) {
-  if (reset) {
-    carry.to = -1;
-    carry.from = -1;
-    carry.mode_b = false;
-  }
-  const bool live = game_status(s, c) == kNotEnded;
-  const Masks m = player_masks(s, t, c);
-  St o = s;
-  Carry nc = carry;
-  switch (s.phase) {
-    case kSetup: {
-      const int to = select_target(m.owned, m.attack, t);
-      const int frm = select_from(s, to, m.owned, t);
-      o.reinf -= 2;
-      o.army[frm] += 2;
-      o.phase = kSetupNeutral;
-      action = frm;
-      break;
-    }
-    case kSetupNeutral: {
-      const uint64_t pref1 = m.neutral & m.enemy_attack & ~m.attack;
-      const uint64_t pref2 = m.neutral & m.enemy_attack;
-      const uint64_t pool = pref1 ? pref1 : (pref2 ? pref2 : m.neutral);
-      const int li = masked_choice(pool, u[0]);
-      setup_neutral_move(o, li, t);
-      action = li;
-      break;
-    }
-    case kReinforcement: {
-      const bool need_pin = carry.to < 0;
-      if (need_pin) play_cards(o, t);
-      const int r_to =
-          need_pin ? select_target(m.owned, m.attack, t) : carry.to;
-      const int r_from =
-          need_pin ? select_from(o, r_to, m.owned, t) : carry.from;
-      nc.to = r_to;
-      nc.from = r_from;
-      const uint64_t onf = m.owned & ~m.full;
-      const bool from_ok = r_from >= 0 && r_from < kLands && has(onf, r_from);
-      const uint64_t near_to = t.adj[r_to] & onf;
-      const uint64_t near_enemy = onf & (m.enemy_attack | m.neutral_attack);
-      const int to_r =
-          from_ok ? r_from
-                  : (near_to ? low(near_to)
-                             : (near_enemy ? low(near_enemy)
-                                           : first_set_bit(onf)));
-      if (onf) {
-        const int amt =
-            imin(imin(o.reinf, c.min_move), c.army_max - o.army[to_r]);
-        apply_reinforcement(o, to_r, amt, t);
-      } else {
-        goto_attack(o, t);
-      }
-      action = to_r;
-      break;
-    }
-    case kAttack: {
-      const int at = clamp_land(carry.to), af = clamp_land(carry.from);
-      const bool to_valid = carry.to >= 0 && !has(s.own[s.cur], at);
-      const bool from_valid =
-          carry.from >= 0 && s.army[af] >= 2 && has(s.own[s.cur], af);
-      const bool pinned_ok = to_valid && from_valid;
-      int a_to = carry.to, a_from = carry.from;
-      if (!pinned_ok) {
-        a_to = select_target(m.owned, m.attack_wa, t);
-        a_from = select_from(s, a_to, m.owa, t);
-      }
-      nc.to = a_to;
-      nc.from = a_from;
-      nc.mode_b = carry.mode_b || !pinned_ok;
-      apply_attack(o, a_from, a_to, dice, t);
-      action = a_to;
-      break;
-    }
-    case kMobilization: {
-      const int mf = clamp_land(s.mob_from);
-      apply_mobilization(o, imin(s.army[mf] - 1, c.min_move), t);
-      action = clamp_land(s.mob_to);
-      break;
-    }
-    default: {
-      // components of the owned lands, labelled by their lowest land; the
-      // best holds the largest interior stack (landFortifyFromAmount)
-      const uint64_t owned = m.owned;
-      const uint64_t outside = kAll & ~owned;
-      uint64_t interior = 0, has_outside = 0;
-      for (uint64_t w = owned; w; w &= w - 1) {
-        const int j = low(w);
-        if (t.adj[j] & outside) has_outside |= bit(j);
-        else interior |= bit(j);
-      }
-      int best_score = -1000000, best_c = 0;
-      uint64_t best_comp = 0, rem = owned;
-      bool any_amt = false;
-      while (rem) {
-        const int r = low(rem);
-        const uint64_t comp = connected_to(owned, r, t);
-        rem &= ~comp;
-        int amt = 0;
-        for (uint64_t w = comp & interior; w; w &= w - 1)
-          amt = imax(amt, s.army[low(w)]);
-        if (amt > 0) {
-          any_amt = true;
-          const int sc = amt * 64 - r;
-          if (sc > best_score || (sc == best_score && r < best_c)) {
-            best_score = sc;
-            best_c = r;
-            best_comp = comp;
-          }
-        }
-      }
-      if (!any_amt)
-        best_comp = has(owned, 0) ? connected_to(owned, 0, t) : bit(0);
-      const uint64_t src = interior & best_comp;
-      const int f_from =
-          argmax_lands([&](int j) { return has(src, j) ? s.army[j] : -1; });
-      const uint64_t dst = owned & best_comp & has_outside;
-      const int f_to = argmax_lands([&](int j) {
-        return has(dst, j) ? popc(t.adj[j] & outside) : 0;
-      });
-      const bool do_fortify = m.owa && any_amt && dst;
-      int famt = 0, ff = 0, ft = 0;
-      if (do_fortify) {
-        famt = imax(imin(s.army[f_from] - 1, c.army_max - s.army[f_to]), 0);
-        ff = f_from;
-        ft = f_to;
-      }
-      apply_fortify(o, ff, ft, famt);
-      end_turn(o, t);
-      action = do_fortify ? f_to : kSkip;
-      break;
-    }
-  }
-  record = live && (s.phase == kFortify ? m.owa != 0 : true);
-  if (live) {
-    s = o;
-    carry = nc;
   }
 }
 

@@ -1,5 +1,6 @@
 // The Risk rules for one game held by one warp, shared by K7
-// (rules_step.cu) and K8 (state_views.cu).
+// (rules_step.cu), K8 (state_views.cu) and K9 (script_step.cu, which also
+// runs the ScriptPlayer's decision at the end of this file).
 //
 // Lane k owns lands k and k + 32 (the second only for k < 10): it holds
 // their armies in registers and reads their adjacency rows; lanes 0-5 also
@@ -484,6 +485,268 @@ __device__ __forceinline__ void step(WSt& s, int action, int die,
     default:
       fortify_step(s, li, is_skip, t->nrank, d, c, lane);
       break;
+  }
+}
+
+// ---------------------------------------------------------- ScriptPlayer
+
+// What a lane holds of the ScriptPlayer's tables: SCRIPT_LAND_RANK of its
+// two lands for each continent, one byte per continent (the ranks are
+// 0..42), and CONTINENT_TIE_RANK of continent `lane` (lanes 0-5).
+struct ScriptBoard {
+  uint64_t rank0, rank1;
+  int tie;
+};
+
+__device__ __forceinline__ ScriptBoard load_script_board(
+    const rd::Tables* __restrict__ t, int lane) {
+  ScriptBoard sb{0, 0, lane < rd::kConts ? t->cont_tie_rank[lane] : 0};
+  const bool t2 = two(lane);
+#pragma unroll
+  for (int c = 0; c < rd::kConts; ++c) {
+    const int8_t* r = t->land_rank + c * rd::kLands;
+    sb.rank0 |= static_cast<uint64_t>(static_cast<uint8_t>(r[lane])) << (8 * c);
+    if (t2)
+      sb.rank1 |= static_cast<uint64_t>(static_cast<uint8_t>(r[lane + 32]))
+                  << (8 * c);
+  }
+  return sb;
+}
+
+__device__ __forceinline__ int land_rank(uint64_t ranks, int cont) {
+  return static_cast<int>((ranks >> (8 * cont)) & 0xffu);
+}
+
+// script_agent._select_target: lanes 0-5 score one continent each, the
+// first of the least score by one min-reduction over (score, continent);
+// then the first attackable land in that continent's declared order, one
+// min-reduction over (SCRIPT_LAND_RANK, land).
+__device__ __forceinline__ int select_target(uint64_t owned, uint64_t attack,
+                                             const Board& d,
+                                             const ScriptBoard& sb,
+                                             int lane) {
+  int key = INT_MAX;
+  if (lane < rd::kConts) {
+    const int unowned = rd::popc(~owned & d.cont);
+    const int att = rd::popc(~owned & attack & d.cont);
+    const int score =
+        att > 0 ? unowned * 1000 - att * 10 + sb.tie : 100000000;
+    key = score * 8 + lane;
+  }
+  const int cont = __reduce_min_sync(kFull, key) & 7;
+  const int none = rd::kLands + 1;
+  const int k0 = (rd::has(attack, lane) ? land_rank(sb.rank0, cont) : none) *
+                     64 + lane;
+  const int k1 = !two(lane) ? INT_MAX
+                 : (rd::has(attack, lane + 32) ? land_rank(sb.rank1, cont)
+                                               : none) * 64 + lane + 32;
+  return __reduce_min_sync(kFull, rd::imin(k0, k1)) & 63;
+}
+
+// script_agent._select_from: the land of `mask` next to the target with
+// the most armies, first in the target's neighbour list on ties (keys
+// army * 8 - NEIGHBOR_RANK[target]).
+__device__ __forceinline__ int select_from(const WSt& s, int target,
+                                           uint64_t mask,
+                                           const rd::Tables* __restrict__ t,
+                                           const Board& d, int lane) {
+  const int8_t* nr = t->nrank + target * rd::kLands;
+  const int k0 = rd::has(mask, lane) && rd::has(d.adj0, target)
+                     ? s.ar0 * 8 - nr[lane]
+                     : -1;
+  const int k1 = !two(lane) ? kNoLand
+                 : (rd::has(mask, lane + 32) && rd::has(d.adj1, target)
+                        ? s.ar1 * 8 - nr[lane + 32]
+                        : -1);
+  return argmax_lands(k0, k1, lane);
+}
+
+// The ScriptPlayer's carry.
+struct Carry {
+  int to, from;
+  bool mode_b;
+};
+
+// script_agent.script_step_recorded for one game: the state and carry
+// advance only while the game runs (the carry's reset applies either way);
+// action and record are the recorded 43-way action and its sample mask.
+// u0 is the step's first uniform, `die` the lane's die (lanes 0-4).  Every
+// branch is that of the plain version, each side effect in its order; the
+// masks it reads are computed in the branch that reads them.
+__device__ __forceinline__ void script_step(
+    WSt& s, Carry& carry, bool reset, float u0, int die, int& action,
+    bool& record, const rd::Tables* __restrict__ t, const Board& d,
+    const ScriptBoard& sb, const rd::Cfg& c, int lane) {
+  if (reset) carry = Carry{-1, -1, false};
+  const bool live = game_status(s, c) == rd::kNotEnded;
+  const uint64_t owned = own_of(s, s.cur);
+  WSt o = s;
+  Carry nc = carry;
+  bool rec = true;
+  switch (s.phase) {
+    case rd::kSetup: {
+      const uint64_t attack = ~owned & nb_any(owned, d, lane);
+      const int to = select_target(owned, attack, d, sb, lane);
+      const int frm = select_from(s, to, owned, t, d, lane);
+      o.reinf -= 2;
+      add_army(o, frm, 2, lane);
+      o.phase = rd::kSetupNeutral;
+      action = frm;
+      break;
+    }
+    case rd::kSetupNeutral: {
+      const uint64_t enemy = own_of(s, 1 - s.cur);
+      const uint64_t neutral = s.own[rd::kNeutral];
+      const uint64_t attack = ~owned & nb_any(owned, d, lane);
+      const uint64_t enemy_attack = ~enemy & nb_any(enemy, d, lane);
+      const uint64_t pref1 = neutral & enemy_attack & ~attack;
+      const uint64_t pref2 = neutral & enemy_attack;
+      const int li =
+          rd::masked_choice(pref1 ? pref1 : (pref2 ? pref2 : neutral), u0);
+      add_army(o, li, 1, lane);
+      o.round += 1;
+      o.cur = 1 - o.cur;
+      if (o.reinf == 0) {
+        o.phase = rd::kReinforcement;
+        o.reinf = reinforcement(own_of(o, o.cur), d);
+      } else {
+        o.phase = rd::kSetup;
+      }
+      action = li;
+      break;
+    }
+    case rd::kReinforcement: {
+      const bool need_pin = carry.to < 0;
+      int r_to = carry.to, r_from = carry.from;
+      if (need_pin) {
+        play_cards(o, t);  // cards are traded once, at the pin
+        const uint64_t attack = ~owned & nb_any(owned, d, lane);
+        r_to = select_target(owned, attack, d, sb, lane);
+        r_from = select_from(o, r_to, owned, t, d, lane);
+      }
+      nc.to = r_to;
+      nc.from = r_from;
+      const uint64_t onf = owned & ~at_least(s, c.army_max, lane);
+      int to_r;
+      if (r_from >= 0 && r_from < rd::kLands && rd::has(onf, r_from)) {
+        to_r = r_from;
+      } else {
+        const uint64_t near_to =
+            ballot(rd::has(onf, lane) && rd::has(d.adj0, r_to),
+                   rd::has(onf, lane + 32) && rd::has(d.adj1, r_to));
+        if (near_to) {
+          to_r = rd::low(near_to);
+        } else {
+          const uint64_t enemy = own_of(s, 1 - s.cur);
+          const uint64_t neutral = s.own[rd::kNeutral];
+          const uint64_t near_enemy =
+              onf & ((~enemy & nb_any(enemy, d, lane)) |
+                     (nb_any(neutral, d, lane) & ~neutral));
+          to_r = near_enemy ? rd::low(near_enemy) : rd::first_set_bit(onf);
+        }
+      }
+      if (onf) {
+        const int amt = rd::imin(rd::imin(o.reinf, c.min_move),
+                                 c.army_max - army(o, to_r));
+        apply_reinforcement(o, to_r, amt, d, lane);
+      } else {
+        goto_attack(o, d, lane);
+      }
+      action = to_r;
+      break;
+    }
+    case rd::kAttack: {
+      const int at = rd::clamp_land(carry.to);
+      const int af = rd::clamp_land(carry.from);
+      const bool to_valid = carry.to >= 0 && !rd::has(owned, at);
+      const bool from_valid =
+          carry.from >= 0 && army(s, af) >= 2 && rd::has(owned, af);
+      const bool pinned_ok = to_valid && from_valid;
+      int a_to = carry.to, a_from = carry.from;
+      if (!pinned_ok) {
+        const uint64_t owa = owned & at_least(s, 2, lane);
+        const uint64_t attack_wa = ~owned & nb_any(owa, d, lane);
+        a_to = select_target(owned, attack_wa, d, sb, lane);
+        a_from = select_from(s, a_to, owa, t, d, lane);
+      }
+      nc.to = a_to;
+      nc.from = a_from;
+      nc.mode_b = carry.mode_b || !pinned_ok;
+      int dice[5];
+#pragma unroll
+      for (int k = 0; k < 5; ++k) dice[k] = __shfl_sync(kFull, die, k);
+      int a1, d1, units;
+      rd::battle(army(o, a_from), army(o, a_to), dice, a1, d1, units);
+      apply_battle(o, a_from, a_to, a1, d1, units, d, lane);
+      action = a_to;
+      break;
+    }
+    case rd::kMobilization: {
+      const int mf = rd::clamp_land(s.mob_from);
+      apply_mobilization(o, rd::imin(army(s, mf) - 1, c.min_move), d, lane);
+      action = rd::clamp_land(s.mob_to);
+      break;
+    }
+    default: {
+      // components of the owned lands in the order of their lowest land;
+      // the best holds the largest interior stack (landFortifyFromAmount)
+      const uint64_t outside = rd::kAll & ~owned;
+      const uint64_t hout = ballot(
+          rd::has(owned, lane) && (d.adj0 & outside) != 0,
+          rd::has(owned, lane + 32) && (d.adj1 & outside) != 0);
+      const uint64_t interior = owned & ~hout;
+      int best_score = -1000000, best_c = 0;
+      uint64_t best_comp = 0, rem = owned;
+      bool any_amt = false;
+      while (rem) {
+        const int r = rd::low(rem);
+        const uint64_t comp = connected_to(owned, r, d, lane);
+        rem &= ~comp;
+        const uint64_t in_c = comp & interior;
+        const int amt = __reduce_max_sync(
+            kFull, rd::imax(rd::has(in_c, lane) ? s.ar0 : 0,
+                            rd::has(in_c, lane + 32) ? s.ar1 : 0));
+        if (amt > 0) {
+          any_amt = true;
+          const int sc = amt * 64 - r;
+          if (sc > best_score || (sc == best_score && r < best_c)) {
+            best_score = sc;
+            best_c = r;
+            best_comp = comp;
+          }
+        }
+      }
+      // with no interior stack (any_amt false) nothing moves and the
+      // action is the skip, whichever lands these pick
+      const uint64_t src = interior & best_comp;
+      const uint64_t dst = owned & best_comp & hout;
+      const bool t2 = two(lane);
+      const int f_from = argmax_lands(
+          rd::has(src, lane) ? s.ar0 : -1,
+          !t2 ? kNoLand : (rd::has(src, lane + 32) ? s.ar1 : -1), lane);
+      const int f_to = argmax_lands(
+          rd::has(dst, lane) ? rd::popc(d.adj0 & outside) : 0,
+          !t2 ? kNoLand
+              : (rd::has(dst, lane + 32) ? rd::popc(d.adj1 & outside) : 0),
+          lane);
+      const uint64_t owa = owned & at_least(s, 2, lane);
+      const bool do_fortify = owa && any_amt && dst;
+      if (do_fortify) {
+        const int famt = rd::imax(
+            rd::imin(army(s, f_from) - 1, c.army_max - army(s, f_to)), 0);
+        add_army(o, f_from, -famt, lane);
+        add_army(o, f_to, famt, lane);
+      }
+      end_turn(o, d);
+      action = do_fortify ? f_to : rd::kSkip;
+      rec = s.phase != rd::kFortify || owa != 0;
+      break;
+    }
+  }
+  record = live && rec;
+  if (live) {
+    s = o;
+    carry = nc;
   }
 }
 

@@ -772,10 +772,12 @@ _FLAGS: dict = {}
 
 def kernel_flags(cfg: Config) -> tuple:
     """The trailing ints of the rules kernels: land_army_max,
-    min_unit_move, max_game_rounds and the switch bits."""
+    min_unit_move, max_game_rounds and the switch bits.  A Config the
+    kernels cannot run raises here, once per Config object."""
     hit = _FLAGS.get(id(cfg))
     if hit is not None and hit[0] is cfg:
         return hit[1]
+    _check_cfg(cfg)
     flags = (int(cfg.allow_yield) | int(cfg.limit_reinforcement_moves) << 1
              | int(cfg.limit_attack_moves) << 2
              | int(cfg.fast_attack_mobilization) << 3
@@ -857,7 +859,7 @@ def launch_rules(kernel, states: GameState, lead: tuple, pre: tuple,
     for a null pointer), the packed tables, B and ``kernel_flags(cfg)``.  Returns the
     resulting GameState (with the card masks of ``outs``, else those of
     ``states``) and every fresh output by name."""
-    _check_cfg(cfg)
+    flags = kernel_flags(cfg)
     b, dev = lead[0], states.phase.device
     ins = state_fields(states, lead)
     new = empty_fields(b, dev, STATE_SPEC + tuple(o for o in outs if o))
@@ -866,7 +868,7 @@ def launch_rules(kernel, states: GameState, lead: tuple, pre: tuple,
             *(t.data_ptr() for t in ins), *pre,
             *(new[name].data_ptr() for name, _, _ in STATE_SPEC),
             *(new[o[0]].data_ptr() if o else None for o in outs),
-            tables_ptr(dev), b, *kernel_flags(cfg))
+            tables_ptr(dev), b, *flags)
     result = GameState(
         **{name: new[name] for name, _, _ in STATE_SPEC},
         player_cards=new.get("player_cards", states.player_cards),

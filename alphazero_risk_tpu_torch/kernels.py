@@ -18,7 +18,10 @@ flags, and so its library name, differ from the others'.
 
 Every ``Kernel`` counts its launches in ``launches``, a plain integer that
 grows by one where the kernel is launched and nowhere else.  The C entry
-point returns ``cudaGetLastError()`` and a nonzero code raises.
+point returns ``cudaGetLastError()`` and a nonzero code raises.  A source
+with a second entry point (another ``__global__`` kernel in the same
+library) is a second ``Kernel`` of the same source, headers and flags: the
+same library, built once, and a count of its own.
 """
 
 from __future__ import annotations
@@ -162,15 +165,14 @@ HEADS_EVAL = Kernel(
     "heads_eval", "heads_softmax.cu", "az_heads_eval",
     [P] * 6 + [I, I, I], fmad=True)
 
-# 14 tree state fields, 9 tree arrays, root, 14 source state fields, term,
-# node_value, legal, prior, exp_n, exp_a, exp_o, cur, leaf_v, leaf_p, B, N,
-# root_mode
+# the tree's pointer pack (mcts.search._k6_pack), 14 source state fields,
+# status, value, legal, prior, exp_n, exp_a, exp_o, cur, B, N, root_mode
 TREE_WRITE = Kernel(
     "write_nodes", "tree_write.cu", "az_write_nodes",
-    [P] * 48 + [I, I, I])
+    [P] * 23 + [I, I, I])
 
-# The rules kernels share csrc/rules_dev.cuh, and K7 and K8, one warp per
-# game, also csrc/rules_warp.cuh.  The trailing ints of each: B,
+# The rules kernels share csrc/rules_dev.cuh, and K7, K8 and K9, one warp
+# per game, also csrc/rules_warp.cuh.  The trailing ints of each: B,
 # land_army_max, min_unit_move, max_game_rounds, flags (rules.
 # kernel_flags), and for K8 the feature version.
 RULES = ("rules_dev.cuh",)
@@ -192,22 +194,33 @@ STATE_VIEWS = Kernel(
 # 3 carry fields, action, record out; tables
 SCRIPT_STEP = Kernel(
     "script_step", "script_step.cu", "az_script_step",
-    [P] * 36 + [I] * 5, headers=RULES)
+    [P] * 36 + [I] * 5, headers=RULES_WARP)
 
 # 12 state fields, u, dice in; 12 state fields, action, record out; tables
 RANDOM_STEP = Kernel(
     "random_step", "random_step.cu", "az_random_step",
     [P] * 29 + [I] * 5, headers=RULES)
 
+# K9's multi-step entry, in K9's library: 12 state fields, 3 carry
+# fields, prev, u [k, B, 4], dice [k, B, 5] in, k, the AlphaZero seats'
+# bits; 12 state fields, 3 carry fields, prev, the step counts out; tables
+SCRIPT_STEPS = Kernel(
+    "script_steps", "script_step.cu", "az_script_steps",
+    [P] * 18 + [I] * 2 + [P] * 18 + [I] * 5, headers=RULES_WARP)
+
 ALL = (CONV3X3_I8, MCTS_DESCEND, MCTS_BACKUP, CONV3X3_BF16, HEADS_EVAL,
-       TREE_WRITE, RULES_STEP, STATE_VIEWS, SCRIPT_STEP, RANDOM_STEP)
+       TREE_WRITE, RULES_STEP, STATE_VIEWS, SCRIPT_STEP, RANDOM_STEP,
+       SCRIPT_STEPS)
 
 
 def build_all() -> None:
-    """Build every kernel, one ``nvcc`` per source, all started together,
-    and load them."""
-    procs = [(k, k.start_build()) for k in ALL]
-    for k, proc in procs:
+    """Build every library, one ``nvcc`` per source, all started together,
+    and load every kernel."""
+    procs = {}
+    for k in ALL:
+        if k.library not in procs:
+            procs[k.library] = (k, k.start_build())
+    for k, proc in procs.values():
         k.finish_build(proc)
     for k in ALL:
         k._load()

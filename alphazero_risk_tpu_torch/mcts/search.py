@@ -33,6 +33,7 @@ yet.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 from typing import Callable, NamedTuple, Tuple
@@ -85,6 +86,16 @@ class Tree:
     next_free: torch.Tensor  # [B] i32
     root: torch.Tensor      # [B] i32 — current root node index
 
+    # The arrays, the fields of ``states`` among them, are updated in place
+    # and never reassigned: K6 keeps their pointers (``_k6_pack``).
+
+    def __setattr__(self, name, value):
+        # a field set to another object drops K6's pointer pack; an
+        # in-place update (``+=``) keeps it
+        if self.__dict__.get(name) is not value:
+            self.__dict__.pop("_k6", None)
+        object.__setattr__(self, name, value)
+
 
 class SearchResult(NamedTuple):
     visit_counts: torch.Tensor  # [B, 43] root visit counts
@@ -121,13 +132,18 @@ def _state_fields(state: GameState):
     return [getattr(state, f.name) for f in dataclasses.fields(GameState)]
 
 
-def _write_nodes_plain(tree: Tree, src: GameState, term: torch.Tensor,
-                       node_value: torch.Tensor, legal: torch.Tensor,
+def _write_nodes_plain(tree: Tree, src: GameState, status: torch.Tensor,
+                       value: torch.Tensor, legal: torch.Tensor,
                        probs: torch.Tensor, path: Descent | None):
-    """The node write in plain PyTorch: masked index writes, field by
+    """The node write in plain PyTorch: the node value of
+    ``simulate_once:221-227`` (the terminal value of a finished state for
+    its mover, else the network's), then masked index writes, field by
     field, as the JAX ``.at[].set`` chain."""
     b, n = tree.player.shape
     rows = _rows(b, tree.player.device)
+    term = status != STATUS_NOT_ENDED
+    node_value = torch.where(term, _terminal_value(status, src.cur_player),
+                             value.to(F32))
     if path is None:
         expanding = torch.ones((b,), dtype=torch.bool,
                                device=tree.player.device)
@@ -164,59 +180,83 @@ def _write_nodes_plain(tree: Tree, src: GameState, term: torch.Tensor,
     return leaf_v, leaf_p
 
 
-def write_nodes(tree: Tree, src: GameState, term: torch.Tensor,
-                node_value: torch.Tensor, legal: torch.Tensor,
+# The tree arrays K6 writes, after the 14 state fields: name, type, shape
+# after [B, N] (None: the array is [B]).
+_K6_ARRAYS = (("expanded", torch.bool, ()), ("terminal", torch.bool, ()),
+              ("value", F32, ()), ("player", I32, ()), ("parent", I32, ()),
+              ("legal", torch.bool, (NUM_ACTIONS,)),
+              ("prior", F32, (NUM_ACTIONS,)),
+              ("children", I32, (NUM_ACTIONS, 3)), ("next_free", I32, None),
+              ("root", I32, None))
+_STATE_SPEC = rules.STATE_SPEC + rules.CARDS_SPEC
+
+
+def _k6_pack(tree: Tree):
+    """K6's view of a tree on the card, made at its first write (the root
+    write of ``init_tree``) and kept on the tree: its 24 arrays, checked
+    once, and the leaf outputs, allocated once, as one host array of
+    pointers; with its address and the leaf outputs.  K3 reads the leaf
+    outputs in stream order before the next simulation's K6 writes them."""
+    pack = tree.__dict__.get("_k6")
+    if pack is None:
+        b, n = tree.player.shape
+        arrays = rules.state_fields(tree.states, (b, n), _STATE_SPEC)
+        arrays += [rules.checked(getattr(tree, name), dtype,
+                                 (b,) if tail is None else (b, n) + tail,
+                                 name)
+                   for name, dtype, tail in _K6_ARRAYS]
+        dev = tree.player.device
+        leaf = (torch.empty((b,), dtype=F32, device=dev),
+                torch.empty((b,), dtype=I32, device=dev))
+        ptrs = (ctypes.c_void_p * 26)(*(t.data_ptr() for t in arrays),
+                                      *(t.data_ptr() for t in leaf))
+        pack = (ptrs, ctypes.addressof(ptrs), leaf)
+        tree._k6 = pack
+    return pack
+
+
+def write_nodes(tree: Tree, src: GameState, status: torch.Tensor,
+                value: torch.Tensor, legal: torch.Tensor,
                 probs: torch.Tensor, path: Descent | None = None):
     """Write one node per game into the tree, in place (kernel K6).
 
-    With ``path`` (one simulation's descent): a game is expanding when
-    ``path.exp_n >= 0`` and its root is not terminal.  Its node
-    ``idx = min(next_free, N - 1)`` receives the state ``src`` with
-    ``term``, ``node_value``, ``legal`` and ``probs``; its parent's child
-    link and ``next_free`` follow.  Other games write nothing.  Returns
-    ``(leaf_v [B] f32, leaf_p [B] i32)``: the new node's value and mover
-    when expanding, else those of ``path.cur``.  Without ``path`` the same
-    fields go to node 0 of every game (the root write) and nothing is
-    returned.
+    ``status`` [B] is the game status of ``src`` and ``value`` [B] the
+    network's value of it: the node's ``terminal`` is ``status !=
+    NOT_ENDED`` and its value the terminal value when terminal, else
+    ``value`` (``simulate_once:221-227``).  With ``path`` (one
+    simulation's descent): a game is expanding when ``path.exp_n >= 0``
+    and its root is not terminal.  Its node ``idx = min(next_free, N -
+    1)`` receives the state ``src`` with its terminal flag, value,
+    ``legal`` and ``probs``; its parent's child link and ``next_free``
+    follow.  Other games write nothing.  Returns ``(leaf_v [B] f32,
+    leaf_p [B] i32)``: the new node's value and mover when expanding, else
+    those of ``path.cur``; on the card two buffers of the tree, rewritten
+    by its next simulation.  Without ``path`` the same fields go to node 0
+    of every game (the root write) and nothing is returned.
 
     CPU tensors take ``_write_nodes_plain``; CUDA tensors launch the kernel
     (no fallback).
     """
     if tree.visit.device.type == "cpu":
-        return _write_nodes_plain(tree, src, term, node_value, legal, probs,
+        return _write_nodes_plain(tree, src, status, value, legal, probs,
                                   path)
     b, n = tree.player.shape
-    dev = tree.player.device
-    arrays = (tree.expanded, tree.terminal, tree.value, tree.player,
-              tree.parent, tree.legal, tree.prior, tree.children,
-              tree.next_free, tree.root)
-    ins = (*_state_fields(src), term, node_value, legal, probs)
+    ck = rules.checked
+    _, pack_addr, leaf = _k6_pack(tree)
+    ins = (*rules.state_fields(src, (b,), _STATE_SPEC),
+           ck(status, I32, (b,), "status"), ck(value, F32, (b,), "value"),
+           ck(legal, torch.bool, (b, NUM_ACTIONS), "legal"),
+           ck(probs, F32, (b, NUM_ACTIONS), "probs"))
     if path is None:
-        idxs, outs = (None,) * 4, (None, None)
+        idxs = (None,) * 4
     else:
-        idxs = (path.exp_n, path.exp_a, path.exp_o, path.cur)
-        outs = (torch.empty((b,), dtype=F32, device=dev),
-                torch.empty((b,), dtype=I32, device=dev))
-    every = (*_state_fields(tree.states), *arrays, *ins,
-             *(t for t in idxs if t is not None))
-    kernels.require_cuda(*every)
-    for t, s in zip(_state_fields(tree.states), _state_fields(src)):
-        if t.dtype != s.dtype or tuple(t.shape) != (b, n) + tuple(
-                s.shape[1:]):
-            raise ValueError("write_nodes: tree and source states differ "
-                             "in type or shape")
-    if (term.dtype != torch.bool or node_value.dtype != F32
-            or legal.dtype != torch.bool or probs.dtype != F32
-            or tuple(probs.shape) != (b, NUM_ACTIONS)
-            or tuple(legal.shape) != (b, NUM_ACTIONS)):
-        raise ValueError("write_nodes takes bool term and legal [B,43] and "
-                         "f32 node_value and probs [B,43]")
-    P = kernels.ptr
-    kernels.TREE_WRITE.launch(
-        *(P(t) for t in _state_fields(tree.states)), *(P(t) for t in arrays),
-        *(P(t) for t in ins), *(P(t) for t in idxs), *(P(t) for t in outs),
-        b, n, int(path is None))
-    return None if path is None else outs
+        idxs = tuple(ck(t, I32, (b,), name).data_ptr() for name, t in (
+            ("exp_n", path.exp_n), ("exp_a", path.exp_a),
+            ("exp_o", path.exp_o), ("cur", path.cur)))
+    if b:
+        kernels.TREE_WRITE.launch(pack_addr, *(t.data_ptr() for t in ins),
+                                  *idxs, b, n, int(path is None))
+    return None if path is None else leaf
 
 
 def _empty_tree(root: GameState, cfg: Config) -> Tree:
@@ -247,15 +287,12 @@ def _empty_tree(root: GameState, cfg: Config) -> Tree:
 
 
 def root_inputs(root: GameState, cfg: Config, eval_fn: EvalFn):
-    """What ``write_nodes`` writes into node 0: ``(state, term, value,
-    legal, prior)`` of the root, contiguous."""
+    """What ``write_nodes`` writes into node 0: ``(state, status, network
+    value, legal, prior)`` of the root, contiguous."""
     legal0, status0 = rules.state_views(root, cfg, legal=True, status=True)
     probs0, value0 = eval_fn(root, legal0)
-    term0 = status0 != STATUS_NOT_ENDED
-    value0 = torch.where(term0, _terminal_value(status0, root.cur_player),
-                         value0.to(F32))
-    return (tree_map(lambda x: x.contiguous(), root), term0.contiguous(),
-            value0.contiguous(), legal0.contiguous(),
+    return (tree_map(lambda x: x.contiguous(), root), status0,
+            value0.to(F32).contiguous(), legal0,
             probs0.to(F32).contiguous())
 
 
@@ -429,28 +466,26 @@ def backup(tree: Tree, path: Descent, leaf_v: torch.Tensor,
 def expansion_inputs(tree: Tree, path: Descent, cfg: Config,
                      eval_fn: EvalFn):
     """What ``write_nodes`` writes for one simulation: ``(child state,
-    term, node value, legal, prior)`` of the node each game would expand,
-    contiguous: the child of node ``exp_n`` (``rules.expand``, K7 on the
-    card), the network on it and the terminal value."""
+    status, network value, legal, prior)`` of the node each game would
+    expand: the child of node ``exp_n`` (``rules.expand``, K7 on the card,
+    whose outputs are fresh contiguous tensors) and the network on it."""
     child_state, status, legal_c = rules.expand(
         tree.states, path.exp_n, path.exp_a, path.exp_o, cfg)
-    term = status != STATUS_NOT_ENDED
     probs_c, value_c = eval_fn(child_state, legal_c)
-    node_value = torch.where(
-        term, _terminal_value(status, child_state.cur_player),
-        value_c.to(F32))
-    return (tree_map(lambda x: x.contiguous(), child_state),
-            term.contiguous(), node_value.contiguous(), legal_c.contiguous(),
-            probs_c.to(F32).contiguous())
+    return child_state, status, value_c.to(F32), legal_c, probs_c.to(F32)
 
 
 def simulate_once(tree: Tree, gumbel: torch.Tensor, cfg: Config,
                   eval_fn: EvalFn) -> Tree:
-    """One simulation for every game; ``gumbel`` [max_depth, B, 3]."""
+    """One simulation for every game; ``gumbel`` [max_depth, B, 3].
+
+    On the card the leaf value and mover that K6 returns are buffers of
+    the tree, which the next simulation's K6 rewrites: K3 reads them here,
+    in stream order, and nothing keeps them."""
     path = descend(tree, gumbel, cfg)
     leaf_v, leaf_p = write_nodes(
         tree, *expansion_inputs(tree, path, cfg, eval_fn), path)
-    backup(tree, path, leaf_v.contiguous(), leaf_p.contiguous())
+    backup(tree, path, leaf_v, leaf_p)
     return tree
 
 

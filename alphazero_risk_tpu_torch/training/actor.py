@@ -13,7 +13,9 @@ the replay buffer stores what ``NNInputData`` stores in the reference
 Randomness is explicit.  ``run_episodes`` takes a ``draws`` object that
 hands out, per step, the search's Gumbel noise and root-noise uniforms, the
 Gumbel noise of a sampled move, the dice of the AlphaZero move and the
-opponent's ``u``/dice (of the step, and of each fast-forward iteration).
+opponent's ``u``/dice (of the step, and of each fast-forward iteration:
+one at a time, ``ff()``, or in blocks that can be put back, ``ff_block(k)``
+and ``ff_rewind(m)``).
 ``GeneratorDraws`` draws them from a ``torch.Generator``; a test can hand in
 the numbers another implementation drew.  ``run_scripted_episodes`` (the
 supervised-bootstrap generator: scripted and random agents only, every
@@ -29,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ..agents import random_agent, script_agent
-from ..agents.common import draw_step_randoms
+from ..agents.common import BlockDraws, draw_step_randoms
 from ..config import Config, NUM_ACTIONS, NUM_LANDS, STATUS_NOT_ENDED
 from ..env import rules
 from ..env.featurize import featurize
@@ -40,6 +42,14 @@ from ..models.resnet import AZNet
 OPP_AZ = 0              # the JAX package's opponent codes
 OPP_SCRIPT = 1
 OPP_RANDOM = 2
+
+# The ScriptPlayer fast-forward's blocks of draws: the first of FF_BLOCK
+# iterations, each next one twice the last, at most FF_BLOCK_MAX.  In the
+# 32-game play slice 156 of 256 fast-forwards run no iteration, the rest
+# 2 to 90 (median 27), so most take one block, 38 of them two.  A first
+# block sized from the previous fast-forward was not faster beyond the
+# runs' spread on an H100 (``tools/time_kernels.py --parts ff_blocks``).
+FF_BLOCK, FF_BLOCK_MAX = 32, 64
 
 I8, I16, I32 = torch.int8, torch.int16, torch.int32
 F16, F32 = torch.float16, torch.float32
@@ -148,6 +158,7 @@ class GeneratorDraws:
                  batch: int, device):
         self.gen, self.cfg, self.batch, self.device = (generator, cfg, batch,
                                                        device)
+        self._ff = BlockDraws(generator, batch, device)
 
     def begin_step(self) -> None:
         """Called once at the start of every micro-step."""
@@ -155,6 +166,14 @@ class GeneratorDraws:
     def ff(self):
         """(u [B,4], dice [B,5]) of one opponent fast-forward iteration."""
         return draw_step_randoms(self.gen, self.batch, self.device)
+
+    def ff_block(self, k: int):
+        """(u [k,B,4], dice [k,B,5]): the next k ``ff()`` draws."""
+        return self._ff.block(k)
+
+    def ff_rewind(self, m: int) -> None:
+        """Put the draws back to after the last block's first m."""
+        self._ff.rewind(m)
 
     def gumbel(self) -> torch.Tensor:
         """[S, max_depth, B, 3] chance noise of the step's search."""
@@ -223,7 +242,11 @@ def run_episodes(eval_fn, state0: GameState, draws, cfg: Config,
 
     When opponent records are not needed (``record_all=False``), opponent
     movers are fast-forwarded to their next AZ turn before each search, so
-    no MCTS compute is spent on games an opponent is moving in.
+    no MCTS compute is spent on games an opponent is moving in.  The
+    ScriptPlayer fast-forwards in blocks of draws on the card
+    (``script_agent.run_script_blocks``, blocks of ``FF_BLOCK`` to
+    ``FF_BLOCK_MAX`` iterations), the RandomPlayer one iteration at a
+    time.
     """
     if cfg.tree_reuse:
         raise NotImplementedError(
@@ -248,7 +271,11 @@ def run_episodes(eval_fn, state0: GameState, draws, cfg: Config,
 
     for _ in range(num_steps):
         draws.begin_step()
-        if fast_forward:
+        if fast_forward and opponent == OPP_SCRIPT:
+            state, carry, prev, _, _ = script_agent.run_script_blocks(
+                state, carry, prev, cfg, draws.ff_block, draws.ff_rewind,
+                az_seats=az_seats, k=FF_BLOCK, k_max=FF_BLOCK_MAX)
+        elif fast_forward:
             while True:
                 waiting = az_turn_or_done(state)
                 if bool(waiting.all()):

@@ -20,8 +20,9 @@ when all of them pass):
    ``F.conv2d``; for K1 also ``torch._int_mm`` on the prebuilt im2col
    matrix, checked exact); K5 runs on that batch's trunk output with its
    legal mask (and is timed at 128, 512 and 1,024 played states); K6
-   writes the node of one more simulation into that tree, and the roots
-   of a fresh one.  Every kernel is then held again
+   writes the node of one more simulation into that tree (also with the
+   child's status drawn from running, draw and either winner: terminal
+   children), and the roots of a fresh one.  Every kernel is then held again
    (comparison only) at the other batches the two paths launch (the play
    slice's 32 games, the arena's 16, the benchmark's 4 and 2:
    ``PATH_BATCHES``), on the first games of the same leaf batch, tree and
@@ -43,15 +44,22 @@ when all of them pass):
    all three outputs, the features alone, legality and status), and
    compared at every batch of ``RULES_BATCHES`` (K7 also timed there); K7's
    expand entry on the main-path tree and its slices (timed at GAMES on
-   it and on the training phase's tree).
+   it and on the training phase's tree).  K9's multi-step entry is timed
+   (one launch of 64 iterations, per launch and per iteration) on 1,024
+   and 64 mirrored games 100 steps into a Script-vs-Script match, beside
+   the single step's kernel on the same states.
    The training and data phases search at ``TRAIN``'s simulations: K2,
    K3, K6 and K7's expand are held on such a tree at each of their
    batches (``TRAIN_BATCHES``);
 4. slice: the flagship 20x256 net, int8 fast path, 32 simulations, plays
    32 mirrored games against the ScriptPlayer to the end through
-   ``Trainer.play`` (the first main path, launch counts read around it),
-   checks the int8 and bf16 forwards against the plain network on a small
-   input, then runs a short bf16 pass;
+   ``Trainer.play`` (the first main path, launch counts read around it;
+   the ScriptPlayer fast-forwards in blocks of K9's multi-step entry,
+   whose launches, blocks and iterations per lockstep step are printed
+   and a sample of whose launches is held against the plain multi-step
+   function on the slice's own states), checks the int8 and bf16 forwards
+   against the plain network on a small input, then runs a short bf16
+   pass;
 5. train: one iteration of ``Trainer.train`` from the flagship weights at
    full width (the second main path, launch counts read around it):
    self-play of 64 mirrored games with sampled moves, root noise and
@@ -66,13 +74,17 @@ when all of them pass):
    B=1,024 from the mixed states, on the kernels and on the plain
    versions from the same draws: states, carries and records equal; K8
    on a learner batch of its records from the replay.  (b)
-   ``play_match`` Script vs Script on 1,024 mirrored games to the end.
+   ``play_match`` Script vs Script on 1,024 mirrored games to the end, in
+   blocks of K9's multi-step entry (one launch per block, each held
+   against the plain multi-step function; the live micro-steps are the
+   sum of its step counts).
    (c) ``Trainer.train_on_data(loops=1)`` from the flagship at full
    width (``DATA``): 128 Script-vs-Script and 128 Script-vs-Random games,
    3 epochs at batch 512, the arena and the benchmark at the training
    phase's cut depth, ``temp``/``latest``/meta; launch counts read around
    it (K9 once per lockstep step of both scripted matches, K10 once per
-   step of the Script-vs-Random one).
+   step of the Script-vs-Random one).  The data path's launch counts are
+   those of (b) and (c).
 
 The line before the card's is a JSON object with one entry per kernel:
 ``launches`` sums the three main paths (play, train, data), each also
@@ -772,6 +784,23 @@ def check_k6(tree, gum, root, cfg, eval_fn, timed=True):
     bad = trees_differ(tree, ref)
     if bad:
         fail(f"K6 tree array {bad} differs from the plain write")
+    # terminal children: the same write with the child's status drawn from
+    # running, draw and either winner (the node value K6 selects)
+    status = torch.tensor([-1, -2, 0, 1], dtype=torch.int32,
+                          device=lv.device)[torch.randint(
+                              0, 4, (b,), device=lv.device,
+                              generator=torch.Generator(device=lv.device)
+                              .manual_seed(b))]
+    tins = (ins[0], status, *ins[2:])
+    kt, pt = clone_tree(ref), clone_tree(ref)
+    tv, tp = S.write_nodes(kt, *tins, path)
+    rv, rp = S._write_nodes_plain(pt, *tins, path)
+    torch.cuda.synchronize()
+    bad = trees_differ(kt, pt) or (
+        None if torch.equal(tv, rv) and torch.equal(tp, rp) else "leaf")
+    if bad:
+        fail(f"K6 with terminal children: {bad} differs from the plain "
+             f"write")
     root_done = tree.terminal[torch.arange(b, device=lv.device),
                               tree.root.long()]
     expanding = int(((path.exp_n >= 0) & ~root_done).sum())
@@ -785,7 +814,8 @@ def check_k6(tree, gum, root, cfg, eval_fn, timed=True):
         fail(f"K6 root write: tree array {bad} differs from the plain write")
     if not timed:
         log(f"K6 write_nodes B={b} N={n}: all arrays equal (the expansion "
-            f"write, {expanding}/{b} games expanding, and the root write)")
+            f"write, {expanding}/{b} games expanding, with terminal "
+            f"children, and the root write)")
         return None
     # bytes of the games that expand: each input read once and written
     # once into the node, plus the indices, the link and the leaf outputs
@@ -799,7 +829,8 @@ def check_k6(tree, gum, root, cfg, eval_fn, timed=True):
     dev = device_ms(lambda: S.write_nodes(tree, *ins, path),
                     "write_nodes_kernel")
     log(f"K6 write_nodes B={b} N={n}: all arrays equal (the expansion "
-        f"write, {expanding}/{b} games expanding, and the root write); "
+        f"write, {expanding}/{b} games expanding, with terminal children, "
+        f"and the root write); "
         f"{ms:.4f} ms (bound {bms:.6f} ms, {by}; kernel alone "
         f"{fmt_ms(dev)}); plain {plain:.3f} ms; root write {ms_root:.4f} ms")
     return {"max_abs_err": 0.0, "ms": ms, "device_ms": dev,
@@ -1091,6 +1122,119 @@ def check_k9_k10(mx, cfg, timed=True):
     return e9, e10
 
 
+@contextlib.contextmanager
+def watched_blocks(keep=0, every=1):
+    """Inside the block every call of K9's multi-step entry
+    (``script_agent.script_steps``) and of the block loop around it
+    (``run_script_blocks``) is counted: the loops' iterations and blocks
+    in ``w["iterations"]`` and ``w["blocks"]``, each loop's iterations in
+    ``w["lengths"]``, the entry's step counts
+    summed on the card in ``w["steps"]`` (the live micro-steps), and
+    every ``every``-th call of the entry, up to ``keep``, with its inputs
+    and outputs in ``w["calls"]`` (for ``hold_k9_steps``; held after the
+    run, by the plain version alone, so no launch is added)."""
+    from alphazero_risk_tpu_torch.agents import script_agent as SA
+    w = {"iterations": 0, "blocks": 0, "runs": 0, "steps": 0, "calls": [],
+         "n": 0, "lengths": []}
+    steps_fn, run_fn = SA.script_steps, SA.run_script_blocks
+
+    def steps(*a, **kw):
+        out = steps_fn(*a, **kw)
+        w["steps"] = out[3].sum() + w["steps"]
+        if w["n"] % every == 0 and len(w["calls"]) < keep:
+            w["calls"].append((a, kw, out))
+        w["n"] += 1
+        return out
+
+    def run(*a, **kw):
+        out = run_fn(*a, **kw)
+        w["iterations"] += out[3]
+        w["lengths"].append(out[3])
+        w["blocks"] += out[4]
+        w["runs"] += 1
+        return out
+
+    SA.script_steps, SA.run_script_blocks = steps, run
+    try:
+        yield w
+    finally:
+        SA.script_steps, SA.run_script_blocks = steps_fn, run_fn
+
+
+def hold_k9_steps(calls, what):
+    """The multi-step entry's outputs of ``calls`` (from ``watched_blocks``)
+    against the plain multi-step function on the same inputs: state,
+    carry, prev and step counts bit for bit."""
+    import dataclasses
+    import torch
+    from alphazero_risk_tpu_torch.agents import script_agent as SA
+    games = steps = 0
+    for a, kw, out in calls:
+        ref = SA._script_steps_plain(*a, **kw)
+        torch.cuda.synchronize()
+        bad = states_differ(out[0], ref[0]) or next(
+            (f"carry {f.name}" for f in dataclasses.fields(SA.ScriptCarry)
+             if not torch.equal(getattr(out[1], f.name),
+                                getattr(ref[1], f.name))), None) or (
+            None if torch.equal(out[2], ref[2]) and torch.equal(out[3],
+                                                               ref[3])
+            else "prev or n")
+        if bad:
+            fail(f"K9 script_steps {what}: {bad} differs from the plain "
+                 f"multi-step function (k={a[3].shape[0]}, "
+                 f"B={out[3].numel()})")
+        games += out[3].numel()
+        steps += int(out[3].sum())
+    log(f"K9 script_steps {what}: {len(calls)} launches held against the "
+        f"plain multi-step function ({games} games, {steps} steps): state, "
+        f"carry, prev and step counts equal")
+
+
+def check_k9_steps(cfg, dev, b=MIXED, k=64, warm=100):
+    """K9's multi-step entry timed on ``b`` mirrored games ``warm``
+    Script-vs-Script steps into their match (the data phase's (b) start),
+    one launch of ``k`` iterations, against the plain multi-step function
+    on the same inputs: the call, the kernel alone, per launch and per
+    iteration, beside the single step's kernel alone on the same states
+    (the per-iteration cost of the loop it replaces)."""
+    import torch
+    from alphazero_risk_tpu_torch.agents import driver as D
+    from alphazero_risk_tpu_torch.agents import script_agent as SA
+    from alphazero_risk_tpu_torch.agents.common import BlockDraws
+    gen = torch.Generator(device=dev).manual_seed(31)
+    st = D.mirrored_initial_states(b, generator=gen, device=dev)
+    carry = SA.init_carry(b, dev)
+    prev = torch.full((b,), -1, dtype=torch.int32, device=dev)
+    draws = BlockDraws(gen, b, dev)
+    u, dice = draws.block(warm)
+    st, carry, prev, _ = SA.script_steps(st, carry, prev, u, dice, cfg)
+    u, dice = draws.block(k)
+    args = (st, carry, prev, u, dice, cfg, (False, False))
+    out = SA.script_steps(*args)
+    hold_k9_steps([(args, {}, out)], f"B={b} k={k}")
+    n = int(out[3].sum())
+    sb = state_bytes(st)
+    # state, carry (9 bytes) and prev read and written once, the step
+    # counts written, and the draws of the steps taken (u[0] and 5 dice)
+    nbytes = b * (2 * (sb + 9 + 4) + 4) + n * (4 + 20) + TABLE_BYTES
+    e = timed_entry(lambda: SA.script_steps(*args),
+                    lambda: SA._script_steps_plain(*args),
+                    "script_steps_kernel", nbytes, b, reps=20)
+    reset = st.cur_player != prev
+    single = device_ms(lambda: SA.script_step_recorded(
+        st, carry, reset, u[0], dice[0], cfg), "script_step_kernel")
+    e.update(shape=f"B={b} k={k}", steps=n,
+             device_ms_per_iteration=(None if e["device_ms"] is None
+                                      else e["device_ms"] / k),
+             single_step_device_ms=single)
+    log(f"K9 script_steps B={b} k={k} ({n} game-steps): {e['ms']:.4f} ms "
+        f"per launch (kernel alone {fmt_ms(e['device_ms'])}, "
+        f"{fmt_ms(e['device_ms_per_iteration'])} per iteration; the single "
+        f"step alone {fmt_ms(single)}); bound {e['bound_ms']:.6f} ms; plain "
+        f"{e['plain_ms']:.3f} ms")
+    return e
+
+
 def plain_grown_tree(states, cfg, dev):
     """Trees over 256 games grown by 8 plain-version (CPU) simulations
     with a cheap stand-in network."""
@@ -1299,6 +1443,8 @@ def phase_kernels(cfg, dev):
         k8["b1024"] = check_k8(mx.state, cfg)
         k9, k10 = check_k9_k10(first(mx, GAMES), cfg)
         k9["b1024"], k10["b1024"] = check_k9_k10(mx, cfg)
+        k9s = check_k9_steps(cfg, dev)
+        k9s["b64"] = check_k9_steps(cfg, dev, b=GAMES)
         for nb in RULES_BATCHES:
             k7[f"b{nb}"] = check_k7(first(mx, nb), cfg)
             check_k8(first(mx, nb).state, cfg, timed=False)
@@ -1327,7 +1473,7 @@ def phase_kernels(cfg, dev):
          "replaces": "alphazero_risk_tpu/models/fast_infer.py:215", **k5},
         {"name": "write_nodes", "route": "cuda",
          "source": "alphazero_risk_tpu_torch/csrc/tree_write.cu",
-         "replaces": "alphazero_risk_tpu/mcts/search.py:229", **k6},
+         "replaces": "alphazero_risk_tpu/mcts/search.py:221", **k6},
         {"name": "rules_step", "route": "cuda",
          "source": "alphazero_risk_tpu_torch/csrc/rules_step.cu",
          "replaces": "alphazero_risk_tpu/env/rules.py:735", **k7},
@@ -1340,6 +1486,9 @@ def phase_kernels(cfg, dev):
         {"name": "random_step", "route": "cuda",
          "source": "alphazero_risk_tpu_torch/csrc/random_step.cu",
          "replaces": "alphazero_risk_tpu/agents/random_agent.py:41", **k10},
+        {"name": "script_steps", "route": "cuda",
+         "source": "alphazero_risk_tpu_torch/csrc/script_step.cu",
+         "replaces": "alphazero_risk_tpu/training/actor.py:204", **k9s},
     ]
     check_forward(trainer, states, cfg)
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
@@ -1388,9 +1537,11 @@ def phase_slice(trainer, entries, games=PLAY_GAMES):
     from alphazero_risk_tpu_torch.training.trainer import Trainer
 
     cfg, dev = trainer.cfg, trainer.device
-    kernels.reset_counts()
-    res = trainer.play(A.OPP_SCRIPT, games)
-    counts = kernels.counts()
+    steps0 = trainer.play_stats["steps"]
+    with watched_blocks(keep=24, every=12) as ff:
+        kernels.reset_counts()
+        res = trainer.play(A.OPP_SCRIPT, games)
+        counts = kernels.counts()
     st = trainer.play_stats
     dps = st["az_decisions"] / st["seconds"]
     az_wins = res["p0_wins"] / max(res["games"] - res["unfinished"], 1)
@@ -1401,10 +1552,32 @@ def phase_slice(trainer, entries, games=PLAY_GAMES):
         f"launches {counts}")
     if res["games"] != games or res["unfinished"] != 0:
         fail(f"slice left games unfinished: {res}")
-    # every kernel but the RandomPlayer's, which this match does not meet
+    # every kernel but the RandomPlayer's, which this match does not meet,
+    # and K9's single step: the ScriptPlayer only fast-forwards, through
+    # K9's multi-step entry
     for k in kernels.ALL:
-        if k is not kernels.RANDOM_STEP and counts[k.name] <= 0:
+        if k not in (kernels.RANDOM_STEP, kernels.SCRIPT_STEP) and \
+                counts[k.name] <= 0:
             fail(f"kernel {k.name} was not launched on the main path")
+    lock = st["steps"] - steps0
+    log(f"slice int8: K9 launches: single step {counts['script_step']}, "
+        f"multi-step {counts['script_steps']} in {ff['runs']} "
+        f"fast-forwards over {lock} lockstep steps; {ff['iterations']} "
+        f"fast-forward iterations ({ff['iterations'] / lock:.2f} per "
+        f"lockstep step), {ff['blocks']} blocks "
+        f"({ff['blocks'] / lock:.2f} per lockstep step), "
+        f"{int(ff['steps'])} live game-steps")
+    lens = sorted(ff["lengths"])
+    log(f"slice int8: iterations of one fast-forward: "
+        f"{[lens[int(q * (len(lens) - 1))] for q in (0, .1, .5, .9, 1)]} "
+        f"(min, 10th, 50th, 90th percentile, max), "
+        f"{sum(n == 0 for n in lens)} of {len(lens)} none, "
+        f"{sum(n > A.FF_BLOCK for n in lens)} above the first block "
+        f"({A.FF_BLOCK})")
+    if counts["script_steps"] != ff["blocks"]:
+        fail(f"K9's multi-step entry launched {counts['script_steps']} "
+             f"times for {ff['blocks']} blocks")
+    hold_k9_steps(ff["calls"], "on the slice's fast-forward states")
     for e in entries:
         e["launches_play"] = counts[e["name"]]
 
@@ -1592,9 +1765,13 @@ def phase_train(base, entries):
         f"paired), {st['folds']} folds; expected launches {want}")
     if want != {k: counts[k] for k in want}:
         fail(f"launch counts {counts} differ from the expected {want}")
+    # the ScriptPlayer only fast-forwards here (the benchmark): K9's
+    # multi-step entry, not its single step
     for k in kernels.ALL:
-        if counts[k.name] <= 0:
+        if k is not kernels.SCRIPT_STEP and counts[k.name] <= 0:
             fail(f"kernel {k.name} was not launched by the training phase")
+    log(f"train: K9 launches: single step {counts['script_step']}, "
+        f"multi-step {counts['script_steps']}")
     for e in entries:
         e["launches_train"] = counts[e["name"]]
 
@@ -1682,7 +1859,6 @@ def phase_data(base, mx, entries):
     from alphazero_risk_tpu_torch import kernels
     from alphazero_risk_tpu_torch.agents import driver as D
     from alphazero_risk_tpu_torch.agents.script_agent import ScriptCarry
-    from alphazero_risk_tpu_torch.env import rules
     from alphazero_risk_tpu_torch.training import actor as A
     from alphazero_risk_tpu_torch.training.replay import ReplayBuffer
     from alphazero_risk_tpu_torch.training.trainer import Trainer
@@ -1734,39 +1910,37 @@ def phase_data(base, mx, entries):
              timed=False, what=" (learner batch of replay records)")
     profile_scripted(mx, cfg)
 
-    # (b) play_match Script vs Script to the end; live micro-steps counted
-    # by the match's own status check at the top of each step
-    live = torch.zeros((), dtype=torch.int64, device=dev)
-    status_fn = rules.game_status
-
-    def counting_status(state, c):
-        st = status_fn(state, c)
-        live.add_((st == -1).sum())
-        return st
-
+    # (b) play_match Script vs Script to the end, in blocks of K9's
+    # multi-step entry; the live micro-steps are the sum of its step
+    # counts.  The data path's launches are (b)'s, counted from here to
+    # the end of play_match, plus (c)'s, counted over train_on_data
+    # alone: the holds and the set-up fold between them stay out.
     gen = torch.Generator(device=dev).manual_seed(22)
     state0 = D.mirrored_initial_states(MIXED, generator=gen, device=dev)
     torch.cuda.synchronize()
-    c0 = kernels.counts()
-    rules.game_status = counting_status
-    try:
+    kernels.reset_counts()
+    with watched_blocks(keep=64) as mb:
         t0 = time.perf_counter()
         res = D.play_match(gen, state0, D.AGENT_SCRIPT, D.AGENT_SCRIPT, cfg,
                            cfg.max_game_steps)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-    finally:
-        rules.game_status = status_fn
+    live = int(mb["steps"])
     tally = D.summarize(res)
-    k9 = kernels.counts()["script_step"] - c0["script_step"]
+    cb = kernels.counts()
     log(f"data (b): play_match Script vs Script, {json.dumps(tally)}; "
-        f"{res.steps} lockstep steps, {int(live)} live micro-steps in "
-        f"{secs:.2f} s: {int(live) / secs:.0f} live micro-steps/s "
+        f"{res.steps} lockstep steps, {live} live micro-steps in "
+        f"{secs:.2f} s: {live / secs:.0f} live micro-steps/s "
         f"({1e3 * secs / res.steps:.3f} ms per lockstep step); K9 "
-        f"launches {k9}")
-    if tally["unfinished"] != 0 or k9 != res.steps:
-        fail(f"data (b): {tally['unfinished']} games unfinished, K9 "
-             f"launched {k9} times over {res.steps} steps")
+        f"launches: multi-step {cb['script_steps']} ({mb['blocks']} blocks), "
+        f"single step {cb['script_step']}")
+    if tally["unfinished"] != 0 or cb["script_steps"] != mb["blocks"] or \
+            mb["iterations"] != res.steps or cb["script_step"]:
+        fail(f"data (b): {tally['unfinished']} games unfinished, K9's "
+             f"multi-step entry launched {cb['script_steps']} times for "
+             f"{mb['blocks']} blocks of {mb['iterations']} iterations over "
+             f"{res.steps} steps, its single step {cb['script_step']} times")
+    hold_k9_steps(mb["calls"], f"on data (b)'s {MIXED} games")
 
     # (c) Trainer.train_on_data from the flagship weights
     trainer = Trainer(cfg, seed=5, device=dev)
@@ -1821,12 +1995,14 @@ def phase_data(base, mx, entries):
     trainer.benchmark = timed("benchmark", trainer.benchmark)
     trainer._revert = lambda: reverts.append(1)
     s0 = dict(trainer.play_stats)
+    torch.cuda.synchronize()
     kernels.reset_counts()
     t0 = time.perf_counter()
     trainer.train_on_data(loops=1)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     counts = kernels.counts()
+    path_counts = {k: cb[k] + v for k, v in counts.items()}
     log(f"data (c): train_on_data(loops=1) in {total:.1f} s; launches "
         f"{counts}")
     for name, p in parts.items():
@@ -1869,7 +2045,7 @@ def phase_data(base, mx, entries):
         fail(f"data (c): launch counts {counts} differ from the expected "
              f"{want}")
     for k in kernels.ALL:
-        if counts[k.name] <= 0:
+        if path_counts[k.name] <= 0:
             fail(f"kernel {k.name} was not launched by the data phase")
     if reverts or not all(trainer.ckpt.exists(r) for r in ("temp",
                                                            "latest")) \
@@ -1882,8 +2058,11 @@ def phase_data(base, mx, entries):
     log(f"data (c): gate {verdict} (no revert), benchmark {bench}; "
         f"expected launches {want} and generation {want_gen} held; temp, "
         f"latest and meta written")
+    log(f"data: K9 launches over (b) and (c): single step "
+        f"{path_counts['script_step']}, multi-step "
+        f"{path_counts['script_steps']}")
     for e in entries:
-        e["launches_data"] = counts[e["name"]]
+        e["launches_data"] = path_counts[e["name"]]
 
 
 def main():

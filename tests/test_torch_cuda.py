@@ -14,6 +14,7 @@ import torch
 from alphazero_risk_tpu_torch import kernels
 from alphazero_risk_tpu_torch.agents import random_agent as RA
 from alphazero_risk_tpu_torch.agents import script_agent as SA
+from alphazero_risk_tpu_torch.agents.common import draw_step_randoms
 from alphazero_risk_tpu_torch.agents.driver import \
     mixed_play as mixed_play_states
 from alphazero_risk_tpu_torch.config import Config
@@ -220,9 +221,11 @@ def test_play_launches_every_kernel(cuda):
     kernels.reset_counts()
     res = trainer.play(A.OPP_SCRIPT, 4)
     assert res["unfinished"] == 0
-    # every kernel but the RandomPlayer's
+    # every kernel but the RandomPlayer's and K9's single step: the
+    # ScriptPlayer fast-forwards through K9's multi-step entry
     counts = kernels.counts()
     assert counts.pop("random_step") == 0
+    assert counts.pop("script_step") == 0
     assert all(n > 0 for n in counts.values()), counts
 
 
@@ -395,6 +398,40 @@ def test_write_nodes_matches_plain(cuda):
     _assert_trees_equal(tree, ref_tree)
 
 
+@pytest.mark.parametrize("n_nodes", [10, 34])
+@pytest.mark.parametrize("batch", [1, 3, 4, 5, 31, 33, 64, 512, 1024])
+def test_write_nodes_batches_match_plain(cuda, grown_trees, batch, n_nodes):
+    """K6 (one warp per game, four per block) on the first ``batch`` games
+    of the trees grown with 8 and 32 simulations (full: next_free at the
+    last node), every fifth game not expanding, the child's status drawn
+    from running, draw and either winner (terminal children): the
+    expansion write, its leaf outputs and the root write of a fresh tree,
+    bit for bit against the plain version."""
+    tree = _games(grown_trees[n_nodes], batch)
+    cfg = Config(mcts_simulations=2)
+    gen = torch.Generator(device=cuda).manual_seed(batch + n_nodes)
+    path = S._descend_plain(tree, S.draw_gumbel(gen, cfg, batch, cuda)[0],
+                            cfg)
+    exp_n = path.exp_n.clone()
+    exp_n[::5] = -1
+    path = path._replace(exp_n=exp_n)
+    child, status, value, legal, probs = S.expansion_inputs(
+        tree, path, cfg, uniform_eval)
+    status = torch.tensor([-1, -2, 0, 1], dtype=torch.int32, device=cuda)[
+        torch.randint(0, 4, (batch,), generator=gen, device=cuda)]
+    args = (child, status, value, legal, probs, path)
+    kt, pt = _clone_tree(tree), _clone_tree(tree)
+    lv, lp = S.write_nodes(kt, *args)
+    rv, rp = S._write_nodes_plain(pt, *args)
+    assert torch.equal(lv, rv) and torch.equal(lp, rp)
+    _assert_trees_equal(kt, pt)
+    assert bool((tree.next_free >= n_nodes - 1).all())
+    kr, pr = S._empty_tree(child, cfg), S._empty_tree(child, cfg)
+    S.write_nodes(kr, child, status, value, legal, probs)
+    S._write_nodes_plain(pr, child, status, value, legal, probs, None)
+    _assert_trees_equal(kr, pr)
+
+
 def test_train_iteration_launches_every_kernel(cuda, tmp_path):
     cfg = Config(blocks=2, filters=64, value_hidden=16, mcts_simulations=4,
                  max_depth=8, env_batch_per_device=4, fast_infer=True,
@@ -413,7 +450,11 @@ def test_train_iteration_launches_every_kernel(cuda, tmp_path):
         # a rejected gate skips the benchmark, the one part of train() that
         # meets the ScriptPlayer and the RandomPlayer (K9, K10)
         trainer.benchmark()
-    assert all(n > 0 for n in kernels.counts().values()), kernels.counts()
+    # the ScriptPlayer only fast-forwards here: K9's multi-step entry, not
+    # its single step
+    counts = kernels.counts()
+    assert counts.pop("script_step") == 0
+    assert all(n > 0 for n in counts.values()), counts
     assert trainer.ckpt.exists("latest")
 
 
@@ -627,6 +668,82 @@ def test_script_and_random_steps_match_plain(cuda, mixed_play, cfg):
         (1, 1)
 
 
+@pytest.mark.parametrize("batch", [1, 3, 31, 33, 64, 512, 1024])
+def test_script_step_batches_match_plain(cuda, mixed_mix, batch):
+    """K9's single step (one warp per game, four per block) at batches
+    ragged against the block, on the first ``batch`` mixed states with
+    their carries, resets and draws: state, carry, action and record bit
+    for bit against the plain version."""
+    mx = mixed_mix.apply(lambda x: x[:batch].contiguous())
+    cfg = Config()
+    args = (mx.state, mx.carry, mx.reset, mx.u, mx.dice, cfg)
+    s9, c9, r9 = SA.script_step_recorded(*args)
+    p9, pc9, pr9 = SA._script_step_recorded_plain(*args)
+    _assert_states_equal(s9, p9)
+    for f in dataclasses.fields(SA.ScriptCarry):
+        assert torch.equal(getattr(c9, f.name), getattr(pc9, f.name)), f.name
+    assert all(torch.equal(x, y) for x, y in zip(r9, pr9))
+
+
+@pytest.mark.parametrize("seats", [(True, False), (False, True),
+                                   (False, False)])
+@pytest.mark.parametrize("k", [1, 4, 16, 64])
+def test_script_steps_match_plain(cuda, mixed_mix, k, seats):
+    """K9's multi-step entry against the plain multi-step function on the
+    1,024 mixed states (games ending and reaching an AlphaZero seat inside
+    the block), under the fast-forward's stop predicate with either seat
+    the AlphaZero one and under two scripted seats': state, carry, prev
+    and step counts bit for bit."""
+    cfg = Config()
+    mx = mixed_mix
+    b = mx.state.batch_size
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    draws = [draw_step_randoms(gen, b, cuda) for _ in range(k)]
+    u = torch.stack([x[0] for x in draws])
+    dice = torch.stack([x[1] for x in draws])
+    got = SA.script_steps(mx.state, mx.carry, mx.prev, u, dice, cfg, seats)
+    ref = SA._script_steps_plain(mx.state, mx.carry, mx.prev, u, dice, cfg,
+                                 seats)
+    _assert_states_equal(got[0], ref[0])
+    for f in dataclasses.fields(SA.ScriptCarry):
+        assert torch.equal(getattr(got[1], f.name), getattr(ref[1], f.name))
+    assert torch.equal(got[2], ref[2]) and torch.equal(got[3], ref[3])
+    n = ref[3]
+    if k > 1:       # games stop inside the block
+        assert bool(((n > 0) & (n < k)).any())
+    if k <= 16:     # and others run through it
+        assert bool((n == k).any())
+
+
+@pytest.mark.parametrize("block", [1, 5, 16])
+def test_play_match_blocks_match_plain(cuda, monkeypatch, block):
+    """``play_match`` Script vs Script on the card in blocks of K9's
+    multi-step entry against the same match on the plain multi-step
+    function, with ``max_steps`` cutting a block short: status, rounds,
+    steps and the generator's state after the match."""
+    from alphazero_risk_tpu_torch.agents import driver as D
+    cfg = Config()
+
+    monkeypatch.setattr(D, "MATCH_BLOCK", block)
+
+    def run():
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        state = D.mirrored_initial_states(64, generator=gen, device=cuda)
+        res = D.play_match(gen, state, D.AGENT_SCRIPT, D.AGENT_SCRIPT, cfg,
+                           123)
+        return res, gen.get_state()
+
+    kernels.SCRIPT_STEPS.launches = 0
+    got, g1 = run()
+    assert kernels.SCRIPT_STEPS.launches == -(-123 // block)
+    monkeypatch.setattr(SA, "script_steps", SA._script_steps_plain)
+    ref, g2 = run()
+    assert got.steps == ref.steps == 123
+    assert torch.equal(got.status, ref.status)
+    assert torch.equal(got.rounds, ref.rounds)
+    assert torch.equal(g1, g2)
+
+
 def test_train_on_data_launches_every_kernel(cuda, tmp_path):
     """A tiny ``train_on_data`` loop: every kernel launches, the scripted
     matches through K9 and K10 only."""
@@ -659,7 +776,13 @@ def test_train_on_data_launches_every_kernel(cuda, tmp_path):
     kernels.reset_counts()
     trainer.train_on_data(loops=1)
     counts = kernels.counts()
+    multi = counts.pop("script_steps")
     assert all(n > 0 for n in counts.values()), counts
+    if multi == 0:
+        # a rejected gate skips the benchmark, the one part of the loop
+        # that fast-forwards the ScriptPlayer (K9's multi-step entry)
+        trainer.benchmark()
+        assert kernels.counts()["script_steps"] > 0
     for kinds, c in gen_counts:
         assert c["script_step"] == cfg.actor_chunk_steps
         assert c["random_step"] == (cfg.actor_chunk_steps

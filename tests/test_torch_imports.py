@@ -88,7 +88,7 @@ def test_import_builds_and_loads_nothing():
     assert [k.name for k in kernels.ALL] == [
         "conv3x3_i8", "mcts_descend", "mcts_backup", "conv3x3_bf16",
         "heads_eval", "write_nodes", "rules_step", "state_views",
-        "script_step", "random_step"]
+        "script_step", "random_step", "script_steps"]
     for k in kernels.ALL:
         assert k._fn is None and k.build_log == ""
         assert f'extern "C" int {k.symbol}(' in k.source.read_text()
@@ -102,7 +102,8 @@ def test_kernel_flags_are_per_source():
     conv and the heads are built with the compiler's default contraction."""
     from alphazero_risk_tpu_torch import kernels
     exact = {"conv3x3_i8", "mcts_descend", "mcts_backup", "write_nodes",
-             "rules_step", "state_views", "script_step", "random_step"}
+             "rules_step", "state_views", "script_step", "random_step",
+             "script_steps"}
     for k in kernels.ALL:
         if k.name in exact:
             assert k.flags == kernels.NVCC_FLAGS
@@ -110,19 +111,23 @@ def test_kernel_flags_are_per_source():
             assert "--fmad=false" not in k.flags
             assert [f for f in kernels.NVCC_FLAGS
                     if f != "--fmad=false"] == k.flags
-    assert len({k.library for k in kernels.ALL}) == len(kernels.ALL)
+    # one library per source: K9's two entry points share theirs
+    assert len({k.library for k in kernels.ALL}) == len(
+        {k.source for k in kernels.ALL}) == len(kernels.ALL) - 1
 
 
 def test_kernel_library_names_follow_their_headers(tmp_path, monkeypatch):
     """A rules kernel's library name hashes the shared headers too, so an
     edit of ``rules_dev.cuh`` rebuilds all four and one of
-    ``rules_warp.cuh`` the two warp kernels (K7, K8); the two convs share
+    ``rules_warp.cuh`` the three warp kernels (K7, K8, K9, whose
+    multi-step entry shares K9's library); the two convs share
     ``conv_tc.cuh`` the same way."""
     from alphazero_risk_tpu_torch import kernels
     warp = ["rules_dev.cuh", "rules_warp.cuh"]
+    assert kernels.SCRIPT_STEPS.library == kernels.SCRIPT_STEP.library
     for k, shared in ((kernels.RULES_STEP, warp),
                       (kernels.STATE_VIEWS, warp),
-                      (kernels.SCRIPT_STEP, ["rules_dev.cuh"]),
+                      (kernels.SCRIPT_STEP, warp),
                       (kernels.RANDOM_STEP, ["rules_dev.cuh"]),
                       (kernels.CONV3X3_I8, ["conv_tc.cuh"]),
                       (kernels.CONV3X3_BF16, ["conv_tc.cuh"])):
@@ -225,7 +230,7 @@ def test_rules_kernel_flags_follow_each_config():
 @pytest.mark.parametrize("name", ["conv3x3_i8", "conv3x3_bf16", "heads_eval",
                                   "write_nodes", "rules_step", "expand",
                                   "state_views", "featurize", "script_step",
-                                  "random_step"])
+                                  "script_steps", "random_step"])
 def test_cuda_tensor_wrappers_do_not_fall_back(name, monkeypatch):
     """A wrapper takes its plain version only for CPU tensors: with a
     tensor that claims another device it goes to the kernel path, which
@@ -260,6 +265,10 @@ def test_cuda_tensor_wrappers_do_not_fall_back(name, monkeypatch):
         call = lambda: SA.script_step_recorded(
             st, carry, torch.ones(2, dtype=torch.bool, device=meta), u,
             dice, cfg)
+    elif name == "script_steps":
+        carry = tree_map(lambda t: t.to(meta), SA.init_carry(2, "cpu"))
+        call = lambda: SA.script_steps(st, carry, i2, u[None], dice[None],
+                                       cfg)
     elif name == "random_step":
         call = lambda: RA.random_step_recorded(st, u, dice, cfg)
     elif name == "conv3x3_i8":
@@ -297,6 +306,7 @@ def test_cuda_tensor_wrappers_do_not_fall_back(name, monkeypatch):
         monkeypatch.setattr(rules, fn, None)
     monkeypatch.setattr(FZ, "_featurize_plain", None)
     monkeypatch.setattr(SA, "_script_step_recorded_plain", None)
+    monkeypatch.setattr(SA, "_script_steps_plain", None)
     monkeypatch.setattr(RA, "_random_step_recorded_plain", None)
     with pytest.raises((ValueError, RuntimeError)):
         call()

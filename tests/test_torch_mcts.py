@@ -22,7 +22,7 @@ from alphazero_risk_tpu import config as jconfig
 from alphazero_risk_tpu.env.state import GameState as JGameState
 from alphazero_risk_tpu.mcts import search as JM
 
-from alphazero_risk_tpu_torch.config import Config
+from alphazero_risk_tpu_torch.config import PH_FORTIFY, Config
 from alphazero_risk_tpu_torch.env import rules as TR
 from alphazero_risk_tpu_torch.env import state as TS
 from alphazero_risk_tpu_torch.mcts import search as TM
@@ -262,11 +262,15 @@ def _assert_tree_equals_jax(tt, jt, msg):
                                       err_msg=f"{msg} state {f.name}")
 
 
-def test_write_nodes_plain_matches_jax_tree():
+@pytest.mark.parametrize("terminal_children", [False, True])
+def test_write_nodes_plain_matches_jax_tree(terminal_children):
     """K6's plain version against the JAX tree, bit for bit: the root write
-    after ``init_tree``, then the expansion write (state fields, tree
-    arrays, child link, ``next_free``) after each of three
-    ``simulate_once`` calls.  Finished games in the batch write nothing."""
+    after ``init_tree``, then the node value and the expansion write (state
+    fields, tree arrays, child link, ``next_free``) after each of three
+    ``simulate_once`` calls.  Finished games in the batch write nothing.
+    With ``terminal_children`` four games sit in their last round's
+    fortify phase, so every child they expand has ended (by the round
+    cap) and takes its terminal value for its mover."""
     cfg = Config(mcts_simulations=3, max_depth=6)
     jc = jconfig.Config(**dataclasses.asdict(cfg))
     root = played_roots(12, 90, seed=9)
@@ -274,7 +278,14 @@ def test_write_nodes_plain_matches_jax_tree():
     root = root.replace(owner=torch.where(
         torch.arange(12)[:, None] < 2, torch.zeros_like(root.owner),
         root.owner))
+    if terminal_children:
+        last = (torch.arange(12) >= 2) & (torch.arange(12) < 6)
+        root = root.replace(
+            round=torch.where(last, cfg.max_game_rounds,
+                              root.round).to(torch.int32),
+            phase=torch.where(last, PH_FORTIFY, root.phase).to(torch.int32))
     assert (TR.game_status(root, cfg)[:2] != -1).all()
+    assert (TR.game_status(root, cfg)[2:] == -1).all()
     jroot = to_jax(root)
     jt = JM.init_tree(jroot, jc, jax_eval)
     tt = TM.init_tree(root, cfg, port_eval)
@@ -289,8 +300,15 @@ def test_write_nodes_plain_matches_jax_tree():
         _assert_tree_equals_jax(tt, jt, f"simulation {s}")
         np.testing.assert_allclose(tt.wsum.numpy(), np.asarray(jt.wsum),
                                    rtol=1e-6, atol=0)
-    assert (tt.next_free[:2] == 1).all() and (tt.next_free[2:] == 4).all()
-    assert (tt.parent[2:, 1:4] >= 0).all()
+    # a descent that reaches a terminal child expands nothing, so only the
+    # other games grow a node per simulation
+    grown = slice(6 if terminal_children else 2, 12)
+    assert (tt.next_free[:2] == 1).all() and (tt.next_free[grown] == 4).all()
+    assert (tt.parent[grown, 1:4] >= 0).all()
+    if terminal_children:
+        child = tt.expanded[2:6, 1:]
+        assert child.any() and tt.terminal[2:6, 1:][child].all()
+        assert (tt.value[2:6, 1:][child].abs() == 1).any()
 
 
 def test_write_nodes_plain_clamps_a_full_tree():
@@ -305,3 +323,17 @@ def test_write_nodes_plain_clamps_a_full_tree():
         tree = TM.simulate_once(tree, g[s], cfg, port_eval)
     assert (tree.next_free >= 3).all() and (tree.children < 3).all()
     assert (tree.visit[:, 0].sum(-1) == 4).all()
+
+
+def test_reassigned_tree_array_drops_the_k6_pack():
+    """K6 packs a tree's array pointers once (``search._k6_pack``) and
+    keeps the pack on the tree; reassigning any field of the tree drops
+    it, so a later write packs the new arrays, while in-place updates
+    keep it."""
+    cfg = Config(mcts_simulations=2, max_depth=4)
+    tree = TM._empty_tree(played_roots(2, 10, seed=1), cfg)
+    tree._k6 = "packed"
+    tree.visit += 1
+    assert tree.__dict__["_k6"] == "packed"
+    tree.prior = tree.prior.clone()
+    assert "_k6" not in tree.__dict__

@@ -74,6 +74,22 @@ class JaxChainDraws:
         u, dice = draw_step_randoms(ko, self.b)
         return _t(u), _t(dice)
 
+    def ff_block(self, k):
+        """k ``ff()`` draws, stacked; ``ff_rewind(m)`` puts the chain back
+        to after the first m of them."""
+        self.kff_before = []
+        us, dice = [], []
+        for _ in range(k):
+            self.kff_before.append(self.kff)
+            u, d = self.ff()
+            us.append(u)
+            dice.append(d)
+        return torch.stack(us), torch.stack(dice)
+
+    def ff_rewind(self, m):
+        if m < len(self.kff_before):
+            self.kff = self.kff_before[m]
+
     def gumbel(self):
         return search_gumbel(self.k_sims, self.cfg.mcts_simulations,
                              self.cfg.max_depth, self.b)

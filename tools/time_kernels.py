@@ -1,0 +1,328 @@
+"""Time kernels of one checkout of the PyTorch/CUDA port on the card, with
+that checkout's own chip_smoke.py checks (each compares the kernel with its
+plain version, then times the call with CUDA events and the kernel alone
+from a profiler trace), and the block rules of K9's multi-step entry on the
+two paths that launch it.
+
+    python tools/time_kernels.py --root DIR --tag NAME [--parts k5,k7,...]
+        [--out FILE]
+
+DIR is the root of a checkout (the package and chip_smoke.py are imported
+from there, so two commits can be timed in turns on one card: parent,
+change, change, parent).  ``--parts`` picks from ``PARTS`` (default all);
+a part the checkout lacks is reported as missing.  Prints one JSON line,
+and appends it to FILE when given.  Needs one card.
+
+    k5            heads_eval on the folded heads of a random 1x256 net
+                  (value_hidden 256) at B = 64, 128, 512, 1,024, on
+                  rectified Gaussian trunk outputs with played legal masks
+    k7            the rules step on the first 64 and all 1,024 of
+                  chip_smoke's mixed states; expand on the grown tree
+    k9, k10       the ScriptPlayer and RandomPlayer steps on those states;
+                  for k9 also the single step, kernel alone, on 1,024 and
+                  64 mirrored games 100 Script-vs-Script steps into their
+                  match, and there the multi-step entry's one launch of 64
+                  iterations on the same states and draws
+    k6, k3        the node write (call, kernel alone, root write) and the
+                  backup on the grown tree: 64 games, 32 simulations
+                  (N = 34)
+    ff_blocks     chip_smoke's play slice once per first-block rule of the
+                  ScriptPlayer fast-forward (see ``ff_blocks``)
+    match_blocks  data (b)'s Script-vs-Script play_match once per
+                  first-block rule (see ``match_blocks``)
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+PARTS = ("k5", "k7", "k9", "k10", "k6", "k3", "ff_blocks", "match_blocks")
+
+
+def keep(e):
+    return {k: e.get(k) for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                  "max_abs_err", "ms_root",
+                                  "device_ms_per_iteration", "steps")
+            if e.get(k) is not None}
+
+
+def mid_match(b, dev, cfg, warm=100):
+    """``b`` mirrored games ``warm`` Script-vs-Script steps in, stepped one
+    launch per step (what every checkout of the port has), with the
+    generator that drew their steps."""
+    import torch
+    from alphazero_risk_tpu_torch.agents import driver as D
+    from alphazero_risk_tpu_torch.agents import script_agent as SA
+    from alphazero_risk_tpu_torch.agents.common import draw_step_randoms
+    gen = torch.Generator(device=dev).manual_seed(31)
+    st = D.mirrored_initial_states(b, generator=gen, device=dev)
+    carry = SA.init_carry(b, dev)
+    prev = torch.full((b,), -1, dtype=torch.int32, device=dev)
+    for _ in range(warm):
+        u, dice = draw_step_randoms(gen, b, dev)
+        reset = st.cur_player != prev
+        prev = st.cur_player
+        st, carry, _ = SA.script_step_recorded(st, carry, reset, u, dice, cfg)
+    return st, carry, prev, gen
+
+
+class Ctx:
+    """What the parts share, made at first use."""
+
+    def __init__(self, CS, cfg, dev):
+        self.CS, self.cfg, self.dev = CS, cfg, dev
+        self._mx = self._tree = self._k9k10 = None
+
+    @property
+    def mx(self):
+        if self._mx is None:
+            self._mx = self.CS.mixed_states(self.cfg, self.dev)
+        return self._mx
+
+    @property
+    def tree(self):
+        """(tree, gumbel, root, cfg): 64 games grown by 32 simulations."""
+        if self._tree is None:
+            import torch
+            from alphazero_risk_tpu_torch.mcts import search as S
+            scfg = self.cfg.replace(mcts_simulations=32)
+            root = self.CS.first(self.mx, 64).state
+            grow = S.draw_gumbel(torch.Generator(
+                device=self.dev).manual_seed(5), scfg, 64, self.dev)
+            tree = S.search(root, grow, scfg, self.CS.heuristic_eval).tree
+            self._tree = tree, grow[0], root, scfg
+        return self._tree
+
+    @property
+    def k9k10(self):
+        if self._k9k10 is None:
+            CS = self.CS
+            b64 = CS.check_k9_k10(CS.first(self.mx, 64), self.cfg)
+            b1024 = CS.check_k9_k10(self.mx, self.cfg)
+            self._k9k10 = {"k9_b64": keep(b64[0]), "k10_b64": keep(b64[1]),
+                           "k9_b1024": keep(b1024[0]),
+                           "k10_b1024": keep(b1024[1])}
+        return self._k9k10
+
+
+def k5(ctx):
+    import torch
+    from alphazero_risk_tpu_torch.config import Config
+    from alphazero_risk_tpu_torch.env import rules
+    from alphazero_risk_tpu_torch.models import fast_infer as FI
+    from alphazero_risk_tpu_torch.models.resnet import build_network
+    CS, dev = ctx.CS, ctx.dev
+    torch.manual_seed(0)
+    net = build_network(Config(blocks=1), device=dev).eval()
+    folded = FI.fold_params(net, ctx.cfg)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    states = CS.random_play_states(1024, 100, gen, ctx.cfg, dev)
+    legal = rules.legal_actions(states, ctx.cfg)
+    h = torch.randn((1024, 42, 256), generator=gen, device=dev).relu()
+    return {f"k5_b{b}": keep(CS.check_k5(folded, h[:b].contiguous(),
+                                         legal[:b].contiguous()))
+            for b in (64, 128, 512, 1024)}
+
+
+def k7(ctx):
+    CS = ctx.CS
+    tree, gum, _, scfg = ctx.tree
+    return {"k7_step_b64": keep(CS.check_k7(CS.first(ctx.mx, 64), ctx.cfg)),
+            "k7_step_b1024": keep(CS.check_k7(ctx.mx, ctx.cfg)),
+            "k7_expand_b64_n34": keep(CS.check_k7_expand(tree, gum, scfg))}
+
+
+def k9(ctx):
+    from alphazero_risk_tpu_torch.agents import script_agent as SA
+    from alphazero_risk_tpu_torch.agents.common import draw_step_randoms
+    CS, cfg, dev = ctx.CS, ctx.cfg, ctx.dev
+    out = {k: v for k, v in ctx.k9k10.items() if k.startswith("k9")}
+    for b in (1024, 64):
+        st, carry, prev, gen = mid_match(b, dev, cfg)
+        u, dice = draw_step_randoms(gen, b, dev)
+        reset = st.cur_player != prev
+        out[f"k9_mid_b{b}_single_device_ms"] = CS.device_ms(
+            lambda: SA.script_step_recorded(st, carry, reset, u, dice, cfg),
+            "script_step_kernel")
+        if hasattr(CS, "check_k9_steps"):
+            out[f"k9_steps_b{b}"] = keep(CS.check_k9_steps(cfg, dev, b=b))
+    return out
+
+
+def k10(ctx):
+    return {k: v for k, v in ctx.k9k10.items() if k.startswith("k10")}
+
+
+def k6(ctx):
+    tree, gum, root, scfg = ctx.tree
+    return {"k6_b64_n34": keep(ctx.CS.check_k6(tree, gum, root, scfg,
+                                               ctx.CS.heuristic_eval))}
+
+
+def k3(ctx):
+    tree, gum, _, scfg = ctx.tree
+    _, e = ctx.CS.check_k2_k3(tree, gum, scfg, ctx.dev)
+    return {"k3_b64_n34": keep(e)}
+
+
+def _rule_runs(ctx, rules, play, is_ours):
+    """``play()`` once per rule of ``rules`` ((name, first block or None
+    for the committed rule)), then again in reverse order.  A rule with a
+    first block replaces the ``k`` of each ``run_script_blocks`` call for
+    which ``is_ours(kwargs)`` holds; the later blocks still double.  Each
+    such call is timed from a sync to its end (its last block's sync).
+    Returns per rule the runs' seconds, and of the first run the result,
+    the calls' iterations and blocks; raises if two runs' results
+    differ."""
+    import torch
+    from alphazero_risk_tpu_torch.agents import script_agent as SA
+    real = SA.run_script_blocks
+    seen, out = None, {}
+    for name, first in rules + rules[::-1]:
+        rec = {"calls_s": 0.0, "iterations": [], "blocks": 0}
+
+        def run(*a, **kw):
+            if first is not None and is_ours(kw):
+                kw["k"] = first
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = real(*a, **kw)
+            rec["calls_s"] += time.perf_counter() - t0
+            if is_ours(kw):
+                rec["iterations"].append(res[3])
+                rec["blocks"] += res[4]
+            return res
+
+        SA.run_script_blocks = run
+        try:
+            t0 = time.perf_counter()
+            result = play()
+            wall = time.perf_counter() - t0
+        finally:
+            SA.run_script_blocks = real
+        key = (json.dumps(result, sort_keys=True), rec["iterations"])
+        if seen is not None and key != seen:
+            raise RuntimeError(f"block rule {name} changed the result")
+        seen = key
+        r = out.setdefault(name, {"wall_s": [], "calls_s": [],
+                                  "blocks": rec["blocks"],
+                                  "calls": len(rec["iterations"])})
+        r["wall_s"].append(wall)
+        r["calls_s"].append(rec["calls_s"])
+    its = sorted(seen[1])
+    pick = [its[min(len(its) - 1, int(q * len(its)))]
+            for q in (0.1, 0.5, 0.9, 0.99)]
+    return {"result": json.loads(seen[0]), "rules": out,
+            "iterations_total": sum(its),
+            "iterations_p10_p50_p90_p99_max": pick + [its[-1]],
+            "iterations_histogram": {str(v): its.count(v)
+                                     for v in sorted(set(its))}}
+
+
+def ff_blocks(ctx):
+    """chip_smoke's play slice (the flagship, int8, ``PLAY_GAMES`` games
+    against the ScriptPlayer, 256 lockstep steps) once per first-block
+    rule of the ScriptPlayer fast-forward: the committed one, and a first
+    block fixed at 16, 32 and 64 iterations.  Each run has a fresh trainer
+    of seed 0, so each plays the same games.  ``calls_s`` is the
+    fast-forwards' time (each from a sync to its end), ``wall_s`` the
+    slice's; ``iterations_*`` is the distribution of one fast-forward's
+    iterations (the most of its games' turns)."""
+    from alphazero_risk_tpu_torch.config import Config
+    from alphazero_risk_tpu_torch.training import actor as A
+    from alphazero_risk_tpu_torch.training.checkpoints import load_params_npz
+    from alphazero_risk_tpu_torch.training.trainer import Trainer
+    CS, dev = ctx.CS, ctx.dev
+    work = CS.ROOT / "build" / "time_kernels"
+    cfg = Config(mcts_simulations=CS.SIMS, fast_infer=True,
+                 fast_infer_int8=True, checkpoint_dir=str(work / "ckpt"),
+                 data_dir=str(work / "data"), log_dir=str(work / "log"))
+    net = load_params_npz(str(CS.FLAGSHIP), cfg, device=dev)
+
+    def play():
+        t = Trainer(cfg, seed=0, device=dev)
+        t.net = net
+        t.folded()
+        res = t.play(A.OPP_SCRIPT, CS.PLAY_GAMES)
+        return dict(res, az_decisions=t.play_stats["az_decisions"])
+
+    return {"ff_blocks": _rule_runs(
+        ctx, [("committed", None), ("first 16", 16), ("first 32", 32),
+              ("first 64", 64)], play,
+        lambda kw: kw.get("limit") is None)}
+
+
+def match_blocks(ctx, reps=3):
+    """Data (b)'s ``play_match``: 1,024 mirrored games Script vs Script to
+    the end from seed 22, ``reps`` times per first-block rule: the
+    committed one, and a first block of 128 and of 512 (the largest)."""
+    import torch
+    from alphazero_risk_tpu_torch.agents import driver as D
+    CS, cfg, dev = ctx.CS, ctx.cfg, ctx.dev
+
+    def play():
+        out = None
+        for _ in range(reps):
+            gen = torch.Generator(device=dev).manual_seed(22)
+            st = D.mirrored_initial_states(CS.MIXED, generator=gen,
+                                           device=dev)
+            res = D.play_match(gen, st, D.AGENT_SCRIPT, D.AGENT_SCRIPT, cfg,
+                               cfg.max_game_steps)
+            out = dict(D.summarize(res), steps=res.steps)
+        return out
+
+    return {"match_blocks": _rule_runs(
+        ctx, [("committed", None), ("first 128", 128), ("first 512", 512)],
+        play, lambda kw: kw.get("limit") is not None)}
+
+
+def main():
+    p = argparse.ArgumentParser()
+    p.add_argument("--root", required=True)
+    p.add_argument("--tag", required=True)
+    p.add_argument("--parts", default=",".join(PARTS))
+    p.add_argument("--out", default=None)
+    args = p.parse_args()
+    parts = args.parts.split(",")
+    if not set(parts) <= set(PARTS):
+        sys.exit(f"parts are {PARTS}")
+    sys.path.insert(0, args.root)
+    import torch
+    import chip_smoke as CS
+    from alphazero_risk_tpu_torch import kernels
+    from alphazero_risk_tpu_torch.agents import script_agent as SA
+    from alphazero_risk_tpu_torch.config import Config
+
+    if not torch.cuda.is_available():
+        sys.exit("needs a card")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    kernels.build_all()
+    dev = torch.device("cuda")
+    out = {"tag": args.tag, "root": args.root, "card": card,
+           "build_s": time.perf_counter() - t0}
+    ctx = Ctx(CS, Config(), dev)
+    for part in parts:
+        if part.endswith("_blocks"):
+            # whole paths, which run as their callers run them
+            out.update(globals()[part](ctx) if hasattr(
+                SA, "run_script_blocks") else {part: "missing"})
+        else:
+            with torch.inference_mode():
+                out.update(globals()[part](ctx))
+    line = json.dumps(out)
+    print(line)
+    if args.out:
+        with open(args.out, "a") as f:
+            f.write(line + "\n")
+
+
+if __name__ == "__main__":
+    main()
