@@ -16,15 +16,17 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..config import Config, STATUS_NOT_ENDED
+from ..config import Config
 from ..env import rules
 from ..env.state import (GameState, invert_players, new_game, tree_map,
                          tree_select)
-from . import random_agent, script_agent
+from . import blocks, random_agent, script_agent
 from .common import BlockDraws, draw_step_randoms
 
 AGENT_SCRIPT = 0
 AGENT_RANDOM = 1
+# the seat kinds of the multi-step path
+_KINDS = {AGENT_SCRIPT: blocks.OPP_SCRIPT, AGENT_RANDOM: blocks.OPP_RANDOM}
 
 
 class MatchResult(NamedTuple):
@@ -49,14 +51,8 @@ def mirrored_initial_states(batch: int, *,
     return tree_map(lambda a, b: torch.cat([a, b]), half, mirrored)
 
 
-def _agent_step(agent_kind: int, state, carry, reset, u, dice, cfg):
-    if agent_kind == AGENT_SCRIPT:
-        return script_agent.script_step(state, carry, reset, u, dice, cfg)
-    return random_agent.random_step(state, u, dice, cfg), carry
-
-
-# The Script-vs-Script match's blocks of draws, MATCH_BLOCK steps each.
-# Data (b)'s 1,024 games end in 1,118 steps: three blocks (a launch and a
+# The match's blocks of draws, MATCH_BLOCK steps each.  Data (b)'s 1,024
+# Script-vs-Script games end in 1,118 steps: three blocks (a launch and a
 # sync each), the unused draws of the last put back.  Blocks of 64 or 128
 # doubling to 512 timed within the runs' spread on an H100
 # (``tools/time_kernels.py --parts match_blocks``).
@@ -68,36 +64,19 @@ def play_match(generator: torch.Generator, state: GameState, agent0: int,
     """Play until every game ends (or ``max_steps``); ``agent0`` sits in
     seat 0.  The step's ``u`` and dice come from ``generator``.
 
-    Two ScriptPlayers run in blocks of ``MATCH_BLOCK`` steps on the card
-    (K9's multi-step entry, one host sync per block); the draws consumed, and so the result, are those of
-    one step per iteration.  A RandomPlayer seat steps once per
+    Any pair of ScriptPlayer and RandomPlayer seats runs in blocks of
+    ``MATCH_BLOCK`` steps (``blocks.run_agent_blocks``: on the card one
+    launch of the multi-step entry and one host sync per block); the
+    draws consumed, and so the result, are those of one step per
     iteration."""
     b, dev = state.batch_size, state.device
     started_by = state.cur_player
-    carry = script_agent.init_carry(b, dev)
-    prev = torch.full((b,), -1, dtype=torch.int32, device=dev)
-    if agent0 == agent1 == AGENT_SCRIPT:
-        draws = BlockDraws(generator, b, dev)
-        state, _, _, t, _ = script_agent.run_script_blocks(
-            state, carry, prev, cfg, draws.block, draws.rewind,
-            k=MATCH_BLOCK, k_max=MATCH_BLOCK, limit=max_steps)
-        return MatchResult(status=rules.game_status(state, cfg),
-                           rounds=state.round, steps=t, started_by=started_by)
-    t = 0
-    while t < max_steps and bool(
-            (rules.game_status(state, cfg) == STATUS_NOT_ENDED).any()):
-        u, dice = draw_step_randoms(generator, b, dev)
-        reset = state.cur_player != prev
-        s0, c0 = _agent_step(agent0, state, carry, reset, u, dice, cfg)
-        if agent1 == agent0:
-            s1, c1 = s0, c0
-        else:
-            s1, c1 = _agent_step(agent1, state, carry, reset, u, dice, cfg)
-        mover0 = state.cur_player == 0
-        prev = state.cur_player
-        state = tree_select(mover0, s0, s1)
-        carry = tree_select(mover0, c0, c1)
-        t += 1
+    draws = BlockDraws(generator, b, dev)
+    state, _, _, t, _ = blocks.run_agent_blocks(
+        state, script_agent.init_carry(b, dev),
+        torch.full((b,), -1, dtype=torch.int32, device=dev), cfg,
+        draws.block, draws.rewind, kinds=(_KINDS[agent0], _KINDS[agent1]),
+        k=MATCH_BLOCK, k_max=MATCH_BLOCK, limit=max_steps)
     return MatchResult(status=rules.game_status(state, cfg),
                        rounds=state.round, steps=t, started_by=started_by)
 

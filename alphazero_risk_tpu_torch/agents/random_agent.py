@@ -13,7 +13,8 @@ same ``u`` and ``dice`` it steps bit-exactly as the JAX agent.
 
 On the card ``random_step_recorded`` launches kernel K10
 (``csrc/random_step.cu``); CPU tensors take
-``_random_step_recorded_plain``.
+``_random_step_recorded_plain``.  ``agents.blocks`` runs it k steps per
+game in one launch, beside the ScriptPlayer.
 """
 
 from __future__ import annotations
@@ -40,24 +41,19 @@ from .common import masked_choice
 I32 = torch.int32
 
 
-def random_step(state: GameState, u: torch.Tensor, dice: torch.Tensor,
-                cfg: Config) -> GameState:
-    out, _ = random_step_recorded(state, u, dice, cfg)
-    return out
-
-
 def random_step_recorded(state: GameState, u: torch.Tensor,
                          dice: torch.Tensor, cfg: Config):
-    """Like ``random_step`` but also returns ``(action43, record_mask)``:
-    the 43-way action the player "chose", which reference
-    ``addTrainingSample`` records as a one-hot policy target
-    (random_player.cpp:29-82).  CUDA tensors launch K10; CPU tensors take
-    ``_random_step_recorded_plain``."""
+    """Advance every game one random micro-decision.  Returns
+    ``(new_state, (action43, record_mask))``: the 43-way action the player
+    "chose", which reference ``addTrainingSample`` records as a one-hot
+    policy target (random_player.cpp:29-82).  CUDA tensors launch K10; CPU
+    tensors take ``_random_step_recorded_plain``."""
     if state.device.type == "cpu":
         return _random_step_recorded_plain(state, u, dice, cfg)
     b = state.batch_size
     rules.checked(u, torch.float32, (b, 4), "u")
     rules.checked(dice, I32, (b, 5), "dice")
+    kernels.require_aligned(u)
     nstate, new = rules.launch_rules(
         kernels.RANDOM_STEP, state, (b,), (u.data_ptr(), dice.data_ptr()),
         _K10_OUTS, cfg)

@@ -15,12 +15,8 @@ its documented tie-break deviations from the reference.
 
 On the card ``script_step_recorded`` launches kernel K9
 (``csrc/script_step.cu``); CPU tensors take
-``_script_step_recorded_plain``.  ``script_steps`` runs up to k steps per
-game in one launch of K9's multi-step entry (CPU tensors:
-``_script_steps_plain``), each game while its stop predicate is false, and
-``run_script_blocks`` drives it in blocks of draws with one host sync per
-block: the opponent fast-forward of the actor and the Script-vs-Script
-``play_match``.
+``_script_step_recorded_plain``.  ``agents.blocks`` runs it k steps per
+game in one launch, beside the RandomPlayer.
 """
 
 from __future__ import annotations
@@ -101,12 +97,6 @@ def _select_from(state: GameState, target: torch.Tensor,
     return argmax_first(score)
 
 
-def script_step(state: GameState, carry: ScriptCarry, reset: torch.Tensor,
-                u: torch.Tensor, dice: torch.Tensor, cfg: Config):
-    out, ncarry, _ = script_step_recorded(state, carry, reset, u, dice, cfg)
-    return out, ncarry
-
-
 def script_step_recorded(state: GameState, carry: ScriptCarry,
                          reset: torch.Tensor, u: torch.Tensor,
                          dice: torch.Tensor, cfg: Config):
@@ -137,95 +127,10 @@ def _carry_fields(carry: ScriptCarry, b: int) -> tuple:
 
 
 # K9's outputs after the state: the carry, then the action and its record
-# mask (single step) or the last mover and the step count (multi-step).
+# mask.
 _CARRY_OUTS = (("attack_to", I32, ()), ("attack_from", I32, ()),
                ("mode_b", torch.bool, ()))
 _K9_OUTS = _CARRY_OUTS + (("action", I32, ()), ("record", torch.bool, ()))
-_K9_STEPS_OUTS = _CARRY_OUTS + (("prev", I32, ()), ("n", I32, ()))
-
-
-def script_steps(state: GameState, carry: ScriptCarry, prev: torch.Tensor,
-                 u: torch.Tensor, dice: torch.Tensor, cfg: Config,
-                 az_seats=(False, False)):
-    """Up to k ScriptPlayer steps per game, game b stepping from iteration
-    j with ``u[j]`` [B, 4] and ``dice[j]`` [B, 5] while its stop
-    predicate, tested on the state before the step, is false: the game
-    has ended, or the mover's seat is an AlphaZero seat (``az_seats[p]``).
-    ``reset`` is ``cur_player != prev`` at each step, and ``prev`` follows
-    the mover of each step taken.  A game that stops stays stopped, so
-    game b's j-th step uses row j.  Returns ``(state, carry, prev,
-    n [B] int32)``, n the steps each game took.  CUDA tensors launch K9's
-    multi-step entry once; CPU tensors take ``_script_steps_plain``."""
-    if state.device.type == "cpu":
-        return _script_steps_plain(state, carry, prev, u, dice, cfg,
-                                   az_seats)
-    b, k, ck = state.batch_size, u.shape[0], rules.checked
-    ins = (*_carry_fields(carry, b), ck(prev, I32, (b,), "prev"),
-           ck(u, torch.float32, (k, b, 4), "u"),
-           ck(dice, I32, (k, b, 5), "dice"))
-    nstate, new = rules.launch_rules(
-        kernels.SCRIPT_STEPS, state, (b,),
-        (*(t.data_ptr() for t in ins), k,
-         int(bool(az_seats[0])) | int(bool(az_seats[1])) << 1),
-        _K9_STEPS_OUTS, cfg)
-    return (nstate, ScriptCarry(new["attack_to"], new["attack_from"],
-                                new["mode_b"]), new["prev"], new["n"])
-
-
-def _script_steps_plain(state: GameState, carry: ScriptCarry,
-                        prev: torch.Tensor, u: torch.Tensor,
-                        dice: torch.Tensor, cfg: Config, az_seats):
-    """``script_steps`` in plain PyTorch: ``_script_step_recorded_plain``
-    under the stop predicate, iteration by iteration (as JAX's
-    ``ff_cond``/``ff_body``)."""
-    n = torch.zeros_like(prev)
-    for j in range(u.shape[0]):
-        az = torch.where(state.cur_player == 0, bool(az_seats[0]),
-                         bool(az_seats[1]))
-        moving = ((rules._game_status_plain(state, cfg) == STATUS_NOT_ENDED)
-                  & ~az & (n == j))
-        if not bool(moving.any()):
-            break
-        s2, c2, _ = _script_step_recorded_plain(
-            state, carry, state.cur_player != prev, u[j], dice[j], cfg)
-        prev = torch.where(moving, state.cur_player, prev)
-        state = tree_select(moving, s2, state)
-        carry = tree_select(moving, c2, carry)
-        n = n + moving.to(I32)
-    return state, carry, prev, n
-
-
-def run_script_blocks(state: GameState, carry: ScriptCarry,
-                      prev: torch.Tensor, cfg: Config, block, rewind, *,
-                      az_seats=(False, False), k: int = 4, k_max: int = 64,
-                      limit: int | None = None):
-    """Step the ScriptPlayer's games until every game's stop predicate
-    holds (``script_steps``), or ``limit`` iterations: the host loop of one
-    ``(u, dice)`` draw and one sync per iteration, run in blocks.
-
-    ``block(k)`` draws the next k iterations' ``(u [k, B, 4], dice
-    [k, B, 5])`` as k sequential draws; ``rewind(m)`` puts the source
-    back to where it stood after the block's first m of them.  After each
-    block the host syncs once on ``m = max(n)``: the iterations the
-    per-iteration loop would have run (it runs while some game moves), so
-    it rewinds to m and, when m fills the block, goes on with a block of
-    twice the size, at most ``k_max``.  The draws consumed are those of
-    the per-iteration loop, so the results are too.  Returns ``(state,
-    carry, prev, iterations, blocks)``."""
-    total = blocks = 0
-    while limit is None or total < limit:
-        kk = k if limit is None else min(k, limit - total)
-        u, dice = block(kk)
-        state, carry, prev, n = script_steps(state, carry, prev, u, dice,
-                                             cfg, az_seats)
-        blocks += 1
-        m = int(n.max()) if n.numel() else 0
-        rewind(m)
-        total += m
-        if m < kk:
-            break
-        k = min(2 * k, k_max)
-    return state, carry, prev, total, blocks
 
 
 def _script_step_recorded_plain(state: GameState, carry: ScriptCarry,

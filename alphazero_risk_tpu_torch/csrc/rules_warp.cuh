@@ -1,6 +1,8 @@
 // The Risk rules for one game held by one warp, shared by K7
-// (rules_step.cu), K8 (state_views.cu) and K9 (script_step.cu, which also
-// runs the ScriptPlayer's decision at the end of this file).
+// (rules_step.cu), K8 (state_views.cu), K9 (script_step.cu) and K10
+// (random_step.cu), and by their multi-step entry (agent_steps.cu), which
+// run the ScriptPlayer's and the RandomPlayer's decisions at the end of
+// this file.
 //
 // Lane k owns lands k and k + 32 (the second only for k < 10): it holds
 // their armies in registers and reads their adjacency rows; lanes 0-5 also
@@ -245,6 +247,28 @@ __device__ __forceinline__ uint64_t connected_to(uint64_t owned, int src,
     frontier = next;
   }
   return comp;
+}
+
+// rules.masked_choice over a warp-uniform mask of up to 43 bits (bit 42
+// the skip): the (n+1)-th set bit for n = clip(trunc(u * count), 0,
+// count - 1), 0 for an empty mask.  The product is one float32 multiply,
+// as PyTorch's u * count.  Lane l tests bits l and l + 32: the one whose
+// rank among the set bits (the popcount of the bits below it) is n is the
+// pick, found by one min-reduction.
+__device__ __forceinline__ int masked_choice(uint64_t mask, float u,
+                                             int lane) {
+  const int cnt = rd::popc(mask);
+  if (cnt == 0) return 0;
+  int n = static_cast<int>(rd::fmul(u, static_cast<float>(cnt)));
+  n = rd::imin(rd::imax(n, 0), cnt - 1);
+  const int hi = lane + 32;
+  const bool h0 =
+      rd::has(mask, lane) && rd::popc(mask & (rd::bit(lane) - 1)) == n;
+  const bool h1 =
+      rd::has(mask, hi) && rd::popc(mask & (rd::bit(hi) - 1)) == n;
+  return static_cast<int>(__reduce_min_sync(
+      kFull, h0 ? static_cast<unsigned>(lane)
+                : (h1 ? static_cast<unsigned>(hi) : 64u)));
 }
 
 // The fortify tie-break of rules.step: the land of `tied` that comes first
@@ -567,6 +591,29 @@ struct Carry {
   bool mode_b;
 };
 
+// Its fields in memory: attack_to, attack_from int32, mode_b bool, [B].
+struct CarryRef {
+  int* to;
+  int* from;
+  uint8_t* mode_b;
+};
+
+inline CarryRef carry_ref(void* to, void* from, void* mode_b) {
+  return {static_cast<int*>(to), static_cast<int*>(from),
+          static_cast<uint8_t*>(mode_b)};
+}
+
+__device__ __forceinline__ Carry load_carry(const CarryRef& r, int b) {
+  return Carry{r.to[b], r.from[b], r.mode_b[b] != 0};
+}
+
+__device__ __forceinline__ void store_carry(const Carry& c,
+                                            const CarryRef& r, int b) {
+  r.to[b] = c.to;
+  r.from[b] = c.from;
+  r.mode_b[b] = c.mode_b ? 1 : 0;
+}
+
 // script_agent.script_step_recorded for one game: the state and carry
 // advance only while the game runs (the carry's reset applies either way);
 // action and record are the recorded 43-way action and its sample mask.
@@ -601,8 +648,8 @@ __device__ __forceinline__ void script_step(
       const uint64_t enemy_attack = ~enemy & nb_any(enemy, d, lane);
       const uint64_t pref1 = neutral & enemy_attack & ~attack;
       const uint64_t pref2 = neutral & enemy_attack;
-      const int li =
-          rd::masked_choice(pref1 ? pref1 : (pref2 ? pref2 : neutral), u0);
+      const int li = masked_choice(
+          pref1 ? pref1 : (pref2 ? pref2 : neutral), u0, lane);
       add_army(o, li, 1, lane);
       o.round += 1;
       o.cur = 1 - o.cur;
@@ -748,6 +795,115 @@ __device__ __forceinline__ void script_step(
     s = o;
     carry = nc;
   }
+}
+
+// ---------------------------------------------------------- RandomPlayer
+
+// random_agent.random_step_recorded for one game: u0 the primary choice,
+// u1 the secondary (attack or fortify source), u2 the amount or the
+// mobilization coin, `die` the lane's die (lanes 0-4).  Uniform choices
+// are masked_choice collectives, the fortify's component one BFS of
+// OR-reductions.  The state advances only while the game runs; a finished
+// game still yields its branch's action, with record = live.  Every branch
+// is that of the plain version, each side effect in its order.
+__device__ __forceinline__ void random_step(
+    WSt& s, float u0, float u1, float u2, int die, int& action,
+    bool& record, const rd::Tables* __restrict__ t, const Board& d,
+    const rd::Cfg& c, int lane) {
+  const bool live = game_status(s, c) == rd::kNotEnded;
+  const uint64_t owned = own_of(s, s.cur);
+  WSt o = s;
+  switch (s.phase) {
+    case rd::kSetup: {
+      const int li = masked_choice(owned, u0, lane);
+      o.reinf -= 2;
+      add_army(o, li, 2, lane);
+      o.phase = rd::kSetupNeutral;
+      action = li;
+      break;
+    }
+    case rd::kSetupNeutral: {
+      const int li = masked_choice(s.own[rd::kNeutral], u0, lane);
+      add_army(o, li, 1, lane);
+      o.round += 1;
+      o.cur = 1 - o.cur;
+      if (o.reinf == 0) {
+        o.phase = rd::kReinforcement;
+        o.reinf = reinforcement(own_of(o, o.cur), d);
+      } else {
+        o.phase = rd::kSetup;
+      }
+      action = li;
+      break;
+    }
+    case rd::kReinforcement: {
+      play_cards(o, t);
+      const uint64_t full = owned & at_least(s, c.army_max, lane);
+      const int li = masked_choice(owned & ~full, u0, lane);
+      apply_reinforcement(o, li, 1, d, lane);
+      action = li;
+      break;
+    }
+    case rd::kAttack: {
+      const uint64_t owa = owned & at_least(s, 2, lane);
+      const int choice =
+          masked_choice((~owned & nb_any(owa, d, lane)) | rd::kSkipBit, u0,
+                        lane);
+      if (choice == rd::kSkip) {
+        o.phase = rd::kFortify;
+      } else {
+        // the armed owned neighbours of the target, from the lanes' own
+        // adjacency rows (the board is symmetric)
+        const uint64_t near =
+            ballot(rd::has(d.adj0, choice),
+                   two(lane) && rd::has(d.adj1, choice));
+        const int frm = masked_choice(near & owa, u1, lane);
+        int dice[5];
+#pragma unroll
+        for (int k = 0; k < 5; ++k) dice[k] = __shfl_sync(kFull, die, k);
+        int a1, d1, units;
+        rd::battle(army(o, frm), army(o, choice), dice, a1, d1, units);
+        apply_battle(o, frm, choice, a1, d1, units, d, lane);
+      }
+      action = choice;
+      break;
+    }
+    case rd::kMobilization: {
+      const int mf = rd::clamp_land(s.mob_from);
+      if (u2 > 0.5f) {
+        apply_mobilization(o, rd::imin(army(s, mf) - 1, c.min_move), d,
+                           lane);
+        action = rd::clamp_land(s.mob_to);
+      } else {
+        goto_attack(o, d, lane);
+        action = mf;
+      }
+      break;
+    }
+    default: {
+      const uint64_t full = owned & at_least(s, c.army_max, lane);
+      const int fchoice =
+          masked_choice((owned & ~full) | rd::kSkipBit, u0, lane);
+      const bool f_skip = fchoice == rd::kSkip;
+      const int fto = rd::clamp_land(fchoice);
+      const uint64_t cand = connected_to(owned, fto, d, lane) &
+                            ~rd::bit(fto) & owned & at_least(s, 2, lane);
+      const int ffrom = masked_choice(cand, u1, lane);
+      const int max_amt =
+          rd::imin(army(s, ffrom) - 1, c.army_max - army(s, fto));
+      const bool can = !f_skip && cand;
+      const int ramt =
+          can ? static_cast<int>(rd::fmul(u2, static_cast<float>(max_amt)))
+              : 0;
+      add_army(o, can ? ffrom : 0, -ramt, lane);
+      add_army(o, can ? fto : 0, ramt, lane);
+      end_turn(o, d);
+      action = f_skip ? rd::kSkip : fto;
+      break;
+    }
+  }
+  record = live;
+  if (live) s = o;
 }
 
 }  // namespace rw

@@ -1,5 +1,4 @@
-// K9: the ScriptPlayer's micro-decision with its carry, one warp per game;
-// one step (az_script_step) or up to k steps per game (az_script_steps).
+// K9: the ScriptPlayer's micro-decision with its carry, one warp per game.
 //
 // Replaces: alphazero_risk_tpu/agents/script_agent.py
 // `script_step_recorded` (with `_select_target` and `_select_from`): the
@@ -7,15 +6,13 @@
 // reinforcement toward the pinned source, the attack with the pin kept or
 // re-derived (mode_b), the mobilization, and the fortify from the largest
 // interior stack of the best owned component toward the most exposed
-// border land; the recorded 43-way action and its sample mask.  The
-// multi-step entry also replaces the loops around it: the opponent
-// fast-forward of alphazero_risk_tpu/training/actor.py (`ff_cond` /
-// `ff_body`, a `lax.while_loop`) and the Script-vs-Script `play_match` of
-// alphazero_risk_tpu/agents/driver.py (its `while_loop`).
+// border land; the recorded 43-way action and its sample mask.  The loops
+// around it (the opponent fast-forward, `play_match`) run in
+// agent_steps.cu, k steps per launch.
 //
 // Bound on an H100: latency.  A game reads and writes about 380 bytes of
-// state and, per step, one uniform and five dice; its work is a chain of
-// dependent decisions.  The design (rules_warp.cuh, as K7):
+// state and one uniform and five dice; its work is a chain of dependent
+// decisions.  The design (rules_warp.cuh, as K7):
 //
 //   - one warp per game, four games per block; lane k holds lands k and
 //     k + 32, lanes 0-5 one continent each.  The state, the carry and the
@@ -26,13 +23,7 @@
 //     (SCRIPT_LAND_RANK, land), the source an argmax (two reductions), the
 //     setup-neutral pool a few ballots and OR-reductions, each fortify
 //     component one BFS whose frontier step is one OR-reduction and its
-//     interior stack one max-reduction;
-//   - the multi-step entry keeps the game in registers across its steps:
-//     game b steps from iteration j with row j of the draws while its stop
-//     predicate (the game ended, or an AlphaZero seat is to move) is false
-//     on the state before the step, as the JAX loops test it, and writes
-//     back once, with its step count.  The host then syncs once per block
-//     of k iterations, not once per iteration.
+//     interior stack one max-reduction.
 //
 // Outputs go to fresh tensors (no in-place update).
 
@@ -46,27 +37,10 @@ namespace {
 
 constexpr int kWarps = 4;             // games per block
 
-struct CarryRef {
-  int* to;
-  int* from;
-  uint8_t* mode_b;
-};
-
-__device__ __forceinline__ rw::Carry load_carry(const CarryRef& r, int b) {
-  return rw::Carry{r.to[b], r.from[b], r.mode_b[b] != 0};
-}
-
-__device__ __forceinline__ void store_carry(const rw::Carry& c,
-                                            const CarryRef& r, int b) {
-  r.to[b] = c.to;
-  r.from[b] = c.from;
-  r.mode_b[b] = c.mode_b ? 1 : 0;
-}
-
 __global__ void __launch_bounds__(kWarps * 32) script_step_kernel(
-    rd::StateRef in, CarryRef cin, const uint8_t* __restrict__ reset,
+    rd::StateRef in, rw::CarryRef cin, const uint8_t* __restrict__ reset,
     const float* __restrict__ u, const int* __restrict__ dice,
-    rd::StateRef out, CarryRef cout, int* __restrict__ action,
+    rd::StateRef out, rw::CarryRef cout, int* __restrict__ action,
     uint8_t* __restrict__ record, const rd::Tables* __restrict__ tables,
     int B, rd::Cfg cfg) {
   const int lane = threadIdx.x & 31;
@@ -76,7 +50,7 @@ __global__ void __launch_bounds__(kWarps * 32) script_step_kernel(
   const bool rst = reset[b] != 0;
   const float u0 = u[4 * b];
   const int die = lane < 5 ? dice[5 * b + lane] : 0;
-  rw::Carry c = load_carry(cin, b);
+  rw::Carry c = rw::load_carry(cin, b);
   const rw::Board d = rw::load_board(tables, lane);
   const rw::ScriptBoard sb = rw::load_script_board(tables, lane);
   rw::WSt s;
@@ -87,63 +61,10 @@ __global__ void __launch_bounds__(kWarps * 32) script_step_kernel(
   rw::script_step(s, c, rst, u0, die, a, rec, tables, d, sb, cfg, lane);
   rw::store(s, out, b, lane);
   if (lane == 0) {
-    store_carry(c, cout, b);
+    rw::store_carry(c, cout, b);
     action[b] = a;
     record[b] = rec ? 1 : 0;
   }
-}
-
-__global__ void __launch_bounds__(kWarps * 32) script_steps_kernel(
-    rd::StateRef in, CarryRef cin, const int* __restrict__ prev_in,
-    const float* __restrict__ u, const int* __restrict__ dice, int k,
-    int az_seats, rd::StateRef out, CarryRef cout,
-    int* __restrict__ prev_out, int* __restrict__ n_out,
-    const rd::Tables* __restrict__ tables, int B, rd::Cfg cfg) {
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (b >= B) return;
-
-  int prev = prev_in[b];
-  rw::Carry c = load_carry(cin, b);
-  const rw::Board d = rw::load_board(tables, lane);
-  const rw::ScriptBoard sb = rw::load_script_board(tables, lane);
-  rw::WSt s;
-  rw::load(s, in, b, lane);
-
-  // the draws of iteration j are loaded while iteration j - 1 runs
-  const int64_t stride = B;
-  float u0 = k > 0 ? u[4 * b] : 0.f;
-  int die = k > 0 && lane < 5 ? dice[5 * b + lane] : 0;
-  int j = 0;
-  for (; j < k; ++j) {
-    if (rw::game_status(s, cfg) != rd::kNotEnded || ((az_seats >> s.cur) & 1))
-      break;
-    float u_next = 0.f;
-    int die_next = 0;
-    if (j + 1 < k) {
-      const int64_t row = (j + 1) * stride + b;
-      u_next = u[4 * row];
-      if (lane < 5) die_next = dice[5 * row + lane];
-    }
-    const bool rst = s.cur != prev;
-    prev = s.cur;
-    int a;
-    bool rec;
-    rw::script_step(s, c, rst, u0, die, a, rec, tables, d, sb, cfg, lane);
-    u0 = u_next;
-    die = die_next;
-  }
-  rw::store(s, out, b, lane);
-  if (lane == 0) {
-    store_carry(c, cout, b);
-    prev_out[b] = prev;
-    n_out[b] = j;
-  }
-}
-
-CarryRef carry_ref(void* to, void* from, void* mode_b) {
-  return {static_cast<int*>(to), static_cast<int*>(from),
-          static_cast<uint8_t*>(mode_b)};
 }
 
 }  // namespace
@@ -172,47 +93,11 @@ extern "C" int az_script_step(
       out_attacks);
   script_step_kernel<<<(B + kWarps - 1) / kWarps, kWarps * 32, 0,
                        static_cast<cudaStream_t>(stream)>>>(
-      in, carry_ref(c_to, c_from, c_mode),
+      in, rw::carry_ref(c_to, c_from, c_mode),
       static_cast<const uint8_t*>(reset), static_cast<const float*>(u),
-      static_cast<const int*>(dice), out, carry_ref(o_to, o_from, o_mode),
+      static_cast<const int*>(dice), out, rw::carry_ref(o_to, o_from, o_mode),
       static_cast<int*>(action), static_cast<uint8_t*>(record),
       static_cast<const rd::Tables*>(tables), B,
-      rd::make_cfg(army_max, min_move, max_rounds, flags));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The same decision run up to k times per game.  prev [B] int32: the
-// mover of each game's last step (in and out); u [k, B, 4] f32 and dice
-// [k, B, 5] int32: row j is iteration j's draws; az_seats: bit p set when
-// seat p is an AlphaZero seat (the game stops when it is to move; 0 for
-// two scripted seats).  n [B] int32 out: the steps game b took.  Returns
-// cudaGetLastError().
-extern "C" int az_script_steps(
-    void* in_owner, void* in_army, void* in_phase, void* in_round,
-    void* in_cur, void* in_reinf, void* in_cards, void* in_sets,
-    void* in_mob_from, void* in_mob_to, void* in_can_draw, void* in_attacks,
-    void* c_to, void* c_from, void* c_mode, const void* prev_in,
-    const void* u, const void* dice, int k, int az_seats, void* out_owner,
-    void* out_army, void* out_phase, void* out_round, void* out_cur,
-    void* out_reinf, void* out_cards, void* out_sets, void* out_mob_from,
-    void* out_mob_to, void* out_can_draw, void* out_attacks, void* o_to,
-    void* o_from, void* o_mode, void* prev_out, void* n_out,
-    const void* tables, int B, int army_max, int min_move, int max_rounds,
-    int flags, void* stream) {
-  const rd::StateRef in = rd::state_ref(
-      in_owner, in_army, in_phase, in_round, in_cur, in_reinf, in_cards,
-      in_sets, in_mob_from, in_mob_to, in_can_draw, in_attacks);
-  const rd::StateRef out = rd::state_ref(
-      out_owner, out_army, out_phase, out_round, out_cur, out_reinf,
-      out_cards, out_sets, out_mob_from, out_mob_to, out_can_draw,
-      out_attacks);
-  script_steps_kernel<<<(B + kWarps - 1) / kWarps, kWarps * 32, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      in, carry_ref(c_to, c_from, c_mode),
-      static_cast<const int*>(prev_in), static_cast<const float*>(u),
-      static_cast<const int*>(dice), k, az_seats, out,
-      carry_ref(o_to, o_from, o_mode), static_cast<int*>(prev_out),
-      static_cast<int*>(n_out), static_cast<const rd::Tables*>(tables), B,
       rd::make_cfg(army_max, min_move, max_rounds, flags));
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,10 +18,7 @@ flags, and so its library name, differ from the others'.
 
 Every ``Kernel`` counts its launches in ``launches``, a plain integer that
 grows by one where the kernel is launched and nowhere else.  The C entry
-point returns ``cudaGetLastError()`` and a nonzero code raises.  A source
-with a second entry point (another ``__global__`` kernel in the same
-library) is a second ``Kernel`` of the same source, headers and flags: the
-same library, built once, and a count of its own.
+point returns ``cudaGetLastError()`` and a nonzero code raises.
 """
 
 from __future__ import annotations
@@ -151,9 +148,11 @@ MCTS_DESCEND = Kernel(
     "mcts_descend", "mcts_descend.cu", "az_mcts_descend",
     [P] * 14 + [F, F, F, I, I, I, P, P])
 
+# the tree's pointer pack (mcts.search._k6_pack), paths [3, B, D], depth,
+# leaf_v and leaf_p (null: the pack's); B, N, D
 MCTS_BACKUP = Kernel(
     "mcts_backup", "mcts_backup.cu", "az_mcts_backup",
-    [P] * 8 + [I, I, I])
+    [P] * 5 + [I, I, I])
 
 # x, w, bias, residual, out f32, out bf16, M, Cin, Cout, x is bf16
 CONV3X3_BF16 = Kernel(
@@ -171,12 +170,11 @@ TREE_WRITE = Kernel(
     "write_nodes", "tree_write.cu", "az_write_nodes",
     [P] * 23 + [I, I, I])
 
-# The rules kernels share csrc/rules_dev.cuh, and K7, K8 and K9, one warp
-# per game, also csrc/rules_warp.cuh.  The trailing ints of each: B,
-# land_army_max, min_unit_move, max_game_rounds, flags (rules.
-# kernel_flags), and for K8 the feature version.
-RULES = ("rules_dev.cuh",)
-RULES_WARP = RULES + ("rules_warp.cuh",)
+# The rules kernels, one warp per game, share csrc/rules_dev.cuh and
+# csrc/rules_warp.cuh.  The trailing ints of each: B, land_army_max,
+# min_unit_move, max_game_rounds, flags (rules.kernel_flags), and for K8
+# the feature version.
+RULES_WARP = ("rules_dev.cuh", "rules_warp.cuh")
 
 # 12 state fields and player/drawn cards in, node, N, action, dice,
 # outcome, 12 state fields and player/drawn cards out, status, legal,
@@ -199,30 +197,26 @@ SCRIPT_STEP = Kernel(
 # 12 state fields, u, dice in; 12 state fields, action, record out; tables
 RANDOM_STEP = Kernel(
     "random_step", "random_step.cu", "az_random_step",
-    [P] * 29 + [I] * 5, headers=RULES)
+    [P] * 29 + [I] * 5, headers=RULES_WARP)
 
-# K9's multi-step entry, in K9's library: 12 state fields, 3 carry
-# fields, prev, u [k, B, 4], dice [k, B, 5] in, k, the AlphaZero seats'
-# bits; 12 state fields, 3 carry fields, prev, the step counts out; tables
-SCRIPT_STEPS = Kernel(
-    "script_steps", "script_step.cu", "az_script_steps",
+# K9's and K10's multi-step entry: 12 state fields, 3 carry fields, prev,
+# u [k, B, 4], dice [k, B, 5] in, k, the seats' kinds (two bits a seat);
+# 12 state fields, 3 carry fields, prev, the step counts out; tables
+AGENT_STEPS = Kernel(
+    "agent_steps", "agent_steps.cu", "az_agent_steps",
     [P] * 18 + [I] * 2 + [P] * 18 + [I] * 5, headers=RULES_WARP)
 
 ALL = (CONV3X3_I8, MCTS_DESCEND, MCTS_BACKUP, CONV3X3_BF16, HEADS_EVAL,
        TREE_WRITE, RULES_STEP, STATE_VIEWS, SCRIPT_STEP, RANDOM_STEP,
-       SCRIPT_STEPS)
+       AGENT_STEPS)
 
 
 def build_all() -> None:
     """Build every library, one ``nvcc`` per source, all started together,
     and load every kernel."""
-    procs = {}
-    for k in ALL:
-        if k.library not in procs:
-            procs[k.library] = (k, k.start_build())
-    for k, proc in procs.values():
+    procs = [(k, k.start_build()) for k in ALL]
+    for k, proc in procs:
         k.finish_build(proc)
-    for k in ALL:
         k._load()
 
 

@@ -12,7 +12,8 @@ Three kernels carry the simulation on the card:
 - K6 (``csrc/tree_write.cu``, ``write_nodes``): the new node's state and
   tree entries, the child link, ``next_free`` and the leaf select; also the
   root write of ``init_tree``;
-- K3 (``csrc/mcts_backup.cu``, ``backup``): the sign-flip backup.
+- K3 (``csrc/mcts_backup.cu``, ``backup``): the sign-flip backup, one
+  warp per game.
 
 On CPU tensors they take their plain PyTorch versions (``_descend_plain``,
 ``_write_nodes_plain``, ``_backup_plain``), which follow the JAX code step
@@ -57,6 +58,8 @@ from ..env.state import GameState, tree_map
 from .outcomes import OUTCOME_PROBS
 
 I32, F32 = torch.int32, torch.float32
+# The longest path K3 takes: it holds a game's edges in two 32-lane halves.
+MAX_DEPTH = 64
 
 # eval_fn(state, legal_mask) -> (probs [B,43] masked+normalized, value [B])
 EvalFn = Callable[[GameState, torch.Tensor],
@@ -192,11 +195,12 @@ _STATE_SPEC = rules.STATE_SPEC + rules.CARDS_SPEC
 
 
 def _k6_pack(tree: Tree):
-    """K6's view of a tree on the card, made at its first write (the root
-    write of ``init_tree``) and kept on the tree: its 24 arrays, checked
-    once, and the leaf outputs, allocated once, as one host array of
-    pointers; with its address and the leaf outputs.  K3 reads the leaf
-    outputs in stream order before the next simulation's K6 writes them."""
+    """The kernels' view of a tree on the card, made at its first write
+    (the root write of ``init_tree``) and kept on the tree: K6's 24
+    arrays, checked once, the leaf outputs, allocated once, and K3's
+    ``visit`` and ``wsum``, checked once, as one host array of pointers;
+    with its address and the leaf outputs.  K3 reads the leaf outputs in
+    stream order before the next simulation's K6 writes them."""
     pack = tree.__dict__.get("_k6")
     if pack is None:
         b, n = tree.player.shape
@@ -208,8 +212,11 @@ def _k6_pack(tree: Tree):
         dev = tree.player.device
         leaf = (torch.empty((b,), dtype=F32, device=dev),
                 torch.empty((b,), dtype=I32, device=dev))
-        ptrs = (ctypes.c_void_p * 26)(*(t.data_ptr() for t in arrays),
-                                      *(t.data_ptr() for t in leaf))
+        stats = (rules.checked(tree.visit, I32, (b, n, NUM_ACTIONS), "visit"),
+                 rules.checked(tree.wsum, F32, (b, n, NUM_ACTIONS), "wsum"))
+        ptrs = (ctypes.c_void_p * 28)(*(t.data_ptr() for t in arrays),
+                                      *(t.data_ptr() for t in leaf),
+                                      *(t.data_ptr() for t in stats))
         pack = (ptrs, ctypes.addressof(ptrs), leaf)
         tree._k6 = pack
     return pack
@@ -444,23 +451,47 @@ def _backup_plain(tree: Tree, path: Descent, leaf_v: torch.Tensor,
     tree.wsum.index_put_(idx, v_d * active.to(F32), accumulate=True)
 
 
+def _path_buffers(path: Descent, b: int, d: int):
+    """K3's view of ``path``: its [3, B, D] path buffer (as the base of
+    ``pn``, ``pa`` and ``pp``) and its depth, each checked.  A path from
+    ``descend`` on the card is three rows of one K2 buffer, adjacent in
+    memory, and is passed as it is; other path tensors are stacked into
+    one buffer."""
+    pn, pa, pp = (rules.checked(t, I32, (b, d), name) for name, t in
+                  (("pn", path.pn), ("pa", path.pa), ("pp", path.pp)))
+    depth = rules.checked(path.depth, I32, (b,), "depth")
+    plane = 4 * b * d
+    base = pn.data_ptr()
+    if (pa.data_ptr(), pp.data_ptr()) == (base + plane, base + 2 * plane):
+        return pn, depth
+    return torch.stack((pn, pa, pp)), depth
+
+
 def backup(tree: Tree, path: Descent, leaf_v: torch.Tensor,
            leaf_p: torch.Tensor) -> None:
     """Add one visit and the sign-flipped leaf value along each game's path
     (kernel K3), in place on ``tree.visit`` and ``tree.wsum``.  CPU tensors
-    take ``_backup_plain``; CUDA tensors launch the kernel."""
+    take ``_backup_plain``; CUDA tensors launch the kernel.  On the card
+    the tree arrays and ``write_nodes``' leaf outputs come checked from the
+    tree's pointer pack; other leaf tensors are checked here."""
     if tree.visit.device.type == "cpu":
         _backup_plain(tree, path, leaf_v, leaf_p)
         return
-    ins = (path.pn, path.pa, path.pp, path.depth, leaf_v, leaf_p,
-           tree.visit, tree.wsum)
-    kernels.require_cuda(*ins)
-    if leaf_v.dtype != F32 or leaf_p.dtype != I32:
-        raise ValueError("leaf_v must be float32 and leaf_p int32")
     b, n = tree.player.shape
-    P = kernels.ptr
-    kernels.MCTS_BACKUP.launch(*(P(t) for t in ins), b, n,
-                               path.pn.shape[1])
+    d = path.pn.shape[1]
+    if d > MAX_DEPTH:
+        raise ValueError(f"K3 takes paths of at most {MAX_DEPTH} edges, "
+                         f"got {d}")
+    _, pack_addr, leaf = _k6_pack(tree)
+    paths, depth = _path_buffers(path, b, d)
+    if leaf_v is leaf[0] and leaf_p is leaf[1]:
+        lv = lp = None              # K3 reads them from the pack
+    else:
+        lv = rules.checked(leaf_v, F32, (b,), "leaf_v").data_ptr()
+        lp = rules.checked(leaf_p, I32, (b,), "leaf_p").data_ptr()
+    if b:
+        kernels.MCTS_BACKUP.launch(pack_addr, paths.data_ptr(),
+                                   depth.data_ptr(), lv, lp, b, n, d)
 
 
 def expansion_inputs(tree: Tree, path: Descent, cfg: Config,

@@ -13,9 +13,8 @@ the replay buffer stores what ``NNInputData`` stores in the reference
 Randomness is explicit.  ``run_episodes`` takes a ``draws`` object that
 hands out, per step, the search's Gumbel noise and root-noise uniforms, the
 Gumbel noise of a sampled move, the dice of the AlphaZero move and the
-opponent's ``u``/dice (of the step, and of each fast-forward iteration:
-one at a time, ``ff()``, or in blocks that can be put back, ``ff_block(k)``
-and ``ff_rewind(m)``).
+opponent's ``u``/dice (of the step, and of the fast-forward's iterations
+in blocks that can be put back, ``ff_block(k)`` and ``ff_rewind(m)``).
 ``GeneratorDraws`` draws them from a ``torch.Generator``; a test can hand in
 the numbers another implementation drew.  ``run_scripted_episodes`` (the
 supervised-bootstrap generator: scripted and random agents only, every
@@ -30,7 +29,8 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..agents import random_agent, script_agent
+from ..agents import blocks, random_agent, script_agent
+from ..agents.blocks import OPP_AZ, OPP_RANDOM, OPP_SCRIPT
 from ..agents.common import BlockDraws, draw_step_randoms
 from ..config import Config, NUM_ACTIONS, NUM_LANDS, STATUS_NOT_ENDED
 from ..env import rules
@@ -39,11 +39,7 @@ from ..env.state import GameState, tree_select
 from ..mcts import search as mcts
 from ..models.resnet import AZNet
 
-OPP_AZ = 0              # the JAX package's opponent codes
-OPP_SCRIPT = 1
-OPP_RANDOM = 2
-
-# The ScriptPlayer fast-forward's blocks of draws: the first of FF_BLOCK
+# The opponent fast-forward's blocks of draws: the first of FF_BLOCK
 # iterations, each next one twice the last, at most FF_BLOCK_MAX.  In the
 # 32-game play slice 156 of 256 fast-forwards run no iteration, the rest
 # 2 to 90 (median 27), so most take one block, 38 of them two.  A first
@@ -163,12 +159,9 @@ class GeneratorDraws:
     def begin_step(self) -> None:
         """Called once at the start of every micro-step."""
 
-    def ff(self):
-        """(u [B,4], dice [B,5]) of one opponent fast-forward iteration."""
-        return draw_step_randoms(self.gen, self.batch, self.device)
-
     def ff_block(self, k: int):
-        """(u [k,B,4], dice [k,B,5]): the next k ``ff()`` draws."""
+        """(u [k,B,4], dice [k,B,5]): the next k fast-forward iterations'
+        draws, each as ``opp()`` draws it."""
         return self._ff.block(k)
 
     def ff_rewind(self, m: int) -> None:
@@ -243,10 +236,9 @@ def run_episodes(eval_fn, state0: GameState, draws, cfg: Config,
     When opponent records are not needed (``record_all=False``), opponent
     movers are fast-forwarded to their next AZ turn before each search, so
     no MCTS compute is spent on games an opponent is moving in.  The
-    ScriptPlayer fast-forwards in blocks of draws on the card
-    (``script_agent.run_script_blocks``, blocks of ``FF_BLOCK`` to
-    ``FF_BLOCK_MAX`` iterations), the RandomPlayer one iteration at a
-    time.
+    opponent fast-forwards in blocks of draws (``blocks.run_agent_blocks``,
+    blocks of ``FF_BLOCK`` to ``FF_BLOCK_MAX`` iterations; on the card one
+    launch of the multi-step entry and one host sync per block).
     """
     if cfg.tree_reuse:
         raise NotImplementedError(
@@ -255,6 +247,9 @@ def run_episodes(eval_fn, state0: GameState, draws, cfg: Config,
     b, dev = state0.batch_size, state0.device
     both_az = az_seats[0] and az_seats[1]
     fast_forward = not both_az and not record_all
+    if fast_forward and opponent not in (OPP_SCRIPT, OPP_RANDOM):
+        raise ValueError(opponent)
+    ff_kinds = tuple(OPP_AZ if az else opponent for az in az_seats)
     state = state0
     carry = script_agent.init_carry(b, dev) if carry_in is None else carry_in
     prev = (torch.full((b,), -1, dtype=I32, device=dev)
@@ -265,29 +260,12 @@ def run_episodes(eval_fn, state0: GameState, draws, cfg: Config,
     def az_mask_of(st):
         return torch.where(st.cur_player == 0, az_seats[0], az_seats[1])
 
-    def az_turn_or_done(st):
-        return az_mask_of(st) | (rules.game_status(st, cfg)
-                                 != STATUS_NOT_ENDED)
-
     for _ in range(num_steps):
         draws.begin_step()
-        if fast_forward and opponent == OPP_SCRIPT:
-            state, carry, prev, _, _ = script_agent.run_script_blocks(
+        if fast_forward:
+            state, carry, prev, _, _ = blocks.run_agent_blocks(
                 state, carry, prev, cfg, draws.ff_block, draws.ff_rewind,
-                az_seats=az_seats, k=FF_BLOCK, k_max=FF_BLOCK_MAX)
-        elif fast_forward:
-            while True:
-                waiting = az_turn_or_done(state)
-                if bool(waiting.all()):
-                    break
-                u, dice = draws.ff()
-                reset = state.cur_player != prev
-                s2, c2, _ = _opponent_step(opponent, state, carry, reset, u,
-                                           dice, cfg)
-                moving = ~waiting
-                prev = torch.where(moving, state.cur_player, prev)
-                state = tree_select(moving, s2, state)
-                carry = tree_select(moving, c2, carry)
+                kinds=ff_kinds, k=FF_BLOCK, k_max=FF_BLOCK_MAX)
 
         live = rules.game_status(state, cfg) == STATUS_NOT_ENDED
         mover = state.cur_player

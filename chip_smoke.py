@@ -44,17 +44,19 @@ when all of them pass):
    all three outputs, the features alone, legality and status), and
    compared at every batch of ``RULES_BATCHES`` (K7 also timed there); K7's
    expand entry on the main-path tree and its slices (timed at GAMES on
-   it and on the training phase's tree).  K9's multi-step entry is timed
-   (one launch of 64 iterations, per launch and per iteration) on 1,024
-   and 64 mirrored games 100 steps into a Script-vs-Script match, beside
-   the single step's kernel on the same states.
+   it and on the training phase's tree).  The multi-step entry of K9 and
+   K10 is timed (one launch of 64 iterations, per launch and per
+   iteration) on 1,024 and 64 mirrored games 100 steps into a
+   Script-vs-Script and a Script-vs-Random match, beside the single
+   steps' kernels on the same states, and held on the mixed states for
+   every pair of seat kinds.  K3 (visit and wsum) is held bit for bit.
    The training and data phases search at ``TRAIN``'s simulations: K2,
    K3, K6 and K7's expand are held on such a tree at each of their
    batches (``TRAIN_BATCHES``);
 4. slice: the flagship 20x256 net, int8 fast path, 32 simulations, plays
    32 mirrored games against the ScriptPlayer to the end through
    ``Trainer.play`` (the first main path, launch counts read around it;
-   the ScriptPlayer fast-forwards in blocks of K9's multi-step entry,
+   the ScriptPlayer fast-forwards in blocks of the multi-step entry,
    whose launches, blocks and iterations per lockstep step are printed
    and a sample of whose launches is held against the plain multi-step
    function on the slice's own states), checks the int8 and bf16 forwards
@@ -75,7 +77,7 @@ when all of them pass):
    versions from the same draws: states, carries and records equal; K8
    on a learner batch of its records from the replay.  (b)
    ``play_match`` Script vs Script on 1,024 mirrored games to the end, in
-   blocks of K9's multi-step entry (one launch per block, each held
+   blocks of the multi-step entry (one launch per block, each held
    against the plain multi-step function; the live micro-steps are the
    sum of its step counts).
    (c) ``Trainer.train_on_data(loops=1)`` from the flagship at full
@@ -83,8 +85,13 @@ when all of them pass):
    3 epochs at batch 512, the arena and the benchmark at the training
    phase's cut depth, ``temp``/``latest``/meta; launch counts read around
    it (K9 once per lockstep step of both scripted matches, K10 once per
-   step of the Script-vs-Random one).  The data path's launch counts are
-   those of (b) and (c).
+   step of the Script-vs-Random one; the benchmark fast-forwards both
+   opponents through the multi-step entry).  (d) ``play_match`` Script
+   vs Random on 1,024 mirrored games to the end in blocks (the CLI's
+   ``-m play --p1 sp --p2 rp``), held against the per-iteration loop on
+   the plain versions from the same seed (tally, steps, rounds, live
+   micro-steps).  The data path's launch counts are those of (b), (c)
+   and (d).
 
 The line before the card's is a JSON object with one entry per kernel:
 ``launches`` sums the three main paths (play, train, data), each also
@@ -438,28 +445,35 @@ def check_k2_k3(tree, gum, cfg, dev, timed=True, what=""):
         f"depth mean {float(depth.float().mean()):.2f} max "
         f"{int(depth.max())}, expanding {int((path.exp_n >= 0).sum())}/{B}")
 
+    # K3 takes the leaf from the caller's tensors, or (the search's call)
+    # from the tree's own leaf buffers, which it reads through the pack
     leaf_v = torch.rand(B, generator=torch.Generator(device=dev)
                         .manual_seed(7), device=dev) * 2 - 1
     leaf_p = tree.player[torch.arange(B, device=dev), path.cur.long()]
+    pack_leaf = S._k6_pack(tree)[2]
+    pack_leaf[0].copy_(leaf_v)
+    pack_leaf[1].copy_(leaf_p)
     vk, wk = tree.visit.clone(), tree.wsum.clone()
-    S.backup(tree, path, leaf_v, leaf_p)
-    vis_k, ws_k = tree.visit.clone(), tree.wsum.clone()
-    tree.visit.copy_(vk)
-    tree.wsum.copy_(wk)
+    got = []
+    for lv, lp in ((leaf_v, leaf_p), pack_leaf):
+        S.backup(tree, path, lv, lp)
+        got.append((tree.visit.clone(), tree.wsum.clone()))
+        tree.visit.copy_(vk)
+        tree.wsum.copy_(wk)
     S._backup_plain(tree, path, leaf_v, leaf_p)
     torch.cuda.synchronize()
-    if not torch.equal(vis_k, tree.visit):
-        fail(f"K3 visit differs from the plain backup ({shape})")
-    if not torch.allclose(ws_k, tree.wsum, rtol=1e-6, atol=0):
-        fail(f"K3 wsum differs from the plain backup beyond rtol 1e-6 "
-             f"({shape})")
+    for vis_k, ws_k in got:
+        if not torch.equal(vis_k, tree.visit):
+            fail(f"K3 visit differs from the plain backup ({shape})")
+        if not torch.equal(ws_k, tree.wsum):
+            fail(f"K3 wsum differs from the plain backup ({shape})")
     err3 = float((ws_k - tree.wsum).abs().max())
     # sign flips on the paths: where the mover changes along an edge
     on_path = torch.arange(cfg.max_depth, device=dev)[None, :] < \
         depth[:, None]
     flips = int(((path.pp[:, 1:] != path.pp[:, :-1]) & on_path[:, 1:]).sum())
-    log(f"K3 mcts_backup {shape}: visit equal, wsum max abs err {err3:.3g}; "
-        f"{flips} player changes along the paths")
+    log(f"K3 mcts_backup {shape}: visit and wsum equal; {flips} player "
+        f"changes along the paths")
     if not timed:
         return None
 
@@ -476,7 +490,8 @@ def check_k2_k3(tree, gum, cfg, dev, timed=True, what=""):
     k3_bound, k3_by = bound_ms(k3_bytes, 0.0, 1.0)
 
     ms2 = time_ms(lambda: S.descend(tree, gum, cfg), 50)
-    ms3 = time_ms(lambda: S.backup(tree, path, leaf_v, leaf_p), 50)
+    ms3 = time_ms(lambda: S.backup(tree, path, *pack_leaf), 50)
+    ms3_caller = time_ms(lambda: S.backup(tree, path, leaf_v, leaf_p), 50)
     dev2 = device_ms(lambda: S.descend(tree, gum, cfg),
                      "mcts_descend_kernel")
     dev3 = device_ms(lambda: S.backup(tree, path, leaf_v, leaf_p),
@@ -485,15 +500,15 @@ def check_k2_k3(tree, gum, cfg, dev, timed=True, what=""):
     plain3 = time_ms(lambda: S._backup_plain(tree, path, leaf_v, leaf_p), 20)
     log(f"K2 {shape}: {ms2:.4f} ms (kernel alone {fmt_ms(dev2)}; bound "
         f"{k2_bound:.5f} ms) plain {plain2:.3f} ms; K3: {ms3:.4f} ms "
-        f"(kernel alone {fmt_ms(dev3)}; bound {k3_bound:.6f} ms) plain "
-        f"{plain3:.3f} ms")
+        f"(the caller's leaf tensors {ms3_caller:.4f} ms; kernel alone "
+        f"{fmt_ms(dev3)}; bound {k3_bound:.6f} ms) plain {plain3:.3f} ms")
     return ({"max_abs_err": err2, "ms": ms2, "device_ms": dev2,
              "plain_ms": plain2,
              "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
              "shape": shape, "depth_mean": float(depth.float().mean()),
              "depth_max": int(depth.max())},
-            {"max_abs_err": err3, "ms": ms3, "device_ms": dev3,
-             "plain_ms": plain3,
+            {"max_abs_err": err3, "ms": ms3, "ms_caller": ms3_caller,
+             "device_ms": dev3, "plain_ms": plain3,
              "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None,
              "shape": shape})
 
@@ -1124,19 +1139,19 @@ def check_k9_k10(mx, cfg, timed=True):
 
 @contextlib.contextmanager
 def watched_blocks(keep=0, every=1):
-    """Inside the block every call of K9's multi-step entry
-    (``script_agent.script_steps``) and of the block loop around it
-    (``run_script_blocks``) is counted: the loops' iterations and blocks
+    """Inside the block every call of the multi-step entry
+    (``blocks.agent_steps``) and of the block loop around it
+    (``run_agent_blocks``) is counted: the loops' iterations and blocks
     in ``w["iterations"]`` and ``w["blocks"]``, each loop's iterations in
-    ``w["lengths"]``, the entry's step counts
-    summed on the card in ``w["steps"]`` (the live micro-steps), and
-    every ``every``-th call of the entry, up to ``keep``, with its inputs
-    and outputs in ``w["calls"]`` (for ``hold_k9_steps``; held after the
-    run, by the plain version alone, so no launch is added)."""
-    from alphazero_risk_tpu_torch.agents import script_agent as SA
+    ``w["lengths"]``, the entry's step counts summed on the card in
+    ``w["steps"]`` (the live micro-steps), and every ``every``-th call of
+    the entry, up to ``keep``, with its inputs and outputs in
+    ``w["calls"]`` (for ``hold_agent_steps``; held after the run, by the
+    plain version alone, so no launch is added)."""
+    from alphazero_risk_tpu_torch.agents import blocks as AB
     w = {"iterations": 0, "blocks": 0, "runs": 0, "steps": 0, "calls": [],
          "n": 0, "lengths": []}
-    steps_fn, run_fn = SA.script_steps, SA.run_script_blocks
+    steps_fn, run_fn = AB.agent_steps, AB.run_agent_blocks
 
     def steps(*a, **kw):
         out = steps_fn(*a, **kw)
@@ -1154,51 +1169,59 @@ def watched_blocks(keep=0, every=1):
         w["runs"] += 1
         return out
 
-    SA.script_steps, SA.run_script_blocks = steps, run
+    AB.agent_steps, AB.run_agent_blocks = steps, run
     try:
         yield w
     finally:
-        SA.script_steps, SA.run_script_blocks = steps_fn, run_fn
+        AB.agent_steps, AB.run_agent_blocks = steps_fn, run_fn
 
 
-def hold_k9_steps(calls, what):
-    """The multi-step entry's outputs of ``calls`` (from ``watched_blocks``)
-    against the plain multi-step function on the same inputs: state,
-    carry, prev and step counts bit for bit."""
+def kinds_name(kinds):
+    return "-".join(("AZ", "Script", "Random")[k] for k in kinds)
+
+
+def hold_agent_steps(calls, what):
+    """The multi-step entry's outputs of ``calls`` (from
+    ``watched_blocks``) against the plain multi-step function on the same
+    inputs: state, carry, prev and step counts bit for bit."""
     import dataclasses
     import torch
-    from alphazero_risk_tpu_torch.agents import script_agent as SA
+    from alphazero_risk_tpu_torch.agents import blocks as AB
+    from alphazero_risk_tpu_torch.agents.script_agent import ScriptCarry
     games = steps = 0
     for a, kw, out in calls:
-        ref = SA._script_steps_plain(*a, **kw)
+        ref = AB._agent_steps_plain(*a, **kw)
         torch.cuda.synchronize()
         bad = states_differ(out[0], ref[0]) or next(
-            (f"carry {f.name}" for f in dataclasses.fields(SA.ScriptCarry)
+            (f"carry {f.name}" for f in dataclasses.fields(ScriptCarry)
              if not torch.equal(getattr(out[1], f.name),
                                 getattr(ref[1], f.name))), None) or (
             None if torch.equal(out[2], ref[2]) and torch.equal(out[3],
                                                                ref[3])
             else "prev or n")
         if bad:
-            fail(f"K9 script_steps {what}: {bad} differs from the plain "
+            fail(f"agent_steps {what}: {bad} differs from the plain "
                  f"multi-step function (k={a[3].shape[0]}, "
-                 f"B={out[3].numel()})")
+                 f"B={out[3].numel()}, kinds {kinds_name(a[6])})")
         games += out[3].numel()
         steps += int(out[3].sum())
-    log(f"K9 script_steps {what}: {len(calls)} launches held against the "
+    log(f"agent_steps {what}: {len(calls)} launches held against the "
         f"plain multi-step function ({games} games, {steps} steps): state, "
         f"carry, prev and step counts equal")
 
 
-def check_k9_steps(cfg, dev, b=MIXED, k=64, warm=100):
-    """K9's multi-step entry timed on ``b`` mirrored games ``warm``
-    Script-vs-Script steps into their match (the data phase's (b) start),
-    one launch of ``k`` iterations, against the plain multi-step function
-    on the same inputs: the call, the kernel alone, per launch and per
-    iteration, beside the single step's kernel alone on the same states
-    (the per-iteration cost of the loop it replaces)."""
+def check_agent_steps(cfg, dev, b=MIXED, k=64, warm=100, kinds=(1, 1)):
+    """The multi-step entry timed on ``b`` mirrored games ``warm`` steps
+    into a match of the seat ``kinds`` (data (b)'s start for two
+    ScriptPlayers, the CLI's ``--p1 sp --p2 rp`` for (1, 2)), one launch
+    of ``k`` iterations, against the plain multi-step function on the
+    same inputs: the call, the kernel alone, per launch and per iteration,
+    beside the single steps' kernels alone on the same states (the
+    per-iteration cost of the loop it replaces)."""
     import torch
+    from alphazero_risk_tpu_torch.agents import blocks as AB
     from alphazero_risk_tpu_torch.agents import driver as D
+    from alphazero_risk_tpu_torch.agents import random_agent as RA
     from alphazero_risk_tpu_torch.agents import script_agent as SA
     from alphazero_risk_tpu_torch.agents.common import BlockDraws
     gen = torch.Generator(device=dev).manual_seed(31)
@@ -1207,32 +1230,103 @@ def check_k9_steps(cfg, dev, b=MIXED, k=64, warm=100):
     prev = torch.full((b,), -1, dtype=torch.int32, device=dev)
     draws = BlockDraws(gen, b, dev)
     u, dice = draws.block(warm)
-    st, carry, prev, _ = SA.script_steps(st, carry, prev, u, dice, cfg)
+    st, carry, prev, _ = AB.agent_steps(st, carry, prev, u, dice, cfg, kinds)
     u, dice = draws.block(k)
-    args = (st, carry, prev, u, dice, cfg, (False, False))
-    out = SA.script_steps(*args)
-    hold_k9_steps([(args, {}, out)], f"B={b} k={k}")
+    args = (st, carry, prev, u, dice, cfg, kinds)
+    out = AB.agent_steps(*args)
+    name = kinds_name(kinds)
+    hold_agent_steps([(args, {}, out)], f"B={b} k={k} {name}")
     n = int(out[3].sum())
     sb = state_bytes(st)
     # state, carry (9 bytes) and prev read and written once, the step
-    # counts written, and the draws of the steps taken (u[0] and 5 dice)
+    # counts written, and the draws of the steps taken (at least u[0] and
+    # the 5 dice)
     nbytes = b * (2 * (sb + 9 + 4) + 4) + n * (4 + 20) + TABLE_BYTES
-    e = timed_entry(lambda: SA.script_steps(*args),
-                    lambda: SA._script_steps_plain(*args),
-                    "script_steps_kernel", nbytes, b, reps=20)
+    e = timed_entry(lambda: AB.agent_steps(*args),
+                    lambda: AB._agent_steps_plain(*args),
+                    "agent_steps_kernel", nbytes, b, reps=20)
     reset = st.cur_player != prev
-    single = device_ms(lambda: SA.script_step_recorded(
-        st, carry, reset, u[0], dice[0], cfg), "script_step_kernel")
-    e.update(shape=f"B={b} k={k}", steps=n,
+    singles = {}
+    if 1 in kinds:
+        singles["script"] = device_ms(lambda: SA.script_step_recorded(
+            st, carry, reset, u[0], dice[0], cfg), "script_step_kernel")
+    if 2 in kinds:
+        singles["random"] = device_ms(lambda: RA.random_step_recorded(
+            st, u[0], dice[0], cfg), "random_step_kernel")
+    e.update(shape=f"B={b} k={k} {name}", steps=n,
              device_ms_per_iteration=(None if e["device_ms"] is None
                                       else e["device_ms"] / k),
-             single_step_device_ms=single)
-    log(f"K9 script_steps B={b} k={k} ({n} game-steps): {e['ms']:.4f} ms "
-        f"per launch (kernel alone {fmt_ms(e['device_ms'])}, "
-        f"{fmt_ms(e['device_ms_per_iteration'])} per iteration; the single "
-        f"step alone {fmt_ms(single)}); bound {e['bound_ms']:.6f} ms; plain "
-        f"{e['plain_ms']:.3f} ms")
+             single_step_device_ms=singles)
+    log(f"agent_steps B={b} k={k} {name} ({n} game-steps): "
+        f"{e['ms']:.4f} ms per launch (kernel alone {fmt_ms(e['device_ms'])}"
+        f", {fmt_ms(e['device_ms_per_iteration'])} per iteration; the "
+        f"single steps alone "
+        f"{ {a: fmt_ms(t) for a, t in singles.items()} }); bound "
+        f"{e['bound_ms']:.6f} ms; plain {e['plain_ms']:.3f} ms")
     return e
+
+
+def hold_agent_steps_mixed(mx, cfg, k=16):
+    """The multi-step entry on the mixed states with their carries and
+    previous movers, for every pair of seat kinds (an AlphaZero seat
+    beside either agent, two agents), against the plain multi-step
+    function: comparison only."""
+    import torch
+    from alphazero_risk_tpu_torch.agents import blocks as AB
+    from alphazero_risk_tpu_torch.agents.common import BlockDraws
+    dev = mx.prev.device
+    b = mx.state.batch_size
+    u, dice = BlockDraws(torch.Generator(device=dev).manual_seed(33), b,
+                         dev).block(k)
+    calls = []
+    for kinds in ((0, 1), (1, 0), (1, 1), (0, 2), (2, 0), (1, 2), (2, 1),
+                  (2, 2)):
+        args = (mx.state, mx.carry, mx.prev, u, dice, cfg, kinds)
+        calls.append((args, {}, AB.agent_steps(*args)))
+    hold_agent_steps(calls, f"on the {b} mixed states, every pair of seat "
+                            f"kinds, k={k}")
+
+
+def match_by_iteration(gen, state, agents, cfg, max_steps):
+    """The per-iteration ``play_match`` loop the blocks replace, on the
+    plain versions: every iteration draws, both seats' agents step every
+    game, each game keeps its mover's state and carry, and the status
+    check at the top of each iteration syncs once and counts the live
+    micro-steps.  Returns (final state, steps, live micro-steps)."""
+    import torch
+    from alphazero_risk_tpu_torch.agents import driver as D
+    from alphazero_risk_tpu_torch.agents import random_agent as RA
+    from alphazero_risk_tpu_torch.agents import script_agent as SA
+    from alphazero_risk_tpu_torch.agents.common import draw_step_randoms
+    from alphazero_risk_tpu_torch.env import rules
+    from alphazero_risk_tpu_torch.env.state import tree_select
+    b, dev = state.batch_size, state.phase.device
+    carry = SA.init_carry(b, dev)
+    prev = torch.full((b,), -1, dtype=torch.int32, device=dev)
+
+    def agent_step(kind, state, carry, reset, u, dice):
+        if kind == D.AGENT_SCRIPT:
+            return SA._script_step_recorded_plain(state, carry, reset, u,
+                                                  dice, cfg)[:2]
+        return RA._random_step_recorded_plain(state, u, dice, cfg)[0], carry
+
+    t = live = 0
+    while t < max_steps:
+        alive = int((rules._game_status_plain(state, cfg) == -1).sum())
+        if not alive:
+            break
+        live += alive
+        u, dice = draw_step_randoms(gen, b, dev)
+        reset = state.cur_player != prev
+        s0, c0 = agent_step(agents[0], state, carry, reset, u, dice)
+        s1, c1 = (s0, c0) if agents[1] == agents[0] else agent_step(
+            agents[1], state, carry, reset, u, dice)
+        mover0 = state.cur_player == 0
+        prev = state.cur_player
+        state = tree_select(mover0, s0, s1)
+        carry = tree_select(mover0, c0, c1)
+        t += 1
+    return state, t, live
 
 
 def plain_grown_tree(states, cfg, dev):
@@ -1443,8 +1537,13 @@ def phase_kernels(cfg, dev):
         k8["b1024"] = check_k8(mx.state, cfg)
         k9, k10 = check_k9_k10(first(mx, GAMES), cfg)
         k9["b1024"], k10["b1024"] = check_k9_k10(mx, cfg)
-        k9s = check_k9_steps(cfg, dev)
-        k9s["b64"] = check_k9_steps(cfg, dev, b=GAMES)
+        ks = check_agent_steps(cfg, dev)
+        ks["b64"] = check_agent_steps(cfg, dev, b=GAMES)
+        ks["script_random"] = check_agent_steps(cfg, dev, kinds=(1, 2))
+        ks["script_random_b64"] = check_agent_steps(cfg, dev, b=GAMES,
+                                                    kinds=(1, 2))
+        hold_agent_steps_mixed(mx, cfg)
+        hold_agent_steps_mixed(first(mx, GAMES), cfg)
         for nb in RULES_BATCHES:
             k7[f"b{nb}"] = check_k7(first(mx, nb), cfg)
             check_k8(first(mx, nb).state, cfg, timed=False)
@@ -1464,7 +1563,7 @@ def phase_kernels(cfg, dev):
          "replaces": "alphazero_risk_tpu/mcts/search.py:177", **k2},
         {"name": "mcts_backup", "route": "cuda",
          "source": "alphazero_risk_tpu_torch/csrc/mcts_backup.cu",
-         "replaces": "alphazero_risk_tpu/mcts/search.py:259", **k3},
+         "replaces": "alphazero_risk_tpu/mcts/search.py:264", **k3},
         {"name": "conv3x3_bf16", "route": "cuda",
          "source": "alphazero_risk_tpu_torch/csrc/conv_bf16.cu",
          "replaces": "alphazero_risk_tpu/models/fast_infer.py:101", **k4},
@@ -1486,9 +1585,9 @@ def phase_kernels(cfg, dev):
         {"name": "random_step", "route": "cuda",
          "source": "alphazero_risk_tpu_torch/csrc/random_step.cu",
          "replaces": "alphazero_risk_tpu/agents/random_agent.py:41", **k10},
-        {"name": "script_steps", "route": "cuda",
-         "source": "alphazero_risk_tpu_torch/csrc/script_step.cu",
-         "replaces": "alphazero_risk_tpu/training/actor.py:204", **k9s},
+        {"name": "agent_steps", "route": "cuda",
+         "source": "alphazero_risk_tpu_torch/csrc/agent_steps.cu",
+         "replaces": "alphazero_risk_tpu/training/actor.py:204", **ks},
     ]
     check_forward(trainer, states, cfg)
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
@@ -1552,16 +1651,15 @@ def phase_slice(trainer, entries, games=PLAY_GAMES):
         f"launches {counts}")
     if res["games"] != games or res["unfinished"] != 0:
         fail(f"slice left games unfinished: {res}")
-    # every kernel but the RandomPlayer's, which this match does not meet,
-    # and K9's single step: the ScriptPlayer only fast-forwards, through
-    # K9's multi-step entry
+    # every kernel but the agents' single steps: the ScriptPlayer only
+    # fast-forwards, through the multi-step entry
     for k in kernels.ALL:
         if k not in (kernels.RANDOM_STEP, kernels.SCRIPT_STEP) and \
                 counts[k.name] <= 0:
             fail(f"kernel {k.name} was not launched on the main path")
     lock = st["steps"] - steps0
     log(f"slice int8: K9 launches: single step {counts['script_step']}, "
-        f"multi-step {counts['script_steps']} in {ff['runs']} "
+        f"multi-step {counts['agent_steps']} in {ff['runs']} "
         f"fast-forwards over {lock} lockstep steps; {ff['iterations']} "
         f"fast-forward iterations ({ff['iterations'] / lock:.2f} per "
         f"lockstep step), {ff['blocks']} blocks "
@@ -1574,10 +1672,10 @@ def phase_slice(trainer, entries, games=PLAY_GAMES):
         f"{sum(n == 0 for n in lens)} of {len(lens)} none, "
         f"{sum(n > A.FF_BLOCK for n in lens)} above the first block "
         f"({A.FF_BLOCK})")
-    if counts["script_steps"] != ff["blocks"]:
-        fail(f"K9's multi-step entry launched {counts['script_steps']} "
+    if counts["agent_steps"] != ff["blocks"]:
+        fail(f"the multi-step entry launched {counts['agent_steps']} "
              f"times for {ff['blocks']} blocks")
-    hold_k9_steps(ff["calls"], "on the slice's fast-forward states")
+    hold_agent_steps(ff["calls"], "on the slice's fast-forward states")
     for e in entries:
         e["launches_play"] = counts[e["name"]]
 
@@ -1765,13 +1863,17 @@ def phase_train(base, entries):
         f"paired), {st['folds']} folds; expected launches {want}")
     if want != {k: counts[k] for k in want}:
         fail(f"launch counts {counts} differ from the expected {want}")
-    # the ScriptPlayer only fast-forwards here (the benchmark): K9's
-    # multi-step entry, not its single step
+    # both opponents only fast-forward here (the benchmark): the
+    # multi-step entry, not their single steps
     for k in kernels.ALL:
-        if k is not kernels.SCRIPT_STEP and counts[k.name] <= 0:
+        if k in (kernels.SCRIPT_STEP, kernels.RANDOM_STEP):
+            if counts[k.name]:
+                fail(f"the single step {k.name} was launched by the "
+                     f"training phase")
+        elif counts[k.name] <= 0:
             fail(f"kernel {k.name} was not launched by the training phase")
-    log(f"train: K9 launches: single step {counts['script_step']}, "
-        f"multi-step {counts['script_steps']}")
+    log(f"train: single steps K9 {counts['script_step']}, K10 "
+        f"{counts['random_step']}; multi-step {counts['agent_steps']}")
     for e in entries:
         e["launches_train"] = counts[e["name"]]
 
@@ -1852,7 +1954,8 @@ def phase_data(base, mx, entries):
     """The supervised-bootstrap path: (a) a scripted chunk on the kernels
     and on the plain versions, (b) ``play_match`` Script vs Script to the
     end, (c) one loop of ``Trainer.train_on_data`` from the flagship at
-    full width.  Fills each entry's ``launches_data``."""
+    full width, (d) ``play_match`` Script vs Random to the end
+    (``phase_match_sr``).  Fills each entry's ``launches_data``."""
     import dataclasses
     import numpy as np
     import torch
@@ -1910,11 +2013,12 @@ def phase_data(base, mx, entries):
              timed=False, what=" (learner batch of replay records)")
     profile_scripted(mx, cfg)
 
-    # (b) play_match Script vs Script to the end, in blocks of K9's
+    # (b) play_match Script vs Script to the end, in blocks of the
     # multi-step entry; the live micro-steps are the sum of its step
     # counts.  The data path's launches are (b)'s, counted from here to
     # the end of play_match, plus (c)'s, counted over train_on_data
-    # alone: the holds and the set-up fold between them stay out.
+    # alone, plus (d)'s, counted over its play_match alone: the holds,
+    # the references and the set-up fold between them stay out.
     gen = torch.Generator(device=dev).manual_seed(22)
     state0 = D.mirrored_initial_states(MIXED, generator=gen, device=dev)
     torch.cuda.synchronize()
@@ -1931,16 +2035,16 @@ def phase_data(base, mx, entries):
     log(f"data (b): play_match Script vs Script, {json.dumps(tally)}; "
         f"{res.steps} lockstep steps, {live} live micro-steps in "
         f"{secs:.2f} s: {live / secs:.0f} live micro-steps/s "
-        f"({1e3 * secs / res.steps:.3f} ms per lockstep step); K9 "
-        f"launches: multi-step {cb['script_steps']} ({mb['blocks']} blocks), "
-        f"single step {cb['script_step']}")
-    if tally["unfinished"] != 0 or cb["script_steps"] != mb["blocks"] or \
+        f"({1e3 * secs / res.steps:.3f} ms per lockstep step); "
+        f"launches: multi-step {cb['agent_steps']} ({mb['blocks']} blocks), "
+        f"K9 single step {cb['script_step']}")
+    if tally["unfinished"] != 0 or cb["agent_steps"] != mb["blocks"] or \
             mb["iterations"] != res.steps or cb["script_step"]:
-        fail(f"data (b): {tally['unfinished']} games unfinished, K9's "
-             f"multi-step entry launched {cb['script_steps']} times for "
+        fail(f"data (b): {tally['unfinished']} games unfinished, the "
+             f"multi-step entry launched {cb['agent_steps']} times for "
              f"{mb['blocks']} blocks of {mb['iterations']} iterations over "
-             f"{res.steps} steps, its single step {cb['script_step']} times")
-    hold_k9_steps(mb["calls"], f"on data (b)'s {MIXED} games")
+             f"{res.steps} steps, K9's single step {cb['script_step']} times")
+    hold_agent_steps(mb["calls"], f"on data (b)'s {MIXED} games")
 
     # (c) Trainer.train_on_data from the flagship weights
     trainer = Trainer(cfg, seed=5, device=dev)
@@ -2002,7 +2106,6 @@ def phase_data(base, mx, entries):
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     counts = kernels.counts()
-    path_counts = {k: cb[k] + v for k, v in counts.items()}
     log(f"data (c): train_on_data(loops=1) in {total:.1f} s; launches "
         f"{counts}")
     for name, p in parts.items():
@@ -2044,9 +2147,10 @@ def phase_data(base, mx, entries):
     if want != {k: counts[k] for k in want}:
         fail(f"data (c): launch counts {counts} differ from the expected "
              f"{want}")
-    for k in kernels.ALL:
-        if path_counts[k.name] <= 0:
-            fail(f"kernel {k.name} was not launched by the data phase")
+    if counts["random_step"] != want_gen["random_step"]:
+        fail(f"data (c): K10's single step launched {counts['random_step']} "
+             f"times, the generation's {want_gen['random_step']} only "
+             f"expected (the benchmark fast-forwards)")
     if reverts or not all(trainer.ckpt.exists(r) for r in ("temp",
                                                            "latest")) \
             or trainer.ckpt.load_meta()["iteration"] != 1:
@@ -2058,11 +2162,79 @@ def phase_data(base, mx, entries):
     log(f"data (c): gate {verdict} (no revert), benchmark {bench}; "
         f"expected launches {want} and generation {want_gen} held; temp, "
         f"latest and meta written")
-    log(f"data: K9 launches over (b) and (c): single step "
-        f"{path_counts['script_step']}, multi-step "
-        f"{path_counts['script_steps']}")
+    cd = phase_match_sr(cfg, dev)
+    path_counts = {k: cb[k] + v + cd[k] for k, v in counts.items()}
+    for k in kernels.ALL:
+        if path_counts[k.name] <= 0:
+            fail(f"kernel {k.name} was not launched by the data phase")
+    log(f"data: launches over (b), (c) and (d): single steps K9 "
+        f"{path_counts['script_step']}, K10 {path_counts['random_step']}; "
+        f"multi-step {path_counts['agent_steps']}")
     for e in entries:
         e["launches_data"] = path_counts[e["name"]]
+
+
+def phase_match_sr(cfg, dev):
+    """Data (d): ``play_match`` Script vs Random on MIXED mirrored games to
+    the end through the blocks (the CLI's ``-m play --p1 sp --p2 rp``),
+    launch counts read around it alone, then held against the
+    per-iteration loop on the plain versions from the same seed: tally,
+    steps, final rounds and live micro-steps.  Returns its launch
+    counts."""
+    import torch
+    from alphazero_risk_tpu_torch import kernels
+    from alphazero_risk_tpu_torch.agents import driver as D
+    from alphazero_risk_tpu_torch.env import rules
+    agents = (D.AGENT_SCRIPT, D.AGENT_RANDOM)
+
+    def start():
+        gen = torch.Generator(device=dev).manual_seed(24)
+        return gen, D.mirrored_initial_states(MIXED, generator=gen,
+                                              device=dev)
+
+    gen, state0 = start()
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    with watched_blocks(keep=16) as mb:
+        t0 = time.perf_counter()
+        res = D.play_match(gen, state0, *agents, cfg, cfg.max_game_steps)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    cd = kernels.counts()
+    live = int(mb["steps"])
+    tally = D.summarize(res)
+    log(f"data (d): play_match Script vs Random, {json.dumps(tally)}; "
+        f"{res.steps} lockstep steps, {live} live micro-steps in "
+        f"{secs:.3f} s: {live / secs:.0f} live micro-steps/s "
+        f"({1e3 * secs / res.steps:.3f} ms per lockstep step) in "
+        f"{mb['blocks']} blocks; launches: multi-step {cd['agent_steps']}, "
+        f"single steps K9 {cd['script_step']}, K10 {cd['random_step']}")
+    if tally["unfinished"] != 0 or cd["agent_steps"] != mb["blocks"] or \
+            mb["iterations"] != res.steps or cd["script_step"] or \
+            cd["random_step"]:
+        fail(f"data (d): {tally['unfinished']} games unfinished, the "
+             f"multi-step entry launched {cd['agent_steps']} times for "
+             f"{mb['blocks']} blocks of {mb['iterations']} iterations over "
+             f"{res.steps} steps, the single steps {cd['script_step']} and "
+             f"{cd['random_step']} times")
+    hold_agent_steps(mb["calls"], f"on data (d)'s {MIXED} games")
+    gen, state0 = start()
+    t0 = time.perf_counter()
+    ref, ref_t, ref_live = match_by_iteration(gen, state0, agents, cfg,
+                                              cfg.max_game_steps)
+    torch.cuda.synchronize()
+    ref_secs = time.perf_counter() - t0
+    ref_tally = D.summarize(D.MatchResult(
+        status=rules._game_status_plain(ref, cfg), rounds=ref.round,
+        steps=ref_t, started_by=state0.cur_player))
+    log(f"data (d): the per-iteration loop on the plain versions: "
+        f"{json.dumps(ref_tally)}; {ref_t} steps, {ref_live} live "
+        f"micro-steps in {ref_secs:.2f} s")
+    if (ref_tally, ref_t, ref_live) != (tally, res.steps, live) or \
+            not torch.equal(ref.round, res.rounds):
+        fail("data (d): the match in blocks differs from the per-iteration "
+             "loop on the plain versions")
+    return cd
 
 
 def main():

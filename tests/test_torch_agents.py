@@ -134,15 +134,12 @@ def test_random_step_bit_exact(seed, cfg):
         dice = rng.integers(1, 7, (b, 5)).astype(np.int32)
         phases.update(np.asarray(js.phase).tolist())
         js, (ja, jr) = jstep(js, jnp.asarray(u), jnp.asarray(dice), jc)
-        ts2 = TRA.random_step(ts, torch.from_numpy(u),
-                              torch.from_numpy(dice), cfg)
         ts, (ta, tr) = TRA.random_step_recorded(
             ts, torch.from_numpy(u), torch.from_numpy(dice), cfg)
         for f in dataclasses.fields(TS.GameState):
             np.testing.assert_array_equal(
                 getattr(ts, f.name).numpy(), np.asarray(getattr(js, f.name)),
                 err_msg=f"step {t} field {f.name}")
-            assert torch.equal(getattr(ts, f.name), getattr(ts2, f.name))
         assert ta.dtype == torch.int32
         np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
         np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from alphazero_risk_tpu_torch import kernels
+from alphazero_risk_tpu_torch.agents import blocks as AB
 from alphazero_risk_tpu_torch.agents import random_agent as RA
 from alphazero_risk_tpu_torch.agents import script_agent as SA
 from alphazero_risk_tpu_torch.agents.common import draw_step_randoms
@@ -139,7 +140,7 @@ def test_descend_and_backup_match_plain(cuda):
     tree.wsum.copy_(wsum)
     S._backup_plain(tree, path, leaf_v, leaf_p)
     assert torch.equal(kv, tree.visit)
-    torch.testing.assert_close(kw, tree.wsum, rtol=1e-6, atol=0)
+    assert torch.equal(kw, tree.wsum)
 
 
 def _games(tree, n):
@@ -211,6 +212,73 @@ def test_descend_tie_trees_match_plain(cuda, grown_trees, case):
             gen = torch.Generator(device="cuda").manual_seed(batch)
             for gum in S.draw_gumbel(gen, cfg, batch, cuda):
                 _assert_descent_matches_plain(t, gum, cfg)
+
+
+def _synthetic_paths(tree, d_cap, gen):
+    """Paths of up to ``d_cap`` edges through ``tree``'s games (no
+    (node, action) pair twice in a path, as the descent makes them),
+    every depth from 0 to ``d_cap`` among the games, random movers, leaf
+    values and leaf movers."""
+    b, n = tree.player.shape
+    dev = tree.player.device
+    cells = torch.rand((b, n * 43), generator=gen, device=dev).argsort(-1)
+    cells = cells[:, :d_cap].to(torch.int32)
+    pp = torch.randint(0, 2, (b, d_cap), generator=gen, device=dev,
+                       dtype=torch.int32)
+    depth = (torch.arange(b, device=dev, dtype=torch.int32) * 7) % (d_cap + 1)
+    depth[-1] = d_cap
+    zero = torch.zeros_like(depth)
+    path = S.Descent(cells // 43, cells % 43, pp, depth, zero, zero - 1, zero,
+                     zero)
+    leaf_v = torch.rand(b, generator=gen, device=dev) * 2 - 1
+    leaf_p = torch.randint(0, 2, (b,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    return path, leaf_v, leaf_p
+
+
+def _as_descent_buffers(path):
+    """``path`` as ``descend`` returns it on the card: rows of one
+    [3, B, D] buffer and one [5, B] buffer."""
+    paths = torch.stack([path.pn, path.pa, path.pp])
+    ends = torch.stack(list(path[3:]))
+    return S.Descent(*paths.unbind(0), *ends.unbind(0))
+
+
+@pytest.mark.parametrize("n_nodes", [10, 34])
+@pytest.mark.parametrize("batch", [1, 3, 5, 33, 64, 1023, 1024])
+def test_backup_batches_match_plain(cuda, grown_trees, batch, n_nodes):
+    """K3 (one warp per game, a path's edges over the lanes) against
+    ``_backup_plain``, visit and wsum bit for bit: on the first ``batch``
+    games of a grown tree with K2's descent and the tree's own leaf
+    buffers (the search's call), and with synthetic paths of up to 48
+    and 64 edges (both lane halves, every depth), given as separate
+    tensors and as rows of K2's buffers."""
+    tree = _games(grown_trees[n_nodes], batch)
+    cfg = Config(mcts_simulations=1)
+    gen = torch.Generator(device=cuda).manual_seed(batch + n_nodes)
+    gum = S.draw_gumbel(gen, cfg, batch, cuda)[0]
+
+    def held(path, leaf_v, leaf_p):
+        visit, wsum = tree.visit.clone(), tree.wsum.clone()
+        S.backup(tree, path, leaf_v, leaf_p)
+        kv, kw = tree.visit.clone(), tree.wsum.clone()
+        tree.visit.copy_(visit)
+        tree.wsum.copy_(wsum)
+        S._backup_plain(tree, path, leaf_v, leaf_p)
+        assert torch.equal(kv, tree.visit)
+        assert torch.equal(kw, tree.wsum)
+        assert not torch.equal(kv, visit) or not bool((path.depth > 0).any())
+
+    path = S.descend(tree, gum, cfg)
+    leaf_v, leaf_p = S.write_nodes(
+        tree, *S.expansion_inputs(tree, path, cfg, uniform_eval), path)
+    kernels.MCTS_BACKUP.launches = 0
+    held(path, leaf_v, leaf_p)
+    assert kernels.MCTS_BACKUP.launches == 1
+    for d_cap in (48, 64):
+        syn = _synthetic_paths(tree, d_cap, gen)
+        held(*syn)
+        held(_as_descent_buffers(syn[0]), *syn[1:])
 
 
 def test_play_launches_every_kernel(cuda):
@@ -448,12 +516,13 @@ def test_train_iteration_launches_every_kernel(cuda, tmp_path):
     trainer.train(iterations=1, resume=False)
     if not trainer.ckpt.exists("best"):
         # a rejected gate skips the benchmark, the one part of train() that
-        # meets the ScriptPlayer and the RandomPlayer (K9, K10)
+        # meets the ScriptPlayer and the RandomPlayer
         trainer.benchmark()
-    # the ScriptPlayer only fast-forwards here: K9's multi-step entry, not
-    # its single step
+    # both opponents only fast-forward here: the multi-step entry, not
+    # their single steps
     counts = kernels.counts()
     assert counts.pop("script_step") == 0
+    assert counts.pop("random_step") == 0
     assert all(n > 0 for n in counts.values()), counts
     assert trainer.ckpt.exists("latest")
 
@@ -685,15 +754,34 @@ def test_script_step_batches_match_plain(cuda, mixed_mix, batch):
     assert all(torch.equal(x, y) for x, y in zip(r9, pr9))
 
 
-@pytest.mark.parametrize("seats", [(True, False), (False, True),
-                                   (False, False)])
-@pytest.mark.parametrize("k", [1, 4, 16, 64])
-def test_script_steps_match_plain(cuda, mixed_mix, k, seats):
-    """K9's multi-step entry against the plain multi-step function on the
-    1,024 mixed states (games ending and reaching an AlphaZero seat inside
-    the block), under the fast-forward's stop predicate with either seat
-    the AlphaZero one and under two scripted seats': state, carry, prev
-    and step counts bit for bit."""
+@pytest.mark.parametrize("batch", [1, 3, 64, 1024])
+def test_random_step_batches_match_plain(cuda, mixed_mix, batch):
+    """K10 (one warp per game, four per block) at batches ragged against
+    the block, on the first ``batch`` mixed states (every phase, fortify
+    choices, finished games) with their draws: state, action and record
+    bit for bit against the plain version."""
+    mx = mixed_mix.apply(lambda x: x[:batch].contiguous())
+    cfg = Config()
+    s10, r10 = RA.random_step_recorded(mx.state, mx.u, mx.dice, cfg)
+    p10, pr10 = RA._random_step_recorded_plain(mx.state, mx.u, mx.dice, cfg)
+    _assert_states_equal(s10, p10)
+    assert all(torch.equal(x, y) for x, y in zip(r10, pr10))
+
+
+AZ, SCRIPT, RANDOM = AB.OPP_AZ, AB.OPP_SCRIPT, AB.OPP_RANDOM
+KINDS = [(AZ, SCRIPT), (SCRIPT, AZ), (SCRIPT, SCRIPT), (AZ, RANDOM),
+         (RANDOM, AZ), (SCRIPT, RANDOM), (RANDOM, SCRIPT), (RANDOM, RANDOM)]
+
+
+@pytest.mark.parametrize("kinds", KINDS)
+@pytest.mark.parametrize("k", [1, 7, 64])
+def test_agent_steps_match_plain(cuda, mixed_mix, k, kinds):
+    """The multi-step entry against the plain multi-step function on the
+    1,024 mixed states, for every pair of seat kinds (an AlphaZero seat
+    beside either agent: the fast-forward's stop predicate; two agents:
+    a match's): state, carry, prev and step counts bit for bit.  Games
+    stop inside the block (ending, or reaching the AlphaZero seat), and
+    others run through it."""
     cfg = Config()
     mx = mixed_mix
     b = mx.state.batch_size
@@ -701,9 +789,11 @@ def test_script_steps_match_plain(cuda, mixed_mix, k, seats):
     draws = [draw_step_randoms(gen, b, cuda) for _ in range(k)]
     u = torch.stack([x[0] for x in draws])
     dice = torch.stack([x[1] for x in draws])
-    got = SA.script_steps(mx.state, mx.carry, mx.prev, u, dice, cfg, seats)
-    ref = SA._script_steps_plain(mx.state, mx.carry, mx.prev, u, dice, cfg,
-                                 seats)
+    kernels.AGENT_STEPS.launches = 0
+    got = AB.agent_steps(mx.state, mx.carry, mx.prev, u, dice, cfg, kinds)
+    assert kernels.AGENT_STEPS.launches == 1
+    ref = AB._agent_steps_plain(mx.state, mx.carry, mx.prev, u, dice, cfg,
+                                kinds)
     _assert_states_equal(got[0], ref[0])
     for f in dataclasses.fields(SA.ScriptCarry):
         assert torch.equal(getattr(got[1], f.name), getattr(ref[1], f.name))
@@ -715,12 +805,14 @@ def test_script_steps_match_plain(cuda, mixed_mix, k, seats):
         assert bool((n == k).any())
 
 
+@pytest.mark.parametrize("agents", [(0, 0), (0, 1), (1, 0), (1, 1)])
 @pytest.mark.parametrize("block", [1, 5, 16])
-def test_play_match_blocks_match_plain(cuda, monkeypatch, block):
-    """``play_match`` Script vs Script on the card in blocks of K9's
-    multi-step entry against the same match on the plain multi-step
-    function, with ``max_steps`` cutting a block short: status, rounds,
-    steps and the generator's state after the match."""
+def test_play_match_blocks_match_plain(cuda, monkeypatch, block, agents):
+    """``play_match`` with ScriptPlayer and RandomPlayer seats (driver
+    codes) on the card in blocks of the multi-step entry against the same
+    match on the plain multi-step function, with ``max_steps`` cutting a
+    block short: status, rounds, steps and the generator's state after
+    the match."""
     from alphazero_risk_tpu_torch.agents import driver as D
     cfg = Config()
 
@@ -729,14 +821,14 @@ def test_play_match_blocks_match_plain(cuda, monkeypatch, block):
     def run():
         gen = torch.Generator(device=cuda).manual_seed(3)
         state = D.mirrored_initial_states(64, generator=gen, device=cuda)
-        res = D.play_match(gen, state, D.AGENT_SCRIPT, D.AGENT_SCRIPT, cfg,
-                           123)
+        res = D.play_match(gen, state, *agents, cfg, 123)
         return res, gen.get_state()
 
-    kernels.SCRIPT_STEPS.launches = 0
+    kernels.AGENT_STEPS.launches = kernels.RANDOM_STEP.launches = 0
     got, g1 = run()
-    assert kernels.SCRIPT_STEPS.launches == -(-123 // block)
-    monkeypatch.setattr(SA, "script_steps", SA._script_steps_plain)
+    assert kernels.AGENT_STEPS.launches == -(-123 // block)
+    assert kernels.RANDOM_STEP.launches == 0
+    monkeypatch.setattr(AB, "agent_steps", AB._agent_steps_plain)
     ref, g2 = run()
     assert got.steps == ref.steps == 123
     assert torch.equal(got.status, ref.status)
@@ -776,16 +868,19 @@ def test_train_on_data_launches_every_kernel(cuda, tmp_path):
     kernels.reset_counts()
     trainer.train_on_data(loops=1)
     counts = kernels.counts()
-    multi = counts.pop("script_steps")
+    multi = counts.pop("agent_steps")
     assert all(n > 0 for n in counts.values()), counts
     if multi == 0:
         # a rejected gate skips the benchmark, the one part of the loop
-        # that fast-forwards the ScriptPlayer (K9's multi-step entry)
+        # that fast-forwards the opponents (the multi-step entry)
         trainer.benchmark()
-        assert kernels.counts()["script_steps"] > 0
+        assert kernels.counts()["agent_steps"] > 0
     for kinds, c in gen_counts:
         assert c["script_step"] == cfg.actor_chunk_steps
         assert c["random_step"] == (cfg.actor_chunk_steps
                                     if kinds[1] == A.OPP_RANDOM else 0)
         assert c["conv3x3_i8"] == c["mcts_descend"] == c["rules_step"] == 0
+    # the single steps run only in the recorded scripted generation
+    assert kernels.counts()["random_step"] == sum(
+        c["random_step"] for _, c in gen_counts)
     assert trainer.ckpt.exists("temp") and trainer.ckpt.exists("latest")

@@ -88,7 +88,7 @@ def test_import_builds_and_loads_nothing():
     assert [k.name for k in kernels.ALL] == [
         "conv3x3_i8", "mcts_descend", "mcts_backup", "conv3x3_bf16",
         "heads_eval", "write_nodes", "rules_step", "state_views",
-        "script_step", "random_step", "script_steps"]
+        "script_step", "random_step", "agent_steps"]
     for k in kernels.ALL:
         assert k._fn is None and k.build_log == ""
         assert f'extern "C" int {k.symbol}(' in k.source.read_text()
@@ -103,7 +103,7 @@ def test_kernel_flags_are_per_source():
     from alphazero_risk_tpu_torch import kernels
     exact = {"conv3x3_i8", "mcts_descend", "mcts_backup", "write_nodes",
              "rules_step", "state_views", "script_step", "random_step",
-             "script_steps"}
+             "agent_steps"}
     for k in kernels.ALL:
         if k.name in exact:
             assert k.flags == kernels.NVCC_FLAGS
@@ -111,24 +111,23 @@ def test_kernel_flags_are_per_source():
             assert "--fmad=false" not in k.flags
             assert [f for f in kernels.NVCC_FLAGS
                     if f != "--fmad=false"] == k.flags
-    # one library per source: K9's two entry points share theirs
+    # one library per source, one source per kernel
     assert len({k.library for k in kernels.ALL}) == len(
-        {k.source for k in kernels.ALL}) == len(kernels.ALL) - 1
+        {k.source for k in kernels.ALL}) == len(kernels.ALL)
 
 
 def test_kernel_library_names_follow_their_headers(tmp_path, monkeypatch):
     """A rules kernel's library name hashes the shared headers too, so an
-    edit of ``rules_dev.cuh`` rebuilds all four and one of
-    ``rules_warp.cuh`` the three warp kernels (K7, K8, K9, whose
-    multi-step entry shares K9's library); the two convs share
-    ``conv_tc.cuh`` the same way."""
+    edit of ``rules_dev.cuh`` or ``rules_warp.cuh`` rebuilds the five warp
+    kernels (K7, K8, K9, K10 and their multi-step entry); the two convs
+    share ``conv_tc.cuh`` the same way."""
     from alphazero_risk_tpu_torch import kernels
     warp = ["rules_dev.cuh", "rules_warp.cuh"]
-    assert kernels.SCRIPT_STEPS.library == kernels.SCRIPT_STEP.library
     for k, shared in ((kernels.RULES_STEP, warp),
                       (kernels.STATE_VIEWS, warp),
                       (kernels.SCRIPT_STEP, warp),
-                      (kernels.RANDOM_STEP, ["rules_dev.cuh"]),
+                      (kernels.RANDOM_STEP, warp),
+                      (kernels.AGENT_STEPS, warp),
                       (kernels.CONV3X3_I8, ["conv_tc.cuh"]),
                       (kernels.CONV3X3_BF16, ["conv_tc.cuh"])):
         assert [h.name for h in k.headers] == shared
@@ -230,12 +229,14 @@ def test_rules_kernel_flags_follow_each_config():
 @pytest.mark.parametrize("name", ["conv3x3_i8", "conv3x3_bf16", "heads_eval",
                                   "write_nodes", "rules_step", "expand",
                                   "state_views", "featurize", "script_step",
-                                  "script_steps", "random_step"])
+                                  "script_steps", "random_step",
+                                  "random_steps", "backup"])
 def test_cuda_tensor_wrappers_do_not_fall_back(name, monkeypatch):
     """A wrapper takes its plain version only for CPU tensors: with a
     tensor that claims another device it goes to the kernel path, which
     here (no card, no nvcc) raises instead of computing the plain
     version."""
+    from alphazero_risk_tpu_torch.agents import blocks as AB
     from alphazero_risk_tpu_torch.agents import random_agent as RA
     from alphazero_risk_tpu_torch.agents import script_agent as SA
     from alphazero_risk_tpu_torch.config import Config
@@ -265,10 +266,19 @@ def test_cuda_tensor_wrappers_do_not_fall_back(name, monkeypatch):
         call = lambda: SA.script_step_recorded(
             st, carry, torch.ones(2, dtype=torch.bool, device=meta), u,
             dice, cfg)
-    elif name == "script_steps":
+    elif name in ("script_steps", "random_steps"):
         carry = tree_map(lambda t: t.to(meta), SA.init_carry(2, "cpu"))
-        call = lambda: SA.script_steps(st, carry, i2, u[None], dice[None],
-                                       cfg)
+        kind = AB.OPP_SCRIPT if name == "script_steps" else AB.OPP_RANDOM
+        call = lambda: AB.agent_steps(st, carry, i2, u[None], dice[None],
+                                      cfg, (AB.OPP_AZ, kind))
+    elif name == "backup":
+        cfg = Config(mcts_simulations=2)
+        tree = S._empty_tree(new_game(2, device="cpu"), cfg)
+        tree.visit = tree.visit.to(meta)
+        path = S.Descent(*(torch.zeros((2, cfg.max_depth), dtype=torch.int32,
+                                       device=meta),) * 3,
+                         *(i2,) * 5)
+        call = lambda: S.backup(tree, path, u[:, 0], i2)
     elif name == "random_step":
         call = lambda: RA.random_step_recorded(st, u, dice, cfg)
     elif name == "conv3x3_i8":
@@ -306,7 +316,8 @@ def test_cuda_tensor_wrappers_do_not_fall_back(name, monkeypatch):
         monkeypatch.setattr(rules, fn, None)
     monkeypatch.setattr(FZ, "_featurize_plain", None)
     monkeypatch.setattr(SA, "_script_step_recorded_plain", None)
-    monkeypatch.setattr(SA, "_script_steps_plain", None)
+    monkeypatch.setattr(AB, "_agent_steps_plain", None)
+    monkeypatch.setattr(S, "_backup_plain", None)
     monkeypatch.setattr(RA, "_random_step_recorded_plain", None)
     with pytest.raises((ValueError, RuntimeError)):
         call()

@@ -1,8 +1,8 @@
 """Time kernels of one checkout of the PyTorch/CUDA port on the card, with
 that checkout's own chip_smoke.py checks (each compares the kernel with its
 plain version, then times the call with CUDA events and the kernel alone
-from a profiler trace), and the block rules of K9's multi-step entry on the
-two paths that launch it.
+from a profiler trace), the block rules of the agents' multi-step entry on
+the two paths that launch it, and the Script-vs-Random match.
 
     python tools/time_kernels.py --root DIR --tag NAME [--parts k5,k7,...]
         [--out FILE]
@@ -22,7 +22,9 @@ and appends it to FILE when given.  Needs one card.
                   for k9 also the single step, kernel alone, on 1,024 and
                   64 mirrored games 100 Script-vs-Script steps into their
                   match, and there the multi-step entry's one launch of 64
-                  iterations on the same states and draws
+                  iterations on the same states and draws (where the
+                  checkout has it; with the RandomPlayer too where its
+                  entry takes seat kinds)
     k6, k3        the node write (call, kernel alone, root write) and the
                   backup on the grown tree: 64 games, 32 simulations
                   (N = 34)
@@ -30,6 +32,10 @@ and appends it to FILE when given.  Needs one card.
                   ScriptPlayer fast-forward (see ``ff_blocks``)
     match_blocks  data (b)'s Script-vs-Script play_match once per
                   first-block rule (see ``match_blocks``)
+    sr_match      play_match Script vs Random on 1,024 mirrored games to
+                  the end from seed 24, as the checkout runs it (see
+                  ``sr_match``)
+    slice         chip_smoke's play slice three times (see ``play_slice``)
 """
 
 from __future__ import annotations
@@ -40,12 +46,13 @@ import subprocess
 import sys
 import time
 
-PARTS = ("k5", "k7", "k9", "k10", "k6", "k3", "ff_blocks", "match_blocks")
+PARTS = ("k5", "k7", "k9", "k10", "k6", "k3", "ff_blocks", "match_blocks",
+         "sr_match", "slice")
 
 
 def keep(e):
     return {k: e.get(k) for k in ("ms", "device_ms", "plain_ms", "bound_ms",
-                                  "max_abs_err", "ms_root",
+                                  "max_abs_err", "ms_root", "ms_caller",
                                   "device_ms_per_iteration", "steps")
             if e.get(k) is not None}
 
@@ -148,7 +155,11 @@ def k9(ctx):
         out[f"k9_mid_b{b}_single_device_ms"] = CS.device_ms(
             lambda: SA.script_step_recorded(st, carry, reset, u, dice, cfg),
             "script_step_kernel")
-        if hasattr(CS, "check_k9_steps"):
+        if hasattr(CS, "check_agent_steps"):
+            for kinds in ((1, 1), (1, 2)):
+                out[f"steps_b{b}_{kinds[0]}{kinds[1]}"] = keep(
+                    CS.check_agent_steps(cfg, dev, b=b, kinds=kinds))
+        elif hasattr(CS, "check_k9_steps"):
             out[f"k9_steps_b{b}"] = keep(CS.check_k9_steps(cfg, dev, b=b))
     return out
 
@@ -169,18 +180,30 @@ def k3(ctx):
     return {"k3_b64_n34": keep(e)}
 
 
+def _block_loop():
+    """The checkout's block loop: (module, name) of ``run_agent_blocks``
+    or of its earlier form ``run_script_blocks``, or None."""
+    from alphazero_risk_tpu_torch.agents import script_agent as SA
+    try:
+        from alphazero_risk_tpu_torch.agents import blocks
+        return blocks, "run_agent_blocks"
+    except ImportError:
+        return (SA, "run_script_blocks") if hasattr(
+            SA, "run_script_blocks") else None
+
+
 def _rule_runs(ctx, rules, play, is_ours):
     """``play()`` once per rule of ``rules`` ((name, first block or None
     for the committed rule)), then again in reverse order.  A rule with a
-    first block replaces the ``k`` of each ``run_script_blocks`` call for
-    which ``is_ours(kwargs)`` holds; the later blocks still double.  Each
-    such call is timed from a sync to its end (its last block's sync).
+    first block replaces the ``k`` of each block-loop call for which
+    ``is_ours(kwargs)`` holds; the later blocks still double.  Each such
+    call is timed from a sync to its end (its last block's sync).
     Returns per rule the runs' seconds, and of the first run the result,
     the calls' iterations and blocks; raises if two runs' results
     differ."""
     import torch
-    from alphazero_risk_tpu_torch.agents import script_agent as SA
-    real = SA.run_script_blocks
+    mod, fn_name = _block_loop()
+    real = getattr(mod, fn_name)
     seen, out = None, {}
     for name, first in rules + rules[::-1]:
         rec = {"calls_s": 0.0, "iterations": [], "blocks": 0}
@@ -197,13 +220,13 @@ def _rule_runs(ctx, rules, play, is_ours):
                 rec["blocks"] += res[4]
             return res
 
-        SA.run_script_blocks = run
+        setattr(mod, fn_name, run)
         try:
             t0 = time.perf_counter()
             result = play()
             wall = time.perf_counter() - t0
         finally:
-            SA.run_script_blocks = real
+            setattr(mod, fn_name, real)
         key = (json.dumps(result, sort_keys=True), rec["iterations"])
         if seen is not None and key != seen:
             raise RuntimeError(f"block rule {name} changed the result")
@@ -223,15 +246,11 @@ def _rule_runs(ctx, rules, play, is_ours):
                                      for v in sorted(set(its))}}
 
 
-def ff_blocks(ctx):
-    """chip_smoke's play slice (the flagship, int8, ``PLAY_GAMES`` games
-    against the ScriptPlayer, 256 lockstep steps) once per first-block
-    rule of the ScriptPlayer fast-forward: the committed one, and a first
-    block fixed at 16, 32 and 64 iterations.  Each run has a fresh trainer
-    of seed 0, so each plays the same games.  ``calls_s`` is the
-    fast-forwards' time (each from a sync to its end), ``wall_s`` the
-    slice's; ``iterations_*`` is the distribution of one fast-forward's
-    iterations (the most of its games' turns)."""
+def _play_slice(ctx):
+    """A function that plays chip_smoke's play slice (the flagship, int8,
+    ``PLAY_GAMES`` games against the ScriptPlayer, 256 lockstep steps)
+    from a fresh trainer of seed 0, so each call plays the same games, and
+    returns its result."""
     from alphazero_risk_tpu_torch.config import Config
     from alphazero_risk_tpu_torch.training import actor as A
     from alphazero_risk_tpu_torch.training.checkpoints import load_params_npz
@@ -250,6 +269,31 @@ def ff_blocks(ctx):
         res = t.play(A.OPP_SCRIPT, CS.PLAY_GAMES)
         return dict(res, az_decisions=t.play_stats["az_decisions"])
 
+    return play
+
+
+def play_slice(ctx, reps=3):
+    """The play slice ``reps`` times in this process, away from
+    chip_smoke's other phases: the result and each run's seconds."""
+    import torch
+    play, secs, result = _play_slice(ctx), [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = play()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return {"slice": {"result": result, "seconds": secs}}
+
+
+def ff_blocks(ctx):
+    """chip_smoke's play slice once per first-block rule of the
+    ScriptPlayer fast-forward: the committed one, and a first block fixed
+    at 16, 32 and 64 iterations.  ``calls_s`` is the fast-forwards' time
+    (each from a sync to its end), ``wall_s`` the slice's;
+    ``iterations_*`` is the distribution of one fast-forward's iterations
+    (the most of its games' turns)."""
+    play = _play_slice(ctx)
     return {"ff_blocks": _rule_runs(
         ctx, [("committed", None), ("first 16", 16), ("first 32", 32),
               ("first 64", 64)], play,
@@ -280,6 +324,72 @@ def match_blocks(ctx, reps=3):
         play, lambda kw: kw.get("limit") is not None)}
 
 
+def sr_match(ctx, reps=3):
+    """``play_match`` Script vs Random on ``MIXED`` mirrored games to the
+    end from seed 24 (chip_smoke's data (d), the CLI's ``-m play --p1 sp
+    --p2 rp``), ``reps`` times, each from a sync to its end; then the
+    per-iteration loop on the checkout's single-step kernels (the parent's
+    form of the match), which counts the live micro-steps at its status
+    check and must end in the same tally and steps."""
+    import torch
+    from alphazero_risk_tpu_torch.agents import driver as D
+    from alphazero_risk_tpu_torch.agents import random_agent as RA
+    from alphazero_risk_tpu_torch.agents import script_agent as SA
+    from alphazero_risk_tpu_torch.agents.common import draw_step_randoms
+    from alphazero_risk_tpu_torch.env import rules
+    from alphazero_risk_tpu_torch.env.state import tree_select
+    CS, cfg, dev = ctx.CS, ctx.cfg, ctx.dev
+
+    def start():
+        gen = torch.Generator(device=dev).manual_seed(24)
+        return gen, D.mirrored_initial_states(CS.MIXED, generator=gen,
+                                              device=dev)
+
+    secs, out = [], None
+    for _ in range(reps):
+        gen, st = start()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = D.play_match(gen, st, D.AGENT_SCRIPT, D.AGENT_RANDOM, cfg,
+                           cfg.max_game_steps)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        out = dict(D.summarize(res), steps=res.steps)
+    gen, st = start()
+    b = st.batch_size
+    carry = SA.init_carry(b, dev)
+    prev = torch.full((b,), -1, dtype=torch.int32, device=dev)
+    t = live = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while t < cfg.max_game_steps:
+        alive = int((rules.game_status(st, cfg) == -1).sum())
+        if not alive:
+            break
+        live += alive
+        u, dice = draw_step_randoms(gen, b, dev)
+        s0, c0, _ = SA.script_step_recorded(st, carry, st.cur_player != prev,
+                                            u, dice, cfg)
+        s1, _ = RA.random_step_recorded(st, u, dice, cfg)
+        mover0 = st.cur_player == 0
+        prev = st.cur_player
+        st = tree_select(mover0, s0, s1)
+        carry = tree_select(mover0, c0, carry)
+        t += 1
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    by_iteration = dict(D.summarize(D.MatchResult(
+        status=rules.game_status(st, cfg), rounds=st.round, steps=t,
+        started_by=start()[1].cur_player)), steps=t)
+    if by_iteration != out:
+        raise RuntimeError(f"sr_match: {out} in blocks, {by_iteration} by "
+                           f"iteration")
+    return {"sr_match": {"result": out, "seconds": secs,
+                         "live_micro_steps": live,
+                         "live_micro_steps_per_s": [live / x for x in secs],
+                         "by_iteration_s": loop_s}}
+
+
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--root", required=True)
@@ -294,7 +404,6 @@ def main():
     import torch
     import chip_smoke as CS
     from alphazero_risk_tpu_torch import kernels
-    from alphazero_risk_tpu_torch.agents import script_agent as SA
     from alphazero_risk_tpu_torch.config import Config
 
     if not torch.cuda.is_available():
@@ -312,8 +421,12 @@ def main():
     for part in parts:
         if part.endswith("_blocks"):
             # whole paths, which run as their callers run them
-            out.update(globals()[part](ctx) if hasattr(
-                SA, "run_script_blocks") else {part: "missing"})
+            out.update(globals()[part](ctx) if _block_loop()
+                       else {part: "missing"})
+        elif part == "sr_match":
+            out.update(sr_match(ctx))
+        elif part == "slice":
+            out.update(play_slice(ctx))
         else:
             with torch.inference_mode():
                 out.update(globals()[part](ctx))
