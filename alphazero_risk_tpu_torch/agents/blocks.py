@@ -64,9 +64,11 @@ def agent_steps(state: GameState, carry: ScriptCarry, prev: torch.Tensor,
            ck(prev, I32, (b,), "prev"), ck(u, torch.float32, (k, b, 4), "u"),
            ck(dice, I32, (k, b, 5), "dice"))
     kernels.require_aligned(u)
+    cards_in, cards_out = rules.card_io(state, (b,), cfg)
     nstate, new = rules.launch_rules(
         kernels.AGENT_STEPS, state, (b,),
-        (*(t.data_ptr() for t in ins), k, code), _STEPS_OUTS, cfg)
+        (*(t.data_ptr() for t in ins), *cards_in, k, code),
+        _STEPS_OUTS + cards_out, cfg)
     return (nstate, ScriptCarry(new["attack_to"], new["attack_from"],
                                 new["mode_b"]), new["prev"], new["n"])
 

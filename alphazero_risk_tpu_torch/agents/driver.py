@@ -16,7 +16,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..config import Config
+from ..config import NUM_LANDS, Config
 from ..env import rules
 from ..env.state import (GameState, invert_players, new_game, tree_map,
                          tree_select)
@@ -106,7 +106,7 @@ def mixed_play(batch: int, steps: int, cfg: Config,
     """``steps`` lockstep steps of ``batch`` mirrored games on the
     generator's device: seat 0 the ScriptPlayer, seat 1 the RandomPlayer,
     and on every third step a random legal move for about 30% of the
-    games, as an AlphaZero seat would make.  Returns every ``every``-th
+    games, as an AlphaZero seat would make (its card uniform ``u[:, 3]``).  Returns every ``every``-th
     step's states with what that step drew, concatenated along the game
     axis: every phase, fortify ties, full lands and finished games occur
     within a few hundred steps."""
@@ -129,7 +129,8 @@ def mixed_play(batch: int, steps: int, cfg: Config,
         nst = tree_select(mover0, s0, s1)
         if t % 3 == 0:
             az = torch.rand(batch, generator=generator, device=dev) < 0.3
-            nst = tree_select(az, rules.step(st, a, dice, cfg), nst)
+            nst = tree_select(az, rules.step(st, a, dice, cfg,
+                                             u[:, 3].contiguous()), nst)
         carry = tree_select(mover0, c0, carry)
         prev, st = st.cur_player, nst
 
@@ -137,6 +138,46 @@ def mixed_play(batch: int, steps: int, cfg: Config,
         return torch.cat(xs)
     return MixedPlay(*(cat(*xs) if isinstance(xs[0], torch.Tensor)
                        else tree_map(cat, *xs) for xs in zip(*snaps)))
+
+
+def force_card_cases(state: GameState, rng: np.random.Generator,
+                     cfg: Config) -> GameState:
+    """``state`` with the full-cards fields dealt anew from the numpy
+    ``rng``, for holding the card rules: each player a hand of 0-12
+    distinct cards (disjoint), the pile consistent with them (every card
+    in a hand drawn) and in one of four conditions (a quarter each):
+    drawn further at random, all but one or two cards drawn, empty (every
+    card drawn), or only the hands drawn.  In half the games each land of
+    the mover's hand it owns gets land_army_max - 2 or - 1 armies (a +2
+    bonus fits on the first, not the second); ``can_draw_card`` is set in
+    three games of four."""
+    b, dev = state.batch_size, state.device
+    rank = np.argsort(rng.random((b, NUM_LANDS)), axis=1).argsort(axis=1)
+    n = rng.integers(0, 13, (b, 2))
+    hands = np.stack([rank < n[:, :1], (rank >= n[:, :1])
+                      & (rank < n[:, :1] + n[:, 1:])], axis=1)
+    in_hands = hands.any(1)
+    mode = rng.integers(0, 4, b)[:, None]
+    spare = np.where(in_hands, NUM_LANDS, rank)       # the pile's order
+    left = np.sort(spare, axis=1)[:, :2]
+    keep = rng.integers(1, 3, b)[:, None]             # left in the pile
+    nearly = spare > left[np.arange(b), keep[:, 0] - 1][:, None]
+    drawn = in_hands | np.select(
+        [mode == 0, mode == 1, mode == 2],
+        [rng.random((b, NUM_LANDS)) < 0.5, nearly,
+         np.ones((b, NUM_LANDS), bool)], np.zeros((b, NUM_LANDS), bool))
+    owner = state.owner.cpu().numpy()
+    cur = state.cur_player.cpu().numpy()
+    mine = hands[np.arange(b), cur] & (owner == cur[:, None]) & (
+        rng.random(b) < 0.5)[:, None]
+    army = np.where(mine, cfg.land_army_max - rng.integers(1, 3, (b, 42)),
+                    state.army.cpu().numpy()).astype(np.int32)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return state.replace(player_cards=t(hands), drawn_cards=t(drawn),
+                         army=t(army),
+                         can_draw_card=t(rng.random(b) < 0.75))
 
 
 def summarize(result: MatchResult):

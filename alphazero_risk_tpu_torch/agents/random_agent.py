@@ -54,9 +54,11 @@ def random_step_recorded(state: GameState, u: torch.Tensor,
     rules.checked(u, torch.float32, (b, 4), "u")
     rules.checked(dice, I32, (b, 5), "dice")
     kernels.require_aligned(u)
+    cards_in, cards_out = rules.card_io(state, (b,), cfg)
     nstate, new = rules.launch_rules(
-        kernels.RANDOM_STEP, state, (b,), (u.data_ptr(), dice.data_ptr()),
-        _K10_OUTS, cfg)
+        kernels.RANDOM_STEP, state, (b,),
+        (u.data_ptr(), dice.data_ptr(), *cards_in), _K10_OUTS + cards_out,
+        cfg)
     return nstate, (new["action"], new["record"])
 
 
@@ -139,7 +141,7 @@ def _random_step_recorded_plain(state: GameState, u: torch.Tensor,
     zero = torch.zeros_like(ffrom)
     sf = rules.apply_fortify(state, torch.where(can, ffrom, zero),
                              torch.where(can, fto, zero), ramt)
-    s_fortify = rules.end_turn(sf, cfg)
+    s_fortify = rules.end_turn(sf, cfg, u[:, 3])
 
     ph = state.phase
     out = tree_select(ph == PH_SETUP, s_setup, s_fortify)

@@ -111,9 +111,11 @@ def script_step_recorded(state: GameState, carry: ScriptCarry,
     b, ck = state.batch_size, rules.checked
     ins = (*_carry_fields(carry, b), ck(reset, torch.bool, (b,), "reset"),
            ck(u, torch.float32, (b, 4), "u"), ck(dice, I32, (b, 5), "dice"))
+    cards_in, cards_out = rules.card_io(state, (b,), cfg)
     nstate, new = rules.launch_rules(
-        kernels.SCRIPT_STEP, state, (b,), tuple(t.data_ptr() for t in ins),
-        _K9_OUTS, cfg)
+        kernels.SCRIPT_STEP, state, (b,),
+        (*(t.data_ptr() for t in ins), *cards_in), _K9_OUTS + cards_out,
+        cfg)
     return (nstate, ScriptCarry(new["attack_to"], new["attack_from"],
                                 new["mode_b"]),
             (new["action"], new["record"]))
@@ -245,7 +247,7 @@ def _script_step_recorded_plain(state: GameState, carry: ScriptCarry,
     zero = torch.zeros_like(f_from)
     sf = rules.apply_fortify(state, torch.where(do_fortify, f_from, zero),
                              torch.where(do_fortify, f_to, zero), famt)
-    s_fortify = rules.end_turn(sf, cfg)
+    s_fortify = rules.end_turn(sf, cfg, u[:, 3])
 
     # ---- blend ----
     ph = state.phase

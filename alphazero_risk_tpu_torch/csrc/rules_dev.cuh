@@ -54,6 +54,7 @@ enum Phase {
 struct Tables {
   uint64_t adj[kLands];             // adjacency rows as masks
   uint64_t cont[kConts];            // continent membership masks
+  uint64_t card_type[3];            // infantry, horse, siege card masks
   int32_t cont_size[kConts];
   int32_t cont_bonus[kConts];
   int32_t card_gain[64];            // CARD_SET_GAIN
@@ -61,7 +62,7 @@ struct Tables {
   int8_t nrank[kLands * kLands];    // NEIGHBOR_RANK
   int8_t land_rank[kConts * kLands];  // SCRIPT_LAND_RANK
 };
-static_assert(sizeof(Tables) == 2728, "Tables must match kernel_tables()");
+static_assert(sizeof(Tables) == 2752, "Tables must match kernel_tables()");
 
 // The rule switches of Config that the kernels read.
 struct Cfg {
@@ -73,6 +74,7 @@ struct Cfg {
   bool limit_attack;  // limit_attack_moves
   bool fast_mob;      // fast_attack_mobilization
   bool exact_tb;      // exact_fortify_tiebreak
+  bool full_cards;    // not simple_cards
 };
 
 // Called by the host launchers: the flags of rules.kernel_flags.
@@ -86,6 +88,7 @@ RD_HD Cfg make_cfg(int army_max, int min_move, int max_rounds, int flags) {
   c.limit_attack = flags & 4;
   c.fast_mob = flags & 8;
   c.exact_tb = flags & 16;
+  c.full_cards = flags & 32;
   return c;
 }
 

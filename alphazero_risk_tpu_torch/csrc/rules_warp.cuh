@@ -26,6 +26,11 @@
 // The board adjacency is symmetric (rules.kernel_tables checks it): land j
 // neighbours land i iff bit i of j's own row is set, so a lane tests its
 // lands against a land known at run time with the rows it already holds.
+//
+// The functions that reach a card rule (the trade, the draw at a turn's
+// end) are templates on kCards, the full-cards rules: the hands and the
+// drawn pile are warp-uniform masks of WSt, read and written only by the
+// kCards instantiations, so the simple-cards ones keep their code.
 
 #pragma once
 
@@ -110,6 +115,7 @@ struct WSt {
   uint64_t own[3];       // owner == 0, 1, 2
   int phase, round, cur, reinf, cards[2], sets, mob_from, mob_to, attacks;
   bool can_draw;
+  uint64_t hand[2], drawn;  // full cards: player_cards, drawn_cards
 };
 
 // own[p] with p known at run time, without indexing a register array
@@ -204,6 +210,41 @@ __device__ __forceinline__ void store(const WSt& s, const rd::StateRef& r,
     r.mob_to[row] = s.mob_to;
     r.can_draw[row] = s.can_draw ? 1 : 0;
     r.attacks[row] = s.attacks;
+  }
+}
+
+// Full cards: reads the card masks of row `row` (player_cards [.., 2, 42]
+// and drawn_cards [.., 42] bool) by ballots over the lanes' lands.
+__device__ __forceinline__ void load_cards(WSt& s,
+                                           const uint8_t* __restrict__ pc,
+                                           const uint8_t* __restrict__ dc,
+                                           int64_t row, int lane) {
+  const uint8_t* p = pc + row * 2 * rd::kLands;
+  const uint8_t* q = dc + row * rd::kLands;
+  const bool t2 = two(lane);
+  const uint8_t h00 = p[lane], h01 = t2 ? p[lane + 32] : 0;
+  const uint8_t h10 = p[rd::kLands + lane];
+  const uint8_t h11 = t2 ? p[rd::kLands + lane + 32] : 0;
+  const uint8_t d0 = q[lane], d1 = t2 ? q[lane + 32] : 0;
+  s.hand[0] = ballot(h00 != 0, h01 != 0);
+  s.hand[1] = ballot(h10 != 0, h11 != 0);
+  s.drawn = ballot(d0 != 0, d1 != 0);
+}
+
+// Full cards: each lane writes its lands' bytes of the card masks.
+__device__ __forceinline__ void store_cards(const WSt& s,
+                                            uint8_t* __restrict__ pc,
+                                            uint8_t* __restrict__ dc,
+                                            int64_t row, int lane) {
+  uint8_t* p = pc + row * 2 * rd::kLands;
+  uint8_t* q = dc + row * rd::kLands;
+  p[lane] = rd::has(s.hand[0], lane);
+  p[rd::kLands + lane] = rd::has(s.hand[1], lane);
+  q[lane] = rd::has(s.drawn, lane);
+  if (two(lane)) {
+    p[lane + 32] = rd::has(s.hand[0], lane + 32);
+    p[rd::kLands + lane + 32] = rd::has(s.hand[1], lane + 32);
+    q[lane + 32] = rd::has(s.drawn, lane + 32);
   }
 }
 
@@ -325,10 +366,36 @@ __device__ __forceinline__ void goto_attack(WSt& s, const Board& d,
   s.phase = attack_wa(s, d, lane) ? rd::kAttack : rd::kFortify;
 }
 
-__device__ __forceinline__ void end_turn(WSt& s, const Board& d) {
-  const int drawn = s.can_draw ? 1 : 0;
-  if (s.cur == 0) s.cards[0] += drawn;
-  else s.cards[1] += drawn;
+// rules.draw_card under full cards: a game that earned a card draws
+// masked_choice(pile, u_card) from the undrawn pile; an empty pile is first
+// reshuffled (the cards in no hand come back, the drawn pile becomes the
+// hands).  A game that earned none keeps its pile as it is.
+__device__ __forceinline__ void draw_card_full(WSt& s, float u_card,
+                                               int lane) {
+  if (!s.can_draw) return;
+  uint64_t drawn = s.drawn;
+  uint64_t pile = rd::kAll & ~drawn;
+  if (!pile) {
+    drawn = s.hand[0] | s.hand[1];
+    pile = rd::kAll & ~drawn;
+  }
+  const uint64_t card = rd::bit(masked_choice(pile, u_card, lane));
+  s.drawn = drawn | card;
+  if (s.cur == 0) s.hand[0] |= card;
+  else s.hand[1] |= card;
+}
+
+// rules.end_turn; u_card is read under full cards only.
+template <bool kCards>
+__device__ __forceinline__ void end_turn(WSt& s, const Board& d,
+                                         float u_card, int lane) {
+  if (kCards) {
+    draw_card_full(s, u_card, lane);
+  } else {
+    const int drawn = s.can_draw ? 1 : 0;
+    if (s.cur == 0) s.cards[0] += drawn;
+    else s.cards[1] += drawn;
+  }
   const int nxt = 1 - s.cur;
   s.can_draw = false;
   s.round += 1;
@@ -338,8 +405,72 @@ __device__ __forceinline__ void end_turn(WSt& s, const Board& d) {
   s.reinf = reinforcement(own_of(s, nxt), d);
 }
 
+// The lowest k set bits of m (k <= 3).
+__device__ __forceinline__ uint64_t lowest(uint64_t m, int k) {
+  uint64_t r = 0;
+  for (int i = 0; i < k && m; ++i) {
+    r |= m & (~m + 1);
+    m &= m - 1;
+  }
+  return r;
+}
+
+// rules._play_cards_full: with more than three cards, the best combo of
+// rules._best_combo on masks.  A type's combo is the lowest three of its
+// owned cards, topped up by the lowest of its others, and scores its owned
+// count; one-of-each takes each type's first owned card, else its first
+// card, and scores the types with an owned card.  The key score * 8 +
+// (3 - kind) keeps the tie order infantry, horse, siege, one-of-each.  The
+// +2 goes on the first owned combo land with army + 2 <= land_army_max (a
+// ballot), if any.
+__device__ __forceinline__ void play_cards_full(
+    WSt& s, const rd::Tables* __restrict__ t, const rd::Cfg& c, int lane) {
+  const uint64_t hand = s.cur == 0 ? s.hand[0] : s.hand[1];
+  if (rd::popc(hand) <= 3) return;
+  const uint64_t owned = own_of(s, s.cur);
+  int best = -1;
+  uint64_t combo = 0, each = 0;
+  int each_owned = 0;
+  bool each_ok = true;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const uint64_t ht = hand & t->card_type[k];
+    const uint64_t ho = ht & owned;
+    if (rd::popc(ht) >= 3) {
+      const int n = rd::imin(rd::popc(ho), 3);
+      const int key = n * 8 + (3 - k);
+      if (key > best) {
+        best = key;
+        combo = lowest(ho, 3) | lowest(ht & ~owned, 3 - n);
+      }
+    }
+    each_ok = each_ok && ht != 0;
+    each |= lowest(ho ? ho : ht, 1);
+    each_owned += ho ? 1 : 0;
+  }
+  if (each_ok && each_owned * 8 > best) {
+    best = each_owned * 8;
+    combo = each;
+  }
+  if (best < 0) return;
+  const uint64_t room = ballot(s.ar0 + 2 <= c.army_max,
+                               two(lane) && s.ar1 + 2 <= c.army_max);
+  const uint64_t bonus = combo & owned & room;
+  if (bonus) add_army(s, rd::low(bonus), 2, lane);
+  if (s.cur == 0) s.hand[0] = hand & ~combo;
+  else s.hand[1] = hand & ~combo;
+  s.sets += 1;
+  s.reinf += t->card_gain[s.sets < 0 ? 0 : (s.sets > 63 ? 63 : s.sets)];
+}
+
+template <bool kCards>
 __device__ __forceinline__ void play_cards(WSt& s,
-                                           const rd::Tables* __restrict__ t) {
+                                           const rd::Tables* __restrict__ t,
+                                           const rd::Cfg& c, int lane) {
+  if (kCards) {
+    play_cards_full(s, t, c, lane);
+    return;
+  }
   const int have = s.cur == 0 ? s.cards[0] : s.cards[1];
   if (have >= 3) {
     if (s.cur == 0) s.cards[0] -= 3;
@@ -403,8 +534,10 @@ __device__ __forceinline__ int best_attack_from(const WSt& s, int target,
   return argmax_lands(k0, k1, lane);
 }
 
-// The fortify move of rules.step (rd::fortify_step).
+// The fortify move of rules.step, then the turn's end.
+template <bool kCards>
 __device__ __forceinline__ void fortify_step(WSt& s, int li, bool is_skip,
+                                             float u_card,
                                              const int8_t* __restrict__ nrank,
                                              const Board& d,
                                              const rd::Cfg& c, int lane) {
@@ -435,16 +568,18 @@ __device__ __forceinline__ void fortify_step(WSt& s, int li, bool is_skip,
       can_move ? rd::imin(army(s, f_from) - 1, c.army_max - a_li) : 0;
   add_army(s, f_from, -famount, lane);
   add_army(s, li, famount, lane);
-  end_turn(s, d);
+  end_turn<kCards>(s, d, u_card, lane);
 }
 
-// rules.step (the five dice held by lanes 0-4 in `die`) or, with
-// use_outcome, rules.step_with_outcome.  nr0/nr1: NEIGHBOR_RANK[clamp_land
-// (action)] of the lane's lands (read only in the attack phase).  Terminal
-// games are left unchanged.
+// rules.step (the five dice held by lanes 0-4 in `die`; u_card the card
+// uniform under full cards) or, with use_outcome, rules.step_with_outcome
+// (simple cards only).  nr0/nr1: NEIGHBOR_RANK[clamp_land(action)] of the
+// lane's lands (read only in the attack phase).  Terminal games are left
+// unchanged.
+template <bool kCards>
 __device__ __forceinline__ void step(WSt& s, int action, int die,
-                                     int outcome, bool use_outcome, int nr0,
-                                     int nr1,
+                                     int outcome, bool use_outcome,
+                                     float u_card, int nr0, int nr1,
                                      const rd::Tables* __restrict__ t,
                                      const Board& d, const rd::Cfg& c,
                                      int lane) {
@@ -472,7 +607,7 @@ __device__ __forceinline__ void step(WSt& s, int action, int die,
       if (is_skip) {
         goto_attack(s, d, lane);
       } else {
-        play_cards(s, t);
+        play_cards<kCards>(s, t, c, lane);
         const int amount =
             rd::imin(rd::move_amount(s.reinf, c), c.army_max - army(s, li));
         apply_reinforcement(s, li, amount, d, lane);
@@ -507,7 +642,7 @@ __device__ __forceinline__ void step(WSt& s, int action, int die,
       }
       break;
     default:
-      fortify_step(s, li, is_skip, t->nrank, d, c, lane);
+      fortify_step<kCards>(s, li, is_skip, u_card, t->nrank, d, c, lane);
       break;
   }
 }
@@ -617,11 +752,14 @@ __device__ __forceinline__ void store_carry(const Carry& c,
 // script_agent.script_step_recorded for one game: the state and carry
 // advance only while the game runs (the carry's reset applies either way);
 // action and record are the recorded 43-way action and its sample mask.
-// u0 is the step's first uniform, `die` the lane's die (lanes 0-4).  Every
-// branch is that of the plain version, each side effect in its order; the
-// masks it reads are computed in the branch that reads them.
+// u0 is the step's first uniform, u3 its card uniform (full cards), `die`
+// the lane's die (lanes 0-4).  Every branch is that of the plain version,
+// each side effect in its order; the masks it reads are computed in the
+// branch that reads them.
+template <bool kCards>
 __device__ __forceinline__ void script_step(
-    WSt& s, Carry& carry, bool reset, float u0, int die, int& action,
+    WSt& s, Carry& carry, bool reset, float u0, float u3, int die,
+    int& action,
     bool& record, const rd::Tables* __restrict__ t, const Board& d,
     const ScriptBoard& sb, const rd::Cfg& c, int lane) {
   if (reset) carry = Carry{-1, -1, false};
@@ -666,14 +804,17 @@ __device__ __forceinline__ void script_step(
       const bool need_pin = carry.to < 0;
       int r_to = carry.to, r_from = carry.from;
       if (need_pin) {
-        play_cards(o, t);  // cards are traded once, at the pin
+        play_cards<kCards>(o, t, c, lane);  // traded once, at the pin
         const uint64_t attack = ~owned & nb_any(owned, d, lane);
         r_to = select_target(owned, attack, d, sb, lane);
         r_from = select_from(o, r_to, owned, t, d, lane);
       }
       nc.to = r_to;
       nc.from = r_from;
-      const uint64_t onf = owned & ~at_least(s, c.army_max, lane);
+      // the lands not full after the trade (a full-cards bonus may fill
+      // one; a simple trade moves no army)
+      const uint64_t onf =
+          owned & ~at_least(kCards ? o : s, c.army_max, lane);
       int to_r;
       if (r_from >= 0 && r_from < rd::kLands && rd::has(onf, r_from)) {
         to_r = r_from;
@@ -784,7 +925,7 @@ __device__ __forceinline__ void script_step(
         add_army(o, f_from, -famt, lane);
         add_army(o, f_to, famt, lane);
       }
-      end_turn(o, d);
+      end_turn<kCards>(o, d, u3, lane);
       action = do_fortify ? f_to : rd::kSkip;
       rec = s.phase != rd::kFortify || owa != 0;
       break;
@@ -801,13 +942,15 @@ __device__ __forceinline__ void script_step(
 
 // random_agent.random_step_recorded for one game: u0 the primary choice,
 // u1 the secondary (attack or fortify source), u2 the amount or the
-// mobilization coin, `die` the lane's die (lanes 0-4).  Uniform choices
-// are masked_choice collectives, the fortify's component one BFS of
-// OR-reductions.  The state advances only while the game runs; a finished
-// game still yields its branch's action, with record = live.  Every branch
-// is that of the plain version, each side effect in its order.
+// mobilization coin, u3 the card draw (full cards), `die` the lane's die
+// (lanes 0-4).  Uniform choices are masked_choice collectives, the
+// fortify's component one BFS of OR-reductions.  The state advances only
+// while the game runs; a finished game still yields its branch's action,
+// with record = live.  Every branch is that of the plain version, each
+// side effect in its order.
+template <bool kCards>
 __device__ __forceinline__ void random_step(
-    WSt& s, float u0, float u1, float u2, int die, int& action,
+    WSt& s, float u0, float u1, float u2, float u3, int die, int& action,
     bool& record, const rd::Tables* __restrict__ t, const Board& d,
     const rd::Cfg& c, int lane) {
   const bool live = game_status(s, c) == rd::kNotEnded;
@@ -837,7 +980,9 @@ __device__ __forceinline__ void random_step(
       break;
     }
     case rd::kReinforcement: {
-      play_cards(o, t);
+      play_cards<kCards>(o, t, c, lane);
+      // the choice reads the lands full before the trade, as the plain
+      // version does
       const uint64_t full = owned & at_least(s, c.army_max, lane);
       const int li = masked_choice(owned & ~full, u0, lane);
       apply_reinforcement(o, li, 1, d, lane);
@@ -897,7 +1042,7 @@ __device__ __forceinline__ void random_step(
               : 0;
       add_army(o, can ? ffrom : 0, -ramt, lane);
       add_army(o, can ? fto : 0, ramt, lane);
-      end_turn(o, d);
+      end_turn<kCards>(o, d, u3, lane);
       action = f_skip ? rd::kSkip : fto;
       break;
     }

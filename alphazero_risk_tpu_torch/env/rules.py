@@ -24,8 +24,14 @@ The JAX engine has three fixpoint ``while_loop``s.  Here:
   84) would cost some two thousand launches in every ``step``; the loop
   runs only for the few games that meet a fortify tie.
 
-Only the simple-cards rules are ported: ``simple_cards=False`` raises
-``NotImplementedError``.
+Both card modes run.  Under ``simple_cards`` a hand is a count; under
+full cards (``simple_cards=False``) hands are per-territory masks, a turn's
+earned card is drawn uniformly from the undrawn pile with the uniform
+``u_card`` (the pile reshuffled from the cards in no hand when it is
+empty), and a hand of more than three cards trades its best combo.  A
+full-cards ``step`` needs ``u_card``; ``step_with_outcome`` and ``expand``
+have none to give (as in the JAX engine, whose trace refuses there), so
+they raise under full cards, and so does the search built on them.
 
 On the card two kernels carry the engine (the game's own phase branch
 only, the graph walks as mask walks):
@@ -94,6 +100,7 @@ class Tables(NamedTuple):
     continent_bonus: torch.Tensor     # [6] int32
     card_set_gain: torch.Tensor       # [64] int32
     land_idx: torch.Tensor            # [42] int32
+    card_types: torch.Tensor          # [3, 42] bool: infantry, horse, siege
 
 
 @functools.lru_cache(maxsize=None)
@@ -109,14 +116,24 @@ def tables(device: torch.device) -> Tables:
         continent_bonus=t(topology.CONTINENT_BONUS, I32),
         card_set_gain=t(CARD_SET_GAIN, I32),
         land_idx=torch.arange(NUM_LANDS, dtype=I32, device=device),
+        card_types=t(np.stack(CARD_TYPES), torch.bool),
     )
 
 
-def _check_cfg(cfg: Config) -> None:
-    if not cfg.simple_cards:
-        raise NotImplementedError(
-            "the port runs the simple-cards rules only (simple_cards=True): "
-            "full cards come with a later slice of the port")
+CARD_TYPES = (topology.CARD_INFANTRY, topology.CARD_HORSE,
+              topology.CARD_SIEGE)
+
+# What the JAX engine asserts when a full-cards turn ends without a card
+# uniform (``rules.draw_card``).
+NEEDS_UNIFORM = "full-cards draw needs a uniform"
+
+
+def require_uniform(cfg: Config, u_card) -> None:
+    """Raise unless ``u_card`` is given or the cards are simple."""
+    if u_card is None and not cfg.simple_cards:
+        raise ValueError(f"{NEEDS_UNIFORM}: a full-cards step takes u_card "
+                         f"[B] (step_with_outcome, expand and the search "
+                         f"have none, as in the JAX engine)")
 
 
 # ---------------------------------------------------------------------------
@@ -301,18 +318,50 @@ def goto_attack(state: GameState, cfg: Config) -> GameState:
     return s.replace(phase=phase)
 
 
-def draw_card(state: GameState, cfg: Config) -> GameState:
-    """Reference ``State::drawCard`` (state.cpp:618-643), simple mode: the
-    hand is a count."""
-    _check_cfg(cfg)
-    cards = add_at(state.cards, state.cur_player,
-                   state.can_draw_card.to(I32))
-    return state.replace(cards=cards)
+def draw_card(state: GameState, cfg: Config, u_card=None) -> GameState:
+    """Reference ``State::drawCard`` (state.cpp:618-643).  Simple mode: the
+    hand is a count.  Full mode: a uniform card (``u_card`` [B]) from the
+    undrawn pile; an empty pile is reshuffled from the cards in no hand
+    (the reference's duplicate-dealing reshuffle, state.cpp:627-632, is
+    not reproduced, as in the JAX engine).  Games that earned no card keep
+    their hands and pile."""
+    if cfg.simple_cards:
+        cards = add_at(state.cards, state.cur_player,
+                       state.can_draw_card.to(I32))
+        return state.replace(cards=cards)
+    require_uniform(cfg, u_card)
+    available = ~state.drawn_cards
+    empty = ~available.any(-1, keepdim=True)
+    in_hands = state.player_cards.any(1)
+    avail = torch.where(empty, ~in_hands, available)
+    drawn = torch.where(empty, in_hands, state.drawn_cards)
+    card = masked_choice(avail, u_card)
+    card_oh = tables(state.device).land_idx[None, :] == card[:, None]
+    do = state.can_draw_card[:, None]
+    hand = _hand(state)
+    return state.replace(
+        drawn_cards=torch.where(do, drawn | card_oh, state.drawn_cards),
+        player_cards=_set_hand(state, torch.where(do, hand | card_oh, hand)))
 
 
-def end_turn(state: GameState, cfg: Config) -> GameState:
-    """Reference ``State::nextPlayerGameTurn`` (state.cpp:748-766)."""
-    s = draw_card(state, cfg)
+def _hand(state: GameState) -> torch.Tensor:
+    """[B, 42] bool: the current player's hand."""
+    rows = torch.arange(state.batch_size, device=state.device)
+    return state.player_cards[rows, state.cur_player.long()]
+
+
+def _set_hand(state: GameState, hand: torch.Tensor) -> torch.Tensor:
+    """Copy of ``player_cards`` with the current player's hand ``hand``."""
+    mine = (torch.arange(2, device=state.device)[None, :]
+            == state.cur_player[:, None])[..., None]
+    return torch.where(mine, hand[:, None, :], state.player_cards)
+
+
+def end_turn(state: GameState, cfg: Config, u_card=None) -> GameState:
+    """Reference ``State::nextPlayerGameTurn`` (state.cpp:748-766): draw the
+    earned card (full cards: with ``u_card``), advance the round, hand the
+    turn and a fresh reinforcement budget to the opponent."""
+    s = draw_card(state, cfg, u_card)
     nxt = (1 - s.cur_player).to(I32)
     s = s.replace(
         can_draw_card=torch.zeros_like(s.can_draw_card),
@@ -326,9 +375,15 @@ def end_turn(state: GameState, cfg: Config) -> GameState:
 
 
 def play_cards(state: GameState, cfg: Config) -> GameState:
-    """Card set trade-in, simple mode (state.cpp:1090-1117): trade 3
-    counted cards whenever >= 3 are held."""
-    _check_cfg(cfg)
+    """Card set trade-in (reference ``GameHelper::playCards`` dispatch,
+    game_helper.cpp:3-17).
+
+    Simple mode (state.cpp:1090-1117): trade 3 counted cards whenever >= 3
+    are held.  Full mode: the best 3-card combo (``_best_combo``) when
+    *more than* 3 are held, +2 armies on its first owned land with room
+    (game_helper.cpp:111-208, state.cpp:1119-1177)."""
+    if not cfg.simple_cards:
+        return _play_cards_full(state, cfg)
     p = state.cur_player
     held = take(state.cards, p)
     play = held >= 3
@@ -338,6 +393,71 @@ def play_cards(state: GameState, cfg: Config) -> GameState:
     gained = torch.where(play, gain, 0).to(I32)
     return state.replace(cards=cards, card_sets_played=sets,
                          reinforcements=state.reinforcements + gained)
+
+
+def _lowest(mask: torch.Tensor, k) -> torch.Tensor:
+    """The lowest ``k`` ([B] or int) set lands of each row of ``mask``."""
+    k = torch.as_tensor(k, device=mask.device)
+    return mask & (torch.cumsum(mask.to(I32), -1) <= k[..., None])
+
+
+def _best_combo(hand: torch.Tensor, owned: torch.Tensor):
+    """``GameHelper::getBestCombo`` (game_helper.cpp:145-208): ([B, 42]
+    combo mask, [B] valid).  A same-type combo takes three cards of one
+    type, the owned ones first, each group in ascending land order; the
+    one-of-each combo the first owned card of each type, else its first
+    card.  The most owned cards win, ties in the order infantry, horse,
+    siege, one-of-each (the JAX engine's order: the reference's std::sort
+    leaves equal keys unordered).  Only a hand of more than three cards
+    trades."""
+    types = tables(hand.device).card_types
+    masks, scores = [], []
+    each = torch.zeros_like(hand)
+    each_valid = torch.ones(hand.shape[0], dtype=torch.bool,
+                            device=hand.device)
+    each_owned = torch.zeros(hand.shape[0], dtype=I32, device=hand.device)
+    for t in range(3):
+        ht = hand & types[t]
+        ho = ht & owned
+        n_own = ho.sum(-1).clamp(max=3)
+        mask = _lowest(ho, 3) | _lowest(ht & ~owned, 3 - n_own)
+        masks.append(mask)
+        scores.append(torch.where(ht.sum(-1) >= 3, n_own, -1))
+        each_valid = each_valid & ht.any(-1)
+        has_o = ho.any(-1)
+        each = each | _lowest(torch.where(has_o[:, None], ho, ht), 1)
+        each_owned = each_owned + has_o.to(I32)
+    masks.append(each)
+    scores.append(torch.where(each_valid, each_owned, -1))
+    scores = torch.stack(scores, -1)
+    pos = torch.arange(4, device=hand.device)
+    keyed = torch.where(scores >= 0, scores * 8 + (3 - pos), -1)
+    best = argmax_first(keyed)
+    combo = torch.stack(masks, 1).gather(
+        1, best.long()[:, None, None].expand(-1, 1, NUM_LANDS))[:, 0]
+    valid = (hand.sum(-1) > 3) & (keyed.amax(-1) >= 0)
+    return combo & hand, valid
+
+
+def _play_cards_full(state: GameState, cfg: Config) -> GameState:
+    """``play_cards`` under full cards."""
+    hand = _hand(state)
+    owned = state.owner == state.cur_player[:, None]
+    combo, play = _best_combo(hand, owned)
+    # +2 on the first owned combo land with room (state.cpp:1145-1158)
+    bonus_cand = combo & owned & (state.army + 2 <= cfg.land_army_max)
+    do_bonus = play & bonus_cand.any(-1)
+    army = add_at(state.army, first_set_bit(bonus_cand),
+                  torch.where(do_bonus, 2, 0).to(I32))
+    sets = state.card_sets_played + play.to(I32)
+    gain = tables(state.device).card_set_gain[sets.clamp(0, 63).long()]
+    return state.replace(
+        army=army,
+        player_cards=_set_hand(state, torch.where(play[:, None],
+                                                  hand & ~combo, hand)),
+        card_sets_played=sets,
+        reinforcements=state.reinforcements
+        + torch.where(play, gain, 0).to(I32))
 
 
 def _move_amount(budget: torch.Tensor, cfg: Config) -> torch.Tensor:
@@ -617,10 +737,9 @@ def fortify_needs_rank(state: GameState, action: torch.Tensor,
 
 
 def _step_plain(state: GameState, action: torch.Tensor, dice: torch.Tensor,
-                cfg: Config) -> GameState:
+                cfg: Config, u_card=None) -> GameState:
     """``step`` in plain PyTorch: every phase branch for every game,
     blended by phase."""
-    _check_cfg(cfg)
     action = action.to(I32)
     li = action.clamp(0, NUM_LANDS - 1)
     is_skip = action == SKIP_ACTION
@@ -693,7 +812,7 @@ def _step_plain(state: GameState, action: torch.Tensor, dice: torch.Tensor,
     famount = torch.where(can_move, famount, 0).to(I32)
     sf = state.replace(
         army=add_at(add_at(state.army, f_from, -famount), li, famount))
-    s_fortify = end_turn(sf, cfg)
+    s_fortify = end_turn(sf, cfg, u_card)
 
     # ---- blend by phase ----
     ph = state.phase
@@ -715,9 +834,14 @@ def roll_dice(generator: torch.Generator, batch_size: int) -> torch.Tensor:
 
 def step_key(state: GameState, action: torch.Tensor,
              generator: torch.Generator, cfg: Config) -> GameState:
-    """``step`` with dice drawn from ``generator``."""
-    dice = roll_dice(generator, state.batch_size).to(state.device)
-    return step(state, action, dice, cfg)
+    """``step`` with its randomness drawn from ``generator``: the dice
+    ([B, 5], ``roll_dice``), then under full cards ``u_card`` ([B]
+    uniforms)."""
+    b = state.batch_size
+    dice = roll_dice(generator, b).to(state.device)
+    u_card = None if cfg.simple_cards else torch.rand(
+        (b,), generator=generator, device=generator.device).to(state.device)
+    return step(state, action, dice, cfg, u_card)
 
 
 # ---------------------------------------------------------------------------
@@ -727,7 +851,7 @@ def step_key(state: GameState, action: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def kernel_tables(device: torch.device) -> torch.Tensor:
     """The board tables of the rules kernels, packed as ``rd::Tables`` of
-    ``csrc/rules_dev.cuh`` (2,728 bytes, uint8) on ``device``."""
+    ``csrc/rules_dev.cuh`` (2,752 bytes, uint8) on ``device``."""
     bits = np.uint64(1) << np.arange(NUM_LANDS, dtype=np.uint64)
 
     def masks(rows):
@@ -735,6 +859,7 @@ def kernel_tables(device: torch.device) -> torch.Tensor:
 
     parts = [masks(topology.ADJACENCY).astype("<u8"),
              masks(topology.CONTINENT_MASK).astype("<u8"),
+             masks(CARD_TYPES).astype("<u8"),
              topology.CONTINENT_SIZE.astype("<i4"),
              topology.CONTINENT_BONUS.astype("<i4"),
              CARD_SET_GAIN.astype("<i4"),
@@ -742,7 +867,7 @@ def kernel_tables(device: torch.device) -> torch.Tensor:
              topology.NEIGHBOR_RANK.astype("<i1"),
              topology.SCRIPT_LAND_RANK.astype("<i1")]
     buf = np.concatenate([p.ravel().view(np.uint8) for p in parts])
-    if buf.size != 2728:
+    if buf.size != 2752:
         raise AssertionError("kernel_tables no longer matches rd::Tables")
     adj = np.asarray(topology.ADJACENCY, bool)
     if not (adj == adj.T).all():
@@ -772,16 +897,16 @@ _FLAGS: dict = {}
 
 def kernel_flags(cfg: Config) -> tuple:
     """The trailing ints of the rules kernels: land_army_max,
-    min_unit_move, max_game_rounds and the switch bits.  A Config the
-    kernels cannot run raises here, once per Config object."""
+    min_unit_move, max_game_rounds and the switch bits (bit 5: full
+    cards)."""
     hit = _FLAGS.get(id(cfg))
     if hit is not None and hit[0] is cfg:
         return hit[1]
-    _check_cfg(cfg)
     flags = (int(cfg.allow_yield) | int(cfg.limit_reinforcement_moves) << 1
              | int(cfg.limit_attack_moves) << 2
              | int(cfg.fast_attack_mobilization) << 3
-             | int(cfg.exact_fortify_tiebreak) << 4)
+             | int(cfg.exact_fortify_tiebreak) << 4
+             | int(not cfg.simple_cards) << 5)
     out = (cfg.land_army_max, cfg.min_unit_move, cfg.max_game_rounds, flags)
     if len(_FLAGS) > 64:
         _FLAGS.clear()
@@ -876,15 +1001,27 @@ def launch_rules(kernel, states: GameState, lead: tuple, pre: tuple,
     return result, new
 
 
+def card_io(states: GameState, lead: tuple, cfg: Config):
+    """The card masks' part of a rules kernel's arguments: (the pointers of
+    ``states``' player_cards and drawn_cards, the outputs for
+    ``launch_rules``) under full cards; nulls under simple cards, whose
+    masks never change (the result keeps ``states``')."""
+    if cfg.simple_cards:
+        return (None, None), (None, None)
+    return (tuple(t.data_ptr()
+                  for t in state_fields(states, lead, CARDS_SPEC)),
+            CARDS_SPEC)
+
+
 # K7's extra outputs in expand mode: the child's card masks (copied from
-# its node), its status and its legal mask; null in step mode.
+# its node), its status and its legal mask.  In step mode the card masks
+# are written under full cards only (``card_io``).
 EXPAND_OUTS = CARDS_SPEC + (("status", I32, ()),
                             ("legal", B8, (NUM_ACTIONS,)))
-STEP_OUTS = (None,) * len(EXPAND_OUTS)
 
 
 def _launch_step(states: GameState, action: torch.Tensor, cfg: Config, *,
-                 dice=None, outcome=None, node=None):
+                 dice=None, outcome=None, node=None, u_card=None):
     """K7.  ``states`` holds B games; or, with ``node`` [B], the [B, N]
     node states of a tree (game b steps node ``max(node[b], 0)``), and
     then the result comes with its status and legal mask."""
@@ -905,34 +1042,44 @@ def _launch_step(states: GameState, action: torch.Tensor, cfg: Config, *,
         if outcome.dtype != I32:
             outcome = outcome.to(I32)
         checked(outcome, I32, (b,), "outcome")
+    if u_card is not None:
+        checked(u_card, torch.float32, (b,), "u_card")
+    outs = (EXPAND_OUTS if node is not None
+            else card_io(states, lead, cfg)[1] + (None, None))
     P = kernels.ptr
     result, new = launch_rules(
         kernels.RULES_STEP, states, lead,
         (*(t.data_ptr() for t in cards), P(node), n, action.data_ptr(),
-         P(dice), P(outcome)),
-        STEP_OUTS if node is None else EXPAND_OUTS, cfg)
+         P(dice), P(outcome), P(u_card)), outs, cfg)
     return result if node is None else (result, new["status"], new["legal"])
 
 
 def step(state: GameState, action: torch.Tensor, dice: torch.Tensor,
-         cfg: Config) -> GameState:
+         cfg: Config, u_card: torch.Tensor | None = None) -> GameState:
     """Apply one 43-way action per game (reference ``UtilityNN::makeMove``,
     alphazero_moves.cpp:72-233).
 
     ``action`` in [0, 43); 42 is skip/end-phase.  ``dice`` is [B, 5] in
-    [1, 6], consumed only by attack resolutions.  Terminal games are left
+    [1, 6], consumed only by attack resolutions; ``u_card`` [B] float32
+    draws the card a fortify move's turn end earns (full cards only, where
+    it is required; ignored under simple cards).  Terminal games are left
     unchanged.  CUDA tensors launch K7; CPU tensors take ``_step_plain``.
     """
+    if cfg.simple_cards:
+        u_card = None
+    require_uniform(cfg, u_card)
     if state.device.type == "cpu":
-        return _step_plain(state, action, dice, cfg)
-    return _launch_step(state, action, cfg, dice=dice)
+        return _step_plain(state, action, dice, cfg, u_card)
+    return _launch_step(state, action, cfg, dice=dice, u_card=u_card)
 
 
 def step_with_outcome(state: GameState, action: torch.Tensor,
                       outcome: torch.Tensor, cfg: Config) -> GameState:
     """``step`` with battle randomness replaced by an explicit outcome
-    index.  Non-attack phases ignore ``outcome``.  Used inside MCTS.  CUDA
-    tensors launch K7; CPU tensors take ``_step_with_outcome_plain``."""
+    index.  Non-attack phases ignore ``outcome``.  Used inside MCTS; simple
+    cards only (``require_uniform``).  CUDA tensors launch K7; CPU tensors
+    take ``_step_with_outcome_plain``."""
+    require_uniform(cfg, None)
     if state.device.type == "cpu":
         return _step_with_outcome_plain(state, action, outcome, cfg)
     return _launch_step(state, action, cfg, outcome=outcome)
@@ -954,8 +1101,10 @@ def expand(states: GameState, node: torch.Tensor, action: torch.Tensor,
     """The children of one node per game of a search tree: ``states`` are
     the tree's [B, N] node states, game b steps node ``max(node[b], 0)``
     with ``action[b]`` and battle outcome ``outcome[b]``.  Returns
-    ``(child GameState, status [B] int32, legal [B, 43] bool)``.  CUDA
-    tensors launch K7 once; CPU tensors take ``_expand_plain``."""
+    ``(child GameState, status [B] int32, legal [B, 43] bool)``.  Simple
+    cards only, as ``step_with_outcome``.  CUDA tensors launch K7 once;
+    CPU tensors take ``_expand_plain``."""
+    require_uniform(cfg, None)
     if states.device.type == "cpu":
         return _expand_plain(states, node, action, outcome, cfg)
     return _launch_step(states, action, cfg, outcome=outcome, node=node)

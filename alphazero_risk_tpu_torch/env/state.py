@@ -33,8 +33,8 @@ class GameState:
     mob_to: torch.Tensor          # [B] int32 land index, -1 = None
     can_draw_card: torch.Tensor   # [B] bool
     attacks_during_turn: torch.Tensor  # [B] int32
-    # Full-cards mode only; all-false under simple_cards, which is the only
-    # card mode this port runs.
+    # Full-cards mode only (per-territory hands and the drawn pile);
+    # all-false under simple_cards.
     player_cards: torch.Tensor    # [B, 2, 42] bool
     drawn_cards: torch.Tensor     # [B, 42] bool
 

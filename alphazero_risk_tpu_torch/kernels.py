@@ -177,34 +177,39 @@ TREE_WRITE = Kernel(
 RULES_WARP = ("rules_dev.cuh", "rules_warp.cuh")
 
 # 12 state fields and player/drawn cards in, node, N, action, dice,
-# outcome, 12 state fields and player/drawn cards out, status, legal,
-# tables
+# outcome, u_card, 12 state fields and player/drawn cards out, status,
+# legal, tables
 RULES_STEP = Kernel(
     "rules_step", "rules_step.cu", "az_rules_step",
-    [P] * 15 + [I] + [P] * 20 + [I] * 5, headers=RULES_WARP)
+    [P] * 15 + [I] + [P] * 21 + [I] * 5, headers=RULES_WARP)
 
 # 9 state fields, tables, legal, status, features
 STATE_VIEWS = Kernel(
     "state_views", "state_views.cu", "az_state_views",
     [P] * 13 + [I] * 5, headers=RULES_WARP)
 
-# 12 state fields, 3 carry fields, reset, u, dice in; 12 state fields,
-# 3 carry fields, action, record out; tables
+# The card masks of K9, K10 and the multi-step entry (player_cards,
+# drawn_cards, in and out) are null pointers under simple cards.
+
+# 12 state fields, 3 carry fields, reset, u, dice, 2 card masks in; 12
+# state fields, 3 carry fields, action, record, 2 card masks out; tables
 SCRIPT_STEP = Kernel(
     "script_step", "script_step.cu", "az_script_step",
-    [P] * 36 + [I] * 5, headers=RULES_WARP)
+    [P] * 40 + [I] * 5, headers=RULES_WARP)
 
-# 12 state fields, u, dice in; 12 state fields, action, record out; tables
+# 12 state fields, u, dice, 2 card masks in; 12 state fields, action,
+# record, 2 card masks out; tables
 RANDOM_STEP = Kernel(
     "random_step", "random_step.cu", "az_random_step",
-    [P] * 29 + [I] * 5, headers=RULES_WARP)
+    [P] * 33 + [I] * 5, headers=RULES_WARP)
 
 # K9's and K10's multi-step entry: 12 state fields, 3 carry fields, prev,
-# u [k, B, 4], dice [k, B, 5] in, k, the seats' kinds (two bits a seat);
-# 12 state fields, 3 carry fields, prev, the step counts out; tables
+# u [k, B, 4], dice [k, B, 5], 2 card masks in, k, the seats' kinds (two
+# bits a seat); 12 state fields, 3 carry fields, prev, the step counts, 2
+# card masks out; tables
 AGENT_STEPS = Kernel(
     "agent_steps", "agent_steps.cu", "az_agent_steps",
-    [P] * 18 + [I] * 2 + [P] * 18 + [I] * 5, headers=RULES_WARP)
+    [P] * 20 + [I] * 2 + [P] * 20 + [I] * 5, headers=RULES_WARP)
 
 ALL = (CONV3X3_I8, MCTS_DESCEND, MCTS_BACKUP, CONV3X3_BF16, HEADS_EVAL,
        TREE_WRITE, RULES_STEP, STATE_VIEWS, SCRIPT_STEP, RANDOM_STEP,

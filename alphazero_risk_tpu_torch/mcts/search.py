@@ -602,6 +602,8 @@ def search(root: GameState, gumbel: torch.Tensor, cfg: Config,
         raise NotImplementedError(
             "tree reuse is not ported yet: it comes with a later slice of "
             "the port")
+    # every expansion is a step_with_outcome: simple cards only
+    rules.require_uniform(cfg, None)
     tree = init_tree(root, cfg, eval_fn)
     if cfg.use_dirichlet_noise:
         if noise_u is None:

@@ -244,6 +244,8 @@ def run_episodes(eval_fn, state0: GameState, draws, cfg: Config,
         raise NotImplementedError(
             "tree reuse is not ported yet: it comes with a later slice of "
             "the port")
+    # the search expands by step_with_outcome, which has no card uniform
+    rules.require_uniform(cfg, None)
     b, dev = state0.batch_size, state0.device
     both_az = az_seats[0] and az_seats[1]
     fast_forward = not both_az and not record_all

@@ -41,6 +41,7 @@ import torch
 from ..agents.driver import mirrored_initial_states
 from ..config import Config, STATUS_NOT_ENDED
 from ..device import resolve_device
+from ..env import rules
 from ..env.state import new_game
 from ..models.fast_infer import (default_calib_feats, fold_for_inference,
                                  make_fast_eval_fn, make_fast_paired_eval_fn)
@@ -158,6 +159,8 @@ class Trainer:
         return A.make_eval_fn(net, self.cfg)
 
     # ---- chunk-callable builders: (state, carry, prev) -> ActorOutput ----
+    # The searching ones refuse full cards before folding a network (the
+    # search has no card uniform, as in the JAX package).
     def _chunk_call(self, efn, cfg, **kw):
         def call(state, carry, prev):
             draws = A.GeneratorDraws(self.gen, cfg, state.batch_size,
@@ -168,10 +171,12 @@ class Trainer:
         return call
 
     def _selfplay_call(self):
+        rules.require_uniform(self.cfg, None)
         return self._chunk_call(self._eval_fn(), self.cfg,
                                 sample_moves=True)
 
     def _arena_call(self, net_a: AZNet, net_b: AZNet):
+        rules.require_uniform(self.cfg, None)
         if self.cfg.fast_infer:
             fastp = make_fast_paired_eval_fn(
                 self.cfg, int8=self.cfg.fast_infer_int8)
@@ -183,6 +188,7 @@ class Trainer:
                                 paired_eval=True)
 
     def _versus_call(self, net: AZNet, opponent: int, record: bool):
+        rules.require_uniform(self.cfg, None)
         return self._chunk_call(self._eval_fn(net), self._ecfg,
                                 opponent=opponent, az_seats=(True, False),
                                 sample_moves=False, record_all=record)

@@ -52,7 +52,13 @@ when all of them pass):
    every pair of seat kinds.  K3 (visit and wsum) is held bit for bit.
    The training and data phases search at ``TRAIN``'s simulations: K2,
    K3, K6 and K7's expand are held on such a tree at each of their
-   batches (``TRAIN_BATCHES``);
+   batches (``TRAIN_BATCHES``).  Under full cards (``CARDS``), K7's
+   step, K9, K10 and the multi-step entry are held bit for bit on 1,024
+   full-cards states (``card_states``: mixed play under full cards,
+   three games in eight with hands and piles dealt anew, large hands,
+   empty piles) at 64, 128 and 1,024 games, timed at 64 and 1,024, the
+   multi-step entry also for every pair of seat kinds and timed 300
+   steps into full-cards matches;
 4. slice: the flagship 20x256 net, int8 fast path, 32 simulations, plays
    32 mirrored games against the ScriptPlayer to the end through
    ``Trainer.play`` (the first main path, launch counts read around it;
@@ -91,12 +97,22 @@ when all of them pass):
    ``-m play --p1 sp --p2 rp``), held against the per-iteration loop on
    the plain versions from the same seed (tally, steps, rounds, live
    micro-steps).  The data path's launch counts are those of (b), (c)
-   and (d).
+   and (d);
+7. cards: the full-cards paths, each held against the plain versions:
+   (b) Script vs Script and (d) Script vs Random ``play_match`` on
+   1,024 mirrored games to the end in blocks (against the per-iteration
+   loop from the same seed: tally, steps, rounds, live micro-steps, and
+   at least one trade), (a) a 128-step ``run_scripted_episodes`` chunk
+   at the 1,024 full-cards states (states, carries, records equal), (e)
+   400 steps of random legal play through ``rules.step_key`` on 1,024
+   fresh deals (final states equal).  Its launch counts are those of
+   (b), (d), (a) and (e).
 
 The line before the card's is a JSON object with one entry per kernel:
-``launches`` sums the three main paths (play, train, data), each also
-given alone.  The last line is ``{"ok": true, "device": {...}}``.  Imports
-nothing of JAX.
+``launches`` sums the four main paths (play, train, data, cards), each
+also given alone; the full-cards timings are the ``cards_*`` keys of
+K7, K9, K10 and the multi-step entry.  The last line is ``{"ok": true,
+"device": {...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -128,6 +144,10 @@ DATA = dict(TRAIN, data_games_ss=128, data_games_sr=128,
             env_batch_per_device=128, actor_chunk_steps=128,
             max_game_steps=2048)
 MIXED = 1024        # states of the rules kernels' checks
+# the full-cards part: its rules (a step cap every match's games end well
+# within) and the steps of its random legal play
+CARDS = dict(simple_cards=False, max_game_steps=4096)
+CARD_PLAY_STEPS = 400
 # every lockstep batch the two main paths launch the kernels at: self-play,
 # the play slice, the arena and the two benchmark matches.  Timed at GAMES;
 # the others are held against the plain versions only.
@@ -932,6 +952,40 @@ def mixed_states(cfg, dev):
     return mx
 
 
+def card_states(cfg, dev):
+    """MIXED full-cards states: ``mixed_states`` under ``cfg`` (full
+    cards), then three games in eight with their card fields dealt anew by
+    ``driver.force_card_cases`` (hands of 0-12 cards, piles empty, nearly
+    empty or full, bonus lands at land_army_max - 1 and - 2), one of those
+    three moved to the reinforcement phase (the trade) and one to the
+    fortify phase (the draw)."""
+    import numpy as np
+    import torch
+    from alphazero_risk_tpu_torch.agents import driver as D
+    from alphazero_risk_tpu_torch.config import PH_FORTIFY, PH_REINFORCEMENT
+    from alphazero_risk_tpu_torch.env import rules
+    from alphazero_risk_tpu_torch.env.state import tree_select
+    mx = mixed_states(cfg, dev)
+    st = mx.state
+    n = st.batch_size
+    slot = torch.arange(n, device=dev) % 8
+    forced = D.force_card_cases(st, np.random.default_rng(5), cfg)
+    forced = forced.replace(phase=torch.where(
+        slot == 1, PH_REINFORCEMENT,
+        torch.where(slot == 2, PH_FORTIFY, forced.phase)).to(torch.int32))
+    st = tree_select(slot < 3, forced, st)
+    mx = mx._replace(state=st)
+    hand = rules._hand(st).sum(-1)
+    empty = st.drawn_cards.all(-1)
+    earning = int((empty & st.can_draw_card).sum())
+    log(f"card states: {n} full-cards states, {int((slot < 3).sum())} "
+        f"dealt anew; mover's hand > 3 cards in {int((hand > 3).sum())}, "
+        f"empty pile in {int(empty.sum())} ({earning} earning a card), "
+        f"reinforcement {int((st.phase == PH_REINFORCEMENT).sum())}, "
+        f"fortify {int((st.phase == PH_FORTIFY).sum())}")
+    return mx
+
+
 def states_differ(a, b):
     """Name of the first GameState field that differs, or None."""
     import dataclasses
@@ -950,7 +1004,17 @@ def state_bytes(st):
                for name, _, _ in rules.STATE_SPEC)
 
 
-TABLE_BYTES = 2728      # rd::Tables, read once per call
+CARD_BYTES = 2 * 42 + 42    # player_cards and drawn_cards of one game
+
+
+def game_bytes(st, cfg):
+    """Bytes of one game that K7's step, K9, K10 and the multi-step entry
+    read (and write): the 12 fields, and under full cards the card
+    masks."""
+    return state_bytes(st) + (0 if cfg.simple_cards else CARD_BYTES)
+
+
+TABLE_BYTES = 2752      # rd::Tables, read once per call
 
 
 def timed_entry(run, plain, kernel, nbytes, n, err=0.0, reps=50):
@@ -967,32 +1031,39 @@ def timed_entry(run, plain, kernel, nbytes, n, err=0.0, reps=50):
 
 
 def check_k7(mx, cfg, timed=True):
-    """K7 against its plain version: ``step`` with the dice and
+    """K7 against its plain version: ``step`` with the dice (under full
+    cards with the card uniform u[:, 3]) and, under simple cards,
     ``step_with_outcome`` with a battle outcome (the first die mod 3), on
     the random legal action."""
     import torch
     from alphazero_risk_tpu_torch.env import rules
     st, a, dice = mx.state, mx.action, mx.dice
+    u_card = None if cfg.simple_cards else mx.u[:, 3].contiguous()
     o = dice[:, 0] % 3
     n = st.batch_size
-    for name, got, ref in (
-            ("step", rules.step(st, a, dice, cfg),
-             rules._step_plain(st, a, dice, cfg)),
-            ("step_with_outcome", rules.step_with_outcome(st, a, o, cfg),
-             rules._step_with_outcome_plain(st, a, o, cfg))):
+    cases = [("step", lambda: rules.step(st, a, dice, cfg, u_card),
+              lambda: rules._step_plain(st, a, dice, cfg, u_card))]
+    if cfg.simple_cards:
+        cases.append(("step_with_outcome",
+                      lambda: rules.step_with_outcome(st, a, o, cfg),
+                      lambda: rules._step_with_outcome_plain(st, a, o,
+                                                             cfg)))
+    for name, run, plain in cases:
+        got, ref = run(), plain()
         torch.cuda.synchronize()
         bad = states_differ(got, ref)
         if bad:
             fail(f"K7 {name} field {bad} differs from the plain version at "
-                 f"B={n}")
-    msg = f"K7 rules_step B={n}: step and step_with_outcome equal"
+                 f"B={n}{'' if cfg.simple_cards else ' (full cards)'}")
+    msg = (f"K7 rules_step B={n}: step and step_with_outcome equal"
+           if cfg.simple_cards else
+           f"K7 rules_step B={n}, full cards: step equal")
     if not timed:
         log(msg)
         return None
-    e = timed_entry(lambda: rules.step(st, a, dice, cfg),
-                    lambda: rules._step_plain(st, a, dice, cfg),
-                    "rules_step_kernel",
-                    n * (2 * state_bytes(st) + 4 + 20) + TABLE_BYTES, n)
+    e = timed_entry(cases[0][1], cases[0][2], "rules_step_kernel",
+                    n * (2 * game_bytes(st, cfg) + 4 + 20
+                         + (0 if u_card is None else 4)) + TABLE_BYTES, n)
     log(f"{msg}; {e['ms']:.4f} ms (kernel alone {fmt_ms(e['device_ms'])}; "
         f"bound {e['bound_ms']:.6f} ms) plain {e['plain_ms']:.3f} ms")
     return e
@@ -1114,12 +1185,13 @@ def check_k9_k10(mx, cfg, timed=True):
     if bad10:
         fail(f"K10 random_step {bad10} differs from the plain version at "
              f"B={n}")
-    msg = (f"K9 script_step / K10 random_step B={n}: state, carry, action "
-           f"and record equal")
+    msg = (f"K9 script_step / K10 random_step B={n}"
+           f"{'' if cfg.simple_cards else ', full cards'}: state, carry, "
+           f"action and record equal")
     if not timed:
         log(msg)
         return None
-    sb = state_bytes(st)
+    sb = game_bytes(st, cfg)
     e9 = timed_entry(lambda: SA.script_step_recorded(*args9),
                      lambda: SA._script_step_recorded_plain(*args9),
                      "script_step_kernel",
@@ -1234,10 +1306,10 @@ def check_agent_steps(cfg, dev, b=MIXED, k=64, warm=100, kinds=(1, 1)):
     u, dice = draws.block(k)
     args = (st, carry, prev, u, dice, cfg, kinds)
     out = AB.agent_steps(*args)
-    name = kinds_name(kinds)
+    name = kinds_name(kinds) + ("" if cfg.simple_cards else " full cards")
     hold_agent_steps([(args, {}, out)], f"B={b} k={k} {name}")
     n = int(out[3].sum())
-    sb = state_bytes(st)
+    sb = game_bytes(st, cfg)
     # state, carry (9 bytes) and prev read and written once, the step
     # counts written, and the draws of the steps taken (at least u[0] and
     # the 5 dice)
@@ -1554,6 +1626,15 @@ def phase_kernels(cfg, dev):
         # K8 at the learner's batch (on its real input in the data phase)
         k8["b512"] = check_k8(first(mx, TRAIN["batch_size"]).state, cfg)
         k7["expand_train"] = check_train_trees(trainer, states, dev)
+        # the full-cards rules on their own states
+        ccfg = cfg.replace(**CARDS)
+        cmx = card_states(ccfg, dev)
+        cards = check_cards_kernels(cmx, ccfg)
+        for k, timings in ((k7, cards["rules_step"]),
+                           (k9, cards["script_step"]),
+                           (k10, cards["random_step"]),
+                           (ks, cards["agent_steps"])):
+            k.update(timings)
     entries = [
         {"name": "conv3x3_i8", "route": "cuda",
          "source": "alphazero_risk_tpu_torch/csrc/conv_i8.cu",
@@ -1591,7 +1672,7 @@ def phase_kernels(cfg, dev):
     ]
     check_forward(trainer, states, cfg)
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
-    return trainer, entries, mx
+    return trainer, entries, mx, cmx
 
 
 def profile_window(trainer, games, steps=1):
@@ -1956,12 +2037,10 @@ def phase_data(base, mx, entries):
     end, (c) one loop of ``Trainer.train_on_data`` from the flagship at
     full width, (d) ``play_match`` Script vs Random to the end
     (``phase_match_sr``).  Fills each entry's ``launches_data``."""
-    import dataclasses
     import numpy as np
     import torch
     from alphazero_risk_tpu_torch import kernels
     from alphazero_risk_tpu_torch.agents import driver as D
-    from alphazero_risk_tpu_torch.agents.script_agent import ScriptCarry
     from alphazero_risk_tpu_torch.training import actor as A
     from alphazero_risk_tpu_torch.training.replay import ReplayBuffer
     from alphazero_risk_tpu_torch.training.trainer import Trainer
@@ -1972,35 +2051,7 @@ def phase_data(base, mx, entries):
     log(f"data: {json.dumps(DATA)} at {cfg.blocks}x{cfg.filters}")
 
     # (a) one chunk, kernels against the plain versions, the same draws
-    def chunk():
-        draws = A.GeneratorDraws(torch.Generator(device=dev).manual_seed(21),
-                                 cfg, MIXED, dev)
-        t0 = time.perf_counter()
-        out = A.run_scripted_episodes(mx.state, draws, cfg, 128, sr,
-                                      carry_in=mx.carry, prev_in=mx.prev)
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
-    chunk()                                     # warm-up
-    got, t_k = chunk()
-    with plain_versions():
-        ref, t_p = chunk()
-    bad = states_differ(got.state, ref.state) or next(
-        (f"carry {f.name}" for f in dataclasses.fields(ScriptCarry)
-         if not torch.equal(getattr(got.carry, f.name),
-                            getattr(ref.carry, f.name))), None) or next(
-        (f"samples {f}" for f in A.SampleBatch._fields
-         if not torch.equal(getattr(got.samples, f),
-                            getattr(ref.samples, f))), None)
-    if bad or not (torch.equal(got.prev_player, ref.prev_player)
-                   and torch.equal(got.status, ref.status)):
-        fail(f"data (a): the kernel chunk differs from the plain one: "
-             f"{bad or 'prev_player or status'}")
-    recs = int(got.samples.valid.sum())
-    log(f"data (a): 128 steps x {MIXED} games Script vs Random equal on the "
-        f"kernels and the plain versions (states, carries, {recs} records); "
-        f"kernels {t_k:.3f} s ({1e3 * t_k / 128:.2f} ms per step), plain "
-        f"{t_p:.3f} s ({1e3 * t_p / 128:.2f} ms per step)")
+    got, _ = held_chunk(cfg, mx, 21, "data (a)")
     # K8 on the learner's real input: a batch of these records from the
     # replay, rebuilt as states (no cards, no mobilization pair) as
     # train_epochs featurizes them
@@ -2174,28 +2225,79 @@ def phase_data(base, mx, entries):
         e["launches_data"] = path_counts[e["name"]]
 
 
-def phase_match_sr(cfg, dev):
-    """Data (d): ``play_match`` Script vs Random on MIXED mirrored games to
-    the end through the blocks (the CLI's ``-m play --p1 sp --p2 rp``),
-    launch counts read around it alone, then held against the
-    per-iteration loop on the plain versions from the same seed: tally,
-    steps, final rounds and live micro-steps.  Returns its launch
-    counts."""
+def held_chunk(cfg, mx, seed, what):
+    """One chunk of 128 steps of ``run_scripted_episodes``, Script vs
+    Random, at the games of ``mx`` from their carries and previous movers,
+    on the kernels (after a warm-up chunk) and on the plain versions from
+    the same draws: states, carries, prev, status and records equal.
+    Returns (the kernels' output, their launch counts)."""
+    import dataclasses
+    import torch
+    from alphazero_risk_tpu_torch import kernels
+    from alphazero_risk_tpu_torch.agents.script_agent import ScriptCarry
+    from alphazero_risk_tpu_torch.training import actor as A
+    dev, b = mx.prev.device, mx.prev.numel()
+    sr = (A.OPP_SCRIPT, A.OPP_RANDOM)
+
+    def chunk():
+        draws = A.GeneratorDraws(
+            torch.Generator(device=dev).manual_seed(seed), cfg, b, dev)
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        out = A.run_scripted_episodes(mx.state, draws, cfg, 128, sr,
+                                      carry_in=mx.carry, prev_in=mx.prev)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, kernels.counts()
+
+    chunk()                                     # warm-up
+    got, t_k, counts = chunk()
+    with plain_versions():
+        ref, t_p, _ = chunk()
+    bad = states_differ(got.state, ref.state) or next(
+        (f"carry {f.name}" for f in dataclasses.fields(ScriptCarry)
+         if not torch.equal(getattr(got.carry, f.name),
+                            getattr(ref.carry, f.name))), None) or next(
+        (f"samples {f}" for f in A.SampleBatch._fields
+         if not torch.equal(getattr(got.samples, f),
+                            getattr(ref.samples, f))), None)
+    if bad or not (torch.equal(got.prev_player, ref.prev_player)
+                   and torch.equal(got.status, ref.status)):
+        fail(f"{what}: the kernel chunk differs from the plain one: "
+             f"{bad or 'prev_player or status'}")
+    recs = int(got.samples.valid.sum())
+    trades = int((got.state.card_sets_played
+                  - mx.state.card_sets_played).sum())
+    log(f"{what}: 128 steps x {b} games Script vs Random equal on the "
+        f"kernels and the plain versions (states, carries, {recs} records, "
+        f"{trades} trades); kernels {t_k:.3f} s ({1e3 * t_k / 128:.2f} ms "
+        f"per step), plain {t_p:.3f} s ({1e3 * t_p / 128:.2f} ms per step)")
+    return got, counts
+
+
+def held_match(cfg, dev, agents, seed, what, keep=16):
+    """``play_match`` of the seats ``agents`` on MIXED mirrored games from
+    ``seed`` to the end in blocks, launch counts read around it alone and
+    a sample of the blocks held against the plain multi-step function,
+    then against the per-iteration loop on the plain versions from the
+    same seed: tally, steps, final rounds and live micro-steps.  Fails
+    unless every game ended, the multi-step entry launched once per block
+    and no single step launched.  Returns (its launch counts, its result,
+    the live micro-steps, its seconds)."""
     import torch
     from alphazero_risk_tpu_torch import kernels
     from alphazero_risk_tpu_torch.agents import driver as D
     from alphazero_risk_tpu_torch.env import rules
-    agents = (D.AGENT_SCRIPT, D.AGENT_RANDOM)
 
     def start():
-        gen = torch.Generator(device=dev).manual_seed(24)
+        gen = torch.Generator(device=dev).manual_seed(seed)
         return gen, D.mirrored_initial_states(MIXED, generator=gen,
                                               device=dev)
 
     gen, state0 = start()
     torch.cuda.synchronize()
     kernels.reset_counts()
-    with watched_blocks(keep=16) as mb:
+    with watched_blocks(keep=keep) as mb:
         t0 = time.perf_counter()
         res = D.play_match(gen, state0, *agents, cfg, cfg.max_game_steps)
         torch.cuda.synchronize()
@@ -2203,7 +2305,9 @@ def phase_match_sr(cfg, dev):
     cd = kernels.counts()
     live = int(mb["steps"])
     tally = D.summarize(res)
-    log(f"data (d): play_match Script vs Random, {json.dumps(tally)}; "
+    name = "Script vs " + ("Script" if agents[1] == D.AGENT_SCRIPT
+                           else "Random")
+    log(f"{what}: play_match {name}, {json.dumps(tally)}; "
         f"{res.steps} lockstep steps, {live} live micro-steps in "
         f"{secs:.3f} s: {live / secs:.0f} live micro-steps/s "
         f"({1e3 * secs / res.steps:.3f} ms per lockstep step) in "
@@ -2212,12 +2316,12 @@ def phase_match_sr(cfg, dev):
     if tally["unfinished"] != 0 or cd["agent_steps"] != mb["blocks"] or \
             mb["iterations"] != res.steps or cd["script_step"] or \
             cd["random_step"]:
-        fail(f"data (d): {tally['unfinished']} games unfinished, the "
+        fail(f"{what}: {tally['unfinished']} games unfinished, the "
              f"multi-step entry launched {cd['agent_steps']} times for "
              f"{mb['blocks']} blocks of {mb['iterations']} iterations over "
              f"{res.steps} steps, the single steps {cd['script_step']} and "
              f"{cd['random_step']} times")
-    hold_agent_steps(mb["calls"], f"on data (d)'s {MIXED} games")
+    hold_agent_steps(mb["calls"], f"on {what}'s {MIXED} games")
     gen, state0 = start()
     t0 = time.perf_counter()
     ref, ref_t, ref_live = match_by_iteration(gen, state0, agents, cfg,
@@ -2227,14 +2331,145 @@ def phase_match_sr(cfg, dev):
     ref_tally = D.summarize(D.MatchResult(
         status=rules._game_status_plain(ref, cfg), rounds=ref.round,
         steps=ref_t, started_by=state0.cur_player))
-    log(f"data (d): the per-iteration loop on the plain versions: "
+    trades = int(ref.card_sets_played.sum())
+    log(f"{what}: the per-iteration loop on the plain versions: "
         f"{json.dumps(ref_tally)}; {ref_t} steps, {ref_live} live "
-        f"micro-steps in {ref_secs:.2f} s")
+        f"micro-steps in {ref_secs:.2f} s; {trades} card sets traded")
     if (ref_tally, ref_t, ref_live) != (tally, res.steps, live) or \
             not torch.equal(ref.round, res.rounds):
-        fail("data (d): the match in blocks differs from the per-iteration "
-             "loop on the plain versions")
-    return cd
+        fail(f"{what}: the match in blocks differs from the per-iteration "
+             f"loop on the plain versions")
+    if not cfg.simple_cards and not trades:
+        fail(f"{what}: no full-cards trade in the whole match")
+    return cd, res, live, secs
+
+
+def legal_play(gen, st, cfg, steps, plain=False):
+    """``steps`` lockstep steps of random legal moves (a uniform argmax
+    over the legal mask) through ``rules.step_key``, the library's
+    transition with its own dice and card uniforms: K8's legality and K7's
+    step, or with ``plain`` the plain versions on the same draws."""
+    import torch
+    from alphazero_risk_tpu_torch.env import rules
+    dev, b = st.phase.device, st.batch_size
+    for _ in range(steps):
+        legal = (rules._legal_actions_plain if plain
+                 else rules.legal_actions)(st, cfg)
+        g = torch.rand(legal.shape, generator=gen, device=dev)
+        a = torch.argmax(torch.where(legal, g, -1.0), -1).to(torch.int32)
+        if not plain:
+            st = rules.step_key(st, a, gen, cfg)
+            continue
+        dice = rules.roll_dice(gen, b)
+        u_card = None if cfg.simple_cards else torch.rand(
+            (b,), generator=gen, device=dev)
+        st = rules._step_plain(st, a, dice, cfg, u_card)
+    return st
+
+
+def held_legal_play(cfg, dev, seed, steps, what):
+    """``legal_play`` on MIXED fresh deals from ``seed``, on the kernels
+    (launch counts read around it alone) and on the plain versions from
+    the same seed: the final states equal.  Returns the launch counts."""
+    import torch
+    from alphazero_risk_tpu_torch import kernels
+    from alphazero_risk_tpu_torch.env import rules
+    from alphazero_risk_tpu_torch.env.state import new_game
+
+    def start():
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return gen, new_game(MIXED, generator=gen, device=dev)
+
+    gen, st = start()
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    got = legal_play(gen, st, cfg, steps)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = kernels.counts()
+    gen, st = start()
+    t0 = time.perf_counter()
+    ref = legal_play(gen, st, cfg, steps, plain=True)
+    torch.cuda.synchronize()
+    ref_secs = time.perf_counter() - t0
+    bad = states_differ(got, ref)
+    if bad:
+        fail(f"{what}: field {bad} of the kernels' play differs from the "
+             f"plain versions'")
+    ended = int((rules._game_status_plain(ref, cfg) != -1).sum())
+    log(f"{what}: {steps} steps of random legal play through step_key on "
+        f"{MIXED} games equal on the kernels ({secs:.3f} s, "
+        f"{1e3 * secs / steps:.3f} ms per step; K7 {counts['rules_step']}, "
+        f"K8 {counts['state_views']} launches) and the plain versions "
+        f"({ref_secs:.2f} s); {int(ref.card_sets_played.sum())} trades, "
+        f"{int(ref.drawn_cards.sum())} cards drawn, {ended} games ended")
+    return counts
+
+
+def check_cards_kernels(cmx, cfg):
+    """The full-cards rules (``cfg``, ``simple_cards=False``): K7's step,
+    K9, K10 and the multi-step entry held bit for bit on the MIXED
+    full-cards states ``cmx`` (``card_states``) and timed at GAMES and
+    MIXED games, held at 128 (mixed play's batch), the multi-step entry
+    for every pair of seat kinds and timed mid-match.  Returns the timings
+    by kernel name."""
+    dev = cmx.prev.device
+    k7 = {"cards_b64": check_k7(first(cmx, GAMES), cfg),
+          "cards_b1024": check_k7(cmx, cfg)}
+    k9, k10 = {}, {}
+    k9["cards_b64"], k10["cards_b64"] = check_k9_k10(first(cmx, GAMES), cfg)
+    k9["cards_b1024"], k10["cards_b1024"] = check_k9_k10(cmx, cfg)
+    check_k7(first(cmx, 128), cfg, timed=False)
+    check_k9_k10(first(cmx, 128), cfg, timed=False)
+    hold_agent_steps_mixed(cmx, cfg)
+    hold_agent_steps_mixed(first(cmx, GAMES), cfg)
+    ks = {}
+    for key, b, kinds in (("cards", MIXED, (1, 1)),
+                          ("cards_b64", GAMES, (1, 1)),
+                          ("cards_script_random", MIXED, (1, 2)),
+                          ("cards_script_random_b64", GAMES, (1, 2))):
+        ks[key] = check_agent_steps(cfg, dev, b=b, warm=300, kinds=kinds)
+    return {"rules_step": k7, "script_step": k9, "random_step": k10,
+            "agent_steps": ks}
+
+
+def phase_cards(entries, cmx, cfg, card):
+    """The full-cards paths (``cfg``, ``simple_cards=False``), launch
+    counts read around each alone and each held against the plain
+    versions: (b) Script vs Script and (d) Script vs Random ``play_match``
+    on MIXED mirrored games to the end, (a) a 128-step
+    ``run_scripted_episodes`` chunk at the MIXED full-cards states ``cmx``,
+    (e) random legal play through ``step_key``.  Fills each entry's
+    ``launches_cards``."""
+    from alphazero_risk_tpu_torch.agents import driver as D
+    t0 = time.perf_counter()
+    dev = cmx.prev.device
+    ss, sr = (D.AGENT_SCRIPT, D.AGENT_SCRIPT), (D.AGENT_SCRIPT,
+                                                 D.AGENT_RANDOM)
+    cb = held_match(cfg, dev, ss, 25, "cards (b)", keep=64)[0]
+    cd = held_match(cfg, dev, sr, 26, "cards (d)")[0]
+    ca = held_chunk(cfg, cmx, 27, "cards (a)")[1]
+    ce = held_legal_play(cfg, dev, 28, CARD_PLAY_STEPS, "cards (e)")
+    path = {k: cb[k] + cd[k] + ca[k] + ce[k] for k in cb}
+    for name in ("rules_step", "state_views", "script_step", "random_step",
+                 "agent_steps"):
+        if path[name] <= 0:
+            fail(f"kernel {name} was not launched by the full-cards paths")
+    log(f"cards: launches over (b), (d), (a) and (e): "
+        f"{ {k: v for k, v in path.items() if v} }; "
+        f"{time.perf_counter() - t0:.1f} s on {card}")
+    for e in entries:
+        e["launches_cards"] = path[e["name"]]
+
+
+def phase_match_sr(cfg, dev):
+    """Data (d): ``play_match`` Script vs Random on MIXED mirrored games to
+    the end through the blocks (the CLI's ``-m play --p1 sp --p2 rp``),
+    held as ``held_match`` holds it.  Returns its launch counts."""
+    from alphazero_risk_tpu_torch.agents import driver as D
+    return held_match(cfg, dev, (D.AGENT_SCRIPT, D.AGENT_RANDOM), 24,
+                      "data (d)")[0]
 
 
 def main():
@@ -2248,16 +2483,18 @@ def main():
     cfg = Config(mcts_simulations=SIMS, fast_infer=True, fast_infer_int8=True,
                  checkpoint_dir=str(WORK / "checkpoints"),
                  data_dir=str(WORK / "data"), log_dir=str(WORK / "log"))
-    trainer, entries, mx = phase_kernels(cfg, torch.device("cuda"))
+    trainer, entries, mx, cmx = phase_kernels(cfg, torch.device("cuda"))
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     phase_slice(trainer, entries)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     phase_train(trainer, entries)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     phase_data(trainer, mx, entries)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    phase_cards(entries, cmx, cfg.replace(**CARDS), card)
     for e in entries:
         e["launches"] = sum(e[f"launches_{p}"]
-                            for p in ("play", "train", "data"))
+                            for p in ("play", "train", "data", "cards"))
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": entries}))
     print(card)

@@ -34,17 +34,32 @@ def _port(x):
     return torch.from_numpy(np.array(x))
 
 
-@pytest.mark.parametrize("seed,cfg", [
-    (0, Config()),
-    (1, Config(limit_reinforcement_moves=False)),
-])
-def test_script_step_bit_exact(seed, cfg):
-    b, steps = 8, 500
-    jc = jconfig.Config(**dataclasses.asdict(cfg))
-    rng = np.random.default_rng(seed)
+def _new_games(seed, b, cfg):
+    """Fresh JAX deals and their port copies; under full cards with hands
+    and piles dealt by ``driver.force_card_cases`` (numpy ``seed``), so
+    that trades come early."""
+    from alphazero_risk_tpu.env.state import GameState as JState
+    from alphazero_risk_tpu_torch.agents.driver import force_card_cases
     js = j_new_game(jax.random.PRNGKey(seed), b)
     ts = TS.GameState(**{f.name: _port(getattr(js, f.name))
                          for f in dataclasses.fields(TS.GameState)})
+    if not cfg.simple_cards:
+        ts = force_card_cases(ts, np.random.default_rng(seed), cfg)
+        js = JState(**{f.name: jnp.asarray(getattr(ts, f.name).numpy())
+                       for f in dataclasses.fields(TS.GameState)})
+    return js, ts
+
+
+@pytest.mark.parametrize("seed,cfg", [
+    (0, Config()),
+    (1, Config(limit_reinforcement_moves=False)),
+    pytest.param(2, Config(simple_cards=False), id="2-full-cards"),
+])
+def test_script_step_bit_exact(seed, cfg):
+    b, steps = 8, 500 if cfg.simple_cards else 300
+    jc = jconfig.Config(**dataclasses.asdict(cfg))
+    rng = np.random.default_rng(seed)
+    js, ts = _new_games(seed, b, cfg)
     jcar, tcar = JSA.init_carry(b), TSA.init_carry(b, "cpu")
     jprev = jnp.full((b,), -1, jnp.int32)
     tprev = torch.full((b,), -1, dtype=torch.int32)
@@ -74,6 +89,8 @@ def test_script_step_bit_exact(seed, cfg):
         np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
         np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
     assert phases == set(range(6)), phases
+    if not cfg.simple_cards:         # a full trade happened
+        assert (ts.card_sets_played > 0).any()
 
 
 def test_masked_choice_and_first_set_bit():
@@ -114,6 +131,7 @@ def test_summarize_matches():
 @pytest.mark.parametrize("seed,cfg", [
     (0, Config()),
     (1, Config(limit_attack_moves=True, fast_attack_mobilization=False)),
+    pytest.param(2, Config(simple_cards=False), id="2-full-cards"),
 ])
 def test_random_step_bit_exact(seed, cfg):
     """The RandomPlayer under the ``u[B,4]`` / ``dice[B,5]`` contract:
@@ -121,12 +139,10 @@ def test_random_step_bit_exact(seed, cfg):
     through all six phases."""
     from alphazero_risk_tpu.agents import random_agent as JRA
     from alphazero_risk_tpu_torch.agents import random_agent as TRA
-    b, steps = 8, 400
+    b, steps = 8, 400 if cfg.simple_cards else 250
     jc = jconfig.Config(**dataclasses.asdict(cfg))
     rng = np.random.default_rng(seed + 10)
-    js = j_new_game(jax.random.PRNGKey(seed), b)
-    ts = TS.GameState(**{f.name: _port(getattr(js, f.name))
-                         for f in dataclasses.fields(TS.GameState)})
+    js, ts = _new_games(seed, b, cfg)
     jstep = jax.jit(JRA.random_step_recorded, static_argnums=3)
     phases = set()
     for t in range(steps):
@@ -144,6 +160,8 @@ def test_random_step_bit_exact(seed, cfg):
         np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
         np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
     assert phases == set(range(6)), phases
+    if not cfg.simple_cards:         # a full trade happened
+        assert (ts.card_sets_played > 0).any()
 
 
 @pytest.mark.parametrize("agents", [(0, 1), (1, 1), (1, 0)])

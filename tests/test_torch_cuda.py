@@ -15,7 +15,8 @@ from alphazero_risk_tpu_torch import kernels
 from alphazero_risk_tpu_torch.agents import blocks as AB
 from alphazero_risk_tpu_torch.agents import random_agent as RA
 from alphazero_risk_tpu_torch.agents import script_agent as SA
-from alphazero_risk_tpu_torch.agents.common import draw_step_randoms
+from alphazero_risk_tpu_torch.agents.common import (BlockDraws,
+                                                    draw_step_randoms)
 from alphazero_risk_tpu_torch.agents.driver import \
     mixed_play as mixed_play_states
 from alphazero_risk_tpu_torch.config import Config
@@ -27,7 +28,7 @@ from alphazero_risk_tpu_torch.mcts import search as S
 from alphazero_risk_tpu_torch.training import actor as A
 from alphazero_risk_tpu_torch.training.trainer import Trainer
 
-from chip_smoke import TIE_CASES, mixed_states, tie_tree
+from chip_smoke import TIE_CASES, card_states, mixed_states, tie_tree
 
 pytestmark = pytest.mark.cuda
 
@@ -884,3 +885,107 @@ def test_train_on_data_launches_every_kernel(cuda, tmp_path):
     assert kernels.counts()["random_step"] == sum(
         c["random_step"] for _, c in gen_counts)
     assert trainer.ckpt.exists("temp") and trainer.ckpt.exists("latest")
+
+
+FULL_CARDS = Config(simple_cards=False)
+
+
+@pytest.fixture(scope="module")
+def card_mix():
+    """1,024 full-cards states on the card (``chip_smoke.card_states``):
+    mixed play under full cards, three games in eight with their hands and
+    piles dealt anew (large hands, empty and nearly empty piles, bonus
+    lands at the army cap)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    return card_states(FULL_CARDS, torch.device("cuda"))
+
+
+@pytest.mark.parametrize("batch", RULES_BATCHES)
+def test_full_cards_rules_step_batches_match_plain(cuda, card_mix, batch):
+    """K7's full-cards step (the card uniform u[:, 3]) against
+    ``_step_plain``, every field bit for bit, on the random legal action
+    and on an arbitrary one; at 1,024 games draws, reshuffles and trades
+    happen."""
+    mx = card_mix.apply(lambda x: x[:batch].contiguous())
+    st, dice, u_card = mx.state, mx.dice, mx.u[:, 3].contiguous()
+    g = torch.Generator(device=cuda).manual_seed(batch)
+    anyway = torch.randint(0, 43, (batch,), generator=g, device=cuda,
+                           dtype=torch.int32)
+    for act in (mx.action, anyway):
+        kernels.RULES_STEP.launches = 0
+        got = rules.step(st, act, dice, FULL_CARDS, u_card)
+        ref = rules._step_plain(st, act, dice, FULL_CARDS, u_card)
+        assert kernels.RULES_STEP.launches == 1
+        _assert_states_equal(got, ref)
+    if batch == 1024:
+        assert bool((ref.card_sets_played > st.card_sets_played).any())
+        assert bool((ref.drawn_cards.sum(-1) < st.drawn_cards.sum(-1)).any())
+
+
+@pytest.mark.parametrize("batch", RULES_BATCHES)
+def test_full_cards_agent_steps_match_plain(cuda, card_mix, batch):
+    """K9 and K10 under full cards (the pin's and every reinforcement's
+    trade, the turn end's draw with u[:, 3]) against their plain versions:
+    state, carry, action and record bit for bit."""
+    mx = card_mix.apply(lambda x: x[:batch].contiguous())
+    args9 = (mx.state, mx.carry, mx.reset, mx.u, mx.dice, FULL_CARDS)
+    got9, ref9 = (SA.script_step_recorded(*args9),
+                  SA._script_step_recorded_plain(*args9))
+    _assert_states_equal(got9[0], ref9[0])
+    for f in dataclasses.fields(SA.ScriptCarry):
+        assert torch.equal(getattr(got9[1], f.name), getattr(ref9[1], f.name))
+    assert all(torch.equal(x, y) for x, y in zip(got9[2], ref9[2]))
+    args10 = (mx.state, mx.u, mx.dice, FULL_CARDS)
+    got10, ref10 = (RA.random_step_recorded(*args10),
+                    RA._random_step_recorded_plain(*args10))
+    _assert_states_equal(got10[0], ref10[0])
+    assert all(torch.equal(x, y) for x, y in zip(got10[1], ref10[1]))
+    if batch == 1024:
+        for ref in (ref9[0], ref10[0]):
+            assert bool((ref.card_sets_played
+                         > mx.state.card_sets_played).any())
+
+
+@pytest.mark.parametrize("k", [1, 7, 64])
+@pytest.mark.parametrize("kinds", [(1, 1), (1, 2), (2, 1), (2, 2), (0, 1),
+                                   (2, 0)])
+def test_full_cards_multi_step_matches_plain(cuda, card_mix, kinds, k):
+    """The multi-step entry under full cards against the plain multi-step
+    function on the 1,024 full-cards states with their carries and
+    previous movers: state (card masks included), carry, prev and step
+    counts bit for bit."""
+    mx = card_mix
+    gen = torch.Generator(device=cuda).manual_seed(40 + k)
+    u, dice = BlockDraws(gen, mx.state.batch_size, cuda).block(k)
+    args = (mx.state, mx.carry, mx.prev, u, dice, FULL_CARDS, kinds)
+    got, ref = AB.agent_steps(*args), AB._agent_steps_plain(*args)
+    _assert_states_equal(got[0], ref[0])
+    for f in dataclasses.fields(SA.ScriptCarry):
+        assert torch.equal(getattr(got[1], f.name), getattr(ref[1], f.name))
+    assert torch.equal(got[2], ref[2]) and torch.equal(got[3], ref[3])
+    assert bool((ref[0].card_sets_played > mx.state.card_sets_played).any())
+
+
+@pytest.mark.parametrize("agents", [(0, 0), (0, 1)])
+def test_full_cards_play_match_in_blocks_matches_plain(cuda, agents):
+    """``play_match`` under full cards, Script vs Script and Script vs
+    Random on 64 mirrored games to the end in blocks of the multi-step
+    entry, against the per-iteration loop on the plain versions from the
+    same seed: tallies, steps and final rounds."""
+    from alphazero_risk_tpu_torch.agents import driver as D
+    from chip_smoke import match_by_iteration
+
+    def start():
+        gen = torch.Generator(device=cuda).manual_seed(50 + agents[1])
+        return gen, D.mirrored_initial_states(64, generator=gen, device=cuda)
+
+    gen, st = start()
+    res = D.play_match(gen, st, *agents, FULL_CARDS, 4096)
+    gen, st = start()
+    ref, steps, _ = match_by_iteration(gen, st, agents, FULL_CARDS, 4096)
+    assert res.steps == steps
+    assert torch.equal(res.status, rules._game_status_plain(ref, FULL_CARDS))
+    assert torch.equal(res.rounds, ref.round)
+    assert bool((res.status != -1).all())
+    assert bool((ref.card_sets_played > 0).any())

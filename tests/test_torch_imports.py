@@ -179,15 +179,19 @@ def test_rules_kernel_tables_follow_the_topology():
     conts = buf[336:384].view("<u8")
     assert [bin(int(c)).count("1") for c in conts] == \
         topology.CONTINENT_SIZE.tolist()
-    ints = buf[384:712].view("<i4")
+    cards = buf[384:408].view("<u8")
+    for c, t in zip(cards, (topology.CARD_INFANTRY, topology.CARD_HORSE,
+                            topology.CARD_SIEGE)):
+        assert int(c) == sum(1 << j for j in range(42) if t[j])
+    ints = buf[408:736].view("<i4")
     np.testing.assert_array_equal(ints[12:76], rules.CARD_SET_GAIN)
     np.testing.assert_array_equal(ints[76:82], topology.CONTINENT_TIE_RANK)
-    np.testing.assert_array_equal(buf[712:2476].view("<i1").reshape(42, 42),
+    np.testing.assert_array_equal(buf[736:2500].view("<i1").reshape(42, 42),
                                   topology.NEIGHBOR_RANK)
-    np.testing.assert_array_equal(buf[2476:].view("<i1").reshape(6, 42),
+    np.testing.assert_array_equal(buf[2500:].view("<i1").reshape(6, 42),
                                   topology.SCRIPT_LAND_RANK)
     text = (rules.kernels.CSRC / "rules_dev.cuh").read_text()
-    assert "sizeof(Tables) == 2728" in text
+    assert "sizeof(Tables) == 2752" in text
 
 
 def test_rules_kernel_tables_need_a_symmetric_adjacency(monkeypatch):
@@ -217,7 +221,7 @@ def test_rules_kernel_flags_follow_each_config():
                                         base.min_unit_move,
                                         base.max_game_rounds, want)
     assert rules.kernel_flags(base) is rules.kernel_flags(base)
-    for i, n in enumerate(names):
+    for i, n in enumerate(names + ("simple_cards",)):
         other = base.replace(**{n: not getattr(base, n)})
         assert rules.kernel_flags(other)[3] == want ^ (1 << i)
     small = base.replace(land_army_max=7, min_unit_move=2,

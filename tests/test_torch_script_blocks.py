@@ -160,6 +160,30 @@ def test_script_steps_plain_match_jax(mixed, seats):
     _assert_equal((s2, c2, p2, n1 + n2), ref, "resumed")
 
 
+@pytest.mark.parametrize("seats", [((SCRIPT, SCRIPT), 9),
+                                   ((SCRIPT, RANDOM), 10)])
+def test_agent_steps_plain_full_cards_match_jax(mixed, seats):
+    """Under full cards: the plain multi-step function against JAX's steps
+    iterated as in ``test_script_steps_plain_match_jax``, one block of 24
+    from the mixed states, half of them with their card fields dealt by
+    ``force_card_cases`` (large hands, piles empty or nearly so), the
+    others with no card drawn yet: draws, reshuffles and full trades
+    happen inside the block."""
+    kinds, key = seats
+    cfg = Config(simple_cards=False)
+    mx = mixed
+    b = mx.state.batch_size
+    forced = TD.force_card_cases(mx.state, np.random.default_rng(key), cfg)
+    half = torch.arange(b) % 2 == 0
+    state = TS.tree_select(half, forced, mx.state)
+    u, dice = _jax_chain_draws(jax.random.PRNGKey(key), 24, b)
+    ref = _jax_steps(state, mx.carry, mx.prev, u, dice, cfg, kinds)
+    got = TB.agent_steps(state, mx.carry, mx.prev, u, dice, cfg, kinds)
+    _assert_equal(got, ref, "full cards")
+    assert bool((got[0].card_sets_played > state.card_sets_played).any())
+    assert bool((got[0].drawn_cards != state.drawn_cards).any())
+
+
 def test_block_draws_put_back_what_was_not_used():
     """``BlockDraws``: a block holds the numbers of k per-step draws, and
     after ``rewind(m)`` the generator continues as if m draws were made."""

@@ -7,7 +7,7 @@ with the port handed the numbers of the JAX key chain (``key, k =
 split(key)``; ``draw_step_randoms(k, b)`` per step): states, carry,
 ``prev_player``, status and every ``SampleBatch`` field bit-equal, in one
 call and resumed in two chunks, for Script-vs-Script and Script-vs-Random
-under four rule configurations.  Then the trainer paths on the CPU at a
+under five rule configurations (one with full cards).  Then the trainer paths on the CPU at a
 tiny width with the real folded network on the plain kernels.
 """
 
@@ -65,11 +65,17 @@ def _assert_samples_equal(ts, js, msg):
     Config(limit_attack_moves=True),
     Config(limit_reinforcement_moves=False),
     Config(exact_fortify_tiebreak=False),
-], ids=["default", "limit-attack", "free-reinforcement", "lowest-index"])
+    Config(simple_cards=False),
+], ids=["default", "limit-attack", "free-reinforcement", "lowest-index",
+        "full-cards"])
 def test_run_scripted_episodes_matches_jax(cfg, kinds):
     b, steps = 8, 160
     jc = jconfig.Config(**dataclasses.asdict(cfg))
     js0 = mirrored_initial_states(jax.random.PRNGKey(sum(kinds)), b)
+    if not cfg.simple_cards:
+        # hands dealt up front: the first trade of fresh deals comes after
+        # 200-300 steps
+        js0 = _dealt(js0, cfg)
     key = jax.random.PRNGKey(7)
     ref = jax.jit(lambda s, k: JA.run_scripted_episodes(
         s, k, jc, steps, kinds))(js0, key)
@@ -101,6 +107,18 @@ def test_run_scripted_episodes_matches_jax(cfg, kinds):
     pol = np.asarray(ref.samples.policy, np.float32)
     assert (pol.sum(-1) == 1).all() and (pol.max(-1) == 1).all()
     assert np.asarray(ref.samples.valid).mean() > 0.9
+    if not cfg.simple_cards:         # a full trade happened
+        assert (one.state.card_sets_played > 0).any()
+
+
+def _dealt(js, cfg):
+    """The JAX states ``js`` with their card fields dealt by the port's
+    ``driver.force_card_cases`` (numpy seed 3)."""
+    from alphazero_risk_tpu.env.state import GameState as JState
+    from alphazero_risk_tpu_torch.agents.driver import force_card_cases
+    ts = force_card_cases(_port_state(js), np.random.default_rng(3), cfg)
+    return JState(**{f.name: jax.numpy.asarray(getattr(ts, f.name).numpy())
+                     for f in dataclasses.fields(JState)})
 
 
 TINY = Config(blocks=2, filters=32, value_hidden=16, mcts_simulations=2,

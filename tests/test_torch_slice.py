@@ -389,9 +389,29 @@ def test_not_ported_paths_name_the_later_slice(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="later slice"):
         Trainer(TINY.replace(tree_reuse=True), device="cpu").play(
             TA.OPP_SCRIPT, 2)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Trainer(TINY.replace(simple_cards=False), device="cpu").play(
-            TA.OPP_SCRIPT, 2)
+    # full cards are ported, but neither package searches under them (no
+    # card uniform for step_with_outcome): the port refuses up front
+    from alphazero_risk_tpu.env import rules as JR
+    from alphazero_risk_tpu.env.state import new_game as j_new_game
+    from alphazero_risk_tpu_torch.env import rules as TR
+    from alphazero_risk_tpu_torch.mcts import search as TM
+    full = TINY.replace(simple_cards=False)
+    with pytest.raises(ValueError, match=TR.NEEDS_UNIFORM):
+        Trainer(full, device="cpu").play(TA.OPP_SCRIPT, 2)
+    root = _port_state(j_new_game(jax.random.PRNGKey(0), 2))
+    node = torch.zeros(2, dtype=torch.int32)
+    for refused in (
+            lambda: TM.search(root, None, full, None),
+            lambda: TA.run_episodes(None, root, None, full, 1),
+            lambda: TR.expand(TS.tree_map(lambda x: x[:, None], root), node,
+                              node, node, full)):
+        with pytest.raises(ValueError, match=TR.NEEDS_UNIFORM):
+            refused()
+    zeros = jnp.zeros((2,), jnp.int32)
+    with pytest.raises(AssertionError, match=TR.NEEDS_UNIFORM):
+        JR.step_with_outcome(j_new_game(jax.random.PRNGKey(0), 2), zeros,
+                             zeros, jconfig.Config(**dataclasses.asdict(
+                                 full)))
     with pytest.raises(NotImplementedError, match="later slice"):
         Trainer(TINY.replace(device_replay=True), device="cpu")
 

@@ -36,6 +36,11 @@ and appends it to FILE when given.  Needs one card.
                   the end from seed 24, as the checkout runs it (see
                   ``sr_match``)
     slice         chip_smoke's play slice three times (see ``play_slice``)
+    cards         K7's step, K9, K10 and the multi-step entry (64
+                  iterations, Script vs Script and Script vs Random) on
+                  chip_smoke's 1,024 full-cards states and their first 64,
+                  each held against its plain version and timed under both
+                  card modes on the same inputs (see ``cards``)
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ import sys
 import time
 
 PARTS = ("k5", "k7", "k9", "k10", "k6", "k3", "ff_blocks", "match_blocks",
-         "sr_match", "slice")
+         "sr_match", "slice", "cards")
 
 
 def keep(e):
@@ -388,6 +393,44 @@ def sr_match(ctx, reps=3):
                          "live_micro_steps": live,
                          "live_micro_steps_per_s": [live / x for x in secs],
                          "by_iteration_s": loop_s}}
+
+
+def cards(ctx):
+    """The full-cards rules' own cost: on chip_smoke's full-cards states
+    (``card_states``), K7's step, K9 and K10 at B = 64 and 1,024 and the
+    multi-step entry (one launch of 64 iterations from the states' carries
+    and previous movers) under the simple-cards and then the full-cards
+    rules, the same inputs for both; each held against its plain version
+    before it is timed."""
+    import torch
+    from alphazero_risk_tpu_torch.agents import blocks as AB
+    from alphazero_risk_tpu_torch.agents.common import BlockDraws
+    CS, dev = ctx.CS, ctx.dev
+    if not hasattr(CS, "card_states"):
+        return {"cards": "missing"}
+    full = ctx.cfg.replace(**CS.CARDS)
+    cmx = CS.card_states(full, dev)
+    u, dice = BlockDraws(torch.Generator(device=dev).manual_seed(41),
+                         cmx.state.batch_size, dev).block(64)
+    out = {}
+    for mode, cfg in (("simple", ctx.cfg), ("full", full)):
+        for b in (64, cmx.state.batch_size):
+            m = CS.first(cmx, b)
+            out[f"{mode}_k7_b{b}"] = keep(CS.check_k7(m, cfg))
+            e9, e10 = CS.check_k9_k10(m, cfg)
+            out[f"{mode}_k9_b{b}"], out[f"{mode}_k10_b{b}"] = (keep(e9),
+                                                               keep(e10))
+            for kinds in ((1, 1), (1, 2)):
+                args = (m.state, m.carry, m.prev, u[:, :b].contiguous(),
+                        dice[:, :b].contiguous(), cfg, kinds)
+                res = AB.agent_steps(*args)
+                CS.hold_agent_steps([(args, {}, res)],
+                                    f"{mode} cards B={b} {kinds}")
+                out[f"{mode}_steps_b{b}_{kinds[0]}{kinds[1]}"] = {
+                    "device_ms": CS.device_ms(lambda: AB.agent_steps(*args),
+                                              "agent_steps_kernel"),
+                    "steps": int(res[3].sum())}
+    return {"cards": out}
 
 
 def main():
