@@ -1,7 +1,7 @@
 """Command-line entry point of the port.
 
-Port of the ``play``, ``train``, ``train-script`` and ``train-data`` modes of
-``alphazero_risk_tpu/cli.py``.
+Port of the ``play``, ``train``, ``train-script``, ``train-data`` and
+``analysis`` modes of ``alphazero_risk_tpu/cli.py``.
 ``play``: AlphaZero (``--p1 az``, the weights of ``--c1``, by default the
 checkpoint role ``latest``) against the ScriptPlayer (``--p2 sp``),
 the RandomPlayer (``--p2 rp``) or another checkpoint role (``--p2 az
@@ -12,6 +12,9 @@ checkpoints), resuming from ``checkpoints/`` when it holds a ``latest``.
 ``train-script``: the same loop on games against the ScriptPlayer.
 ``train-data``: the supervised bootstrap on ``--dgss`` Script-vs-Script and
 ``--dgsr`` Script-vs-Random games per loop, ``--dtl`` loops.
+``analysis``: 5-fold cross-validation of fresh networks on
+``{data_dir}/training_samples.npz`` (the replay file the train modes
+write), printed as one JSON line.
 The network paths optionally run the BN-folded bf16 (``--fast``) or int8
 (``--fast --int8``) inference.  Runs on the card unless ``--cpu`` is given.
 
@@ -26,6 +29,8 @@ Usage:
       --dgss 128 --dgsr 128 --fast --int8 \\
       --c1 artifacts/params-20block-r4-best.npz
   python -m alphazero_risk_tpu_torch.cli -m play --p1 sp --p2 rp --games 64
+  python -m alphazero_risk_tpu_torch.cli -m analysis --cpu --blocks 2 \\
+      --filters 32 --value-hidden 16 --bs 32
 """
 
 from __future__ import annotations
@@ -43,7 +48,8 @@ def build_parser() -> argparse.ArgumentParser:
         prog="alphazero_risk_tpu_torch",
         description="AlphaZero for the game Risk (PyTorch/CUDA port)")
     p.add_argument("-m", "--mode", default="play",
-                   choices=["play", "train", "train-script", "train-data"])
+                   choices=["play", "train", "train-script", "train-data",
+                            "analysis"])
     p.add_argument("--p1", default="az", choices=["az", "sp", "rp"],
                    help="player 1 in play mode (AlphaZero, ScriptPlayer or "
                         "RandomPlayer)")
@@ -172,6 +178,13 @@ def main(argv=None):
         if args.p2 == "az":
             raise SystemExit("put the az player in --p1")
         print(json.dumps(play_heuristic(args, cfg, device)))
+        return
+
+    if args.mode == "analysis":
+        from .training.analysis import cross_validate
+        print(json.dumps(cross_validate(
+            cfg, f"{cfg.data_dir}/training_samples.npz", seed=args.seed,
+            device=device)))
         return
 
     from .training import actor as A

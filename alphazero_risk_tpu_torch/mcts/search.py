@@ -28,8 +28,13 @@ Randomness is explicit: ``search`` takes its chance noise as a tensor
 ``jax.random.categorical`` samples.  ``draw_gumbel`` draws it from a
 generator.  Root Dirichlet noise (``cfg.use_dirichlet_noise``) takes one
 uniform tensor ``noise_u[B, 43]`` (``draw_noise_uniform``).  The tree arrays
-are updated in place (each search owns its tree).  Tree reuse is not ported
-yet.
+are updated in place (each search owns its tree).
+
+Tree reuse (``cfg.tree_reuse``, the reference's ``trimNodes``): ``reroot``
+compacts the played child's subtree to the front of the node arrays, and
+``search_with_reuse`` continues from it where the carried root still equals
+the game's state.  Both are plain tensor ops, run once per decision, and
+hand the kernels a new tree, which K6 packs at its first write.
 """
 
 from __future__ import annotations
@@ -591,6 +596,25 @@ def draw_noise_uniform(generator: torch.Generator, batch: int,
     return (NOISE_U_MIN + u * (NOISE_U_MAX - NOISE_U_MIN)).to(device)
 
 
+def _run_search(tree: Tree, gumbel: torch.Tensor, cfg: Config,
+                eval_fn: EvalFn, noise_u: torch.Tensor | None
+                ) -> SearchResult:
+    """Root noise, then ``cfg.mcts_simulations`` simulations on ``tree``."""
+    if cfg.use_dirichlet_noise:
+        if noise_u is None:
+            raise ValueError("use_dirichlet_noise needs noise_u [B, 43]")
+        tree = _apply_root_noise(tree, noise_u, cfg)
+    for s in range(cfg.mcts_simulations):
+        tree = simulate_once(tree, gumbel[s], cfg, eval_fn)
+    rows = _rows(tree.root.shape[0], tree.root.device)
+    counts = tree.visit[rows, tree.root.long()]
+    pi = counts.to(F32)
+    pi = pi / pi.sum(-1, keepdim=True).clamp(min=1e-9)
+    return SearchResult(visit_counts=counts, pi=pi,
+                        root_value=tree.value[rows, tree.root.long()],
+                        tree=tree)
+
+
 def search(root: GameState, gumbel: torch.Tensor, cfg: Config,
            eval_fn: EvalFn, noise_u: torch.Tensor | None = None
            ) -> SearchResult:
@@ -598,26 +622,131 @@ def search(root: GameState, gumbel: torch.Tensor, cfg: Config,
     ``gumbel`` [S, max_depth, B, 3] is the chance noise of the search and
     ``noise_u`` [B, 43] the uniforms of the root Dirichlet noise (needed
     with ``cfg.use_dirichlet_noise``)."""
-    if cfg.tree_reuse:
-        raise NotImplementedError(
-            "tree reuse is not ported yet: it comes with a later slice of "
-            "the port")
     # every expansion is a step_with_outcome: simple cards only
     rules.require_uniform(cfg, None)
-    tree = init_tree(root, cfg, eval_fn)
-    if cfg.use_dirichlet_noise:
-        if noise_u is None:
-            raise ValueError("use_dirichlet_noise needs noise_u [B, 43]")
-        tree = _apply_root_noise(tree, noise_u, cfg)
-    for s in range(cfg.mcts_simulations):
-        tree = simulate_once(tree, gumbel[s], cfg, eval_fn)
+    return _run_search(init_tree(root, cfg, eval_fn), gumbel, cfg, eval_fn,
+                       noise_u)
+
+
+def reroot(tree: Tree, action: torch.Tensor, outcome: torch.Tensor,
+           cfg: Config) -> Tuple[Tree, torch.Tensor]:
+    """Advance each game's root through the edge actually played.
+
+    The reference's ``trimNodes`` tree reuse (alphazero_mcts.cpp:229-245)
+    on the node arrays: the subtree of the child under (``action``,
+    ``outcome``), with its statistics, priors and leaf values, is compacted
+    to the front of the arrays, in its original order, and becomes the
+    next search's tree; every other node is dropped.  Membership comes
+    from parent-pointer doubling, the compaction from a stable sort of the
+    drop flags.  Returns ``(tree, reused [B] bool)``: a game whose played
+    edge has no expanded child gets ``reused = False`` and a fresh tree in
+    ``search_with_reuse``.
+
+    The result is a new ``Tree`` of contiguous tensors with no kernel
+    pointer pack: the next search packs it at its first write.  Plain
+    tensor ops (once per decision); as JAX's ``reroot``, bit for bit.
+    """
+    b, n = tree.player.shape
+    dev = tree.player.device
+    rows = _rows(b, dev)
+    c = tree.children[rows, tree.root.long(), action.long(), outcome.long()]
+    has_child = c >= 0
+    c_safe = c.clamp(min=0).long()
+
+    # reachable from c through parent pointers: 2^k ancestors after k
+    # doublings, enough for any path in an N-node tree
+    idx = torch.arange(n, device=dev)[None, :]
+    reach = idx == c_safe[:, None]
+    anc = torch.where(tree.parent >= 0, tree.parent.long(), idx)
+    for _ in range(max(7, (n - 1).bit_length())):
+        reach = reach | torch.gather(reach, 1, anc)
+        anc = torch.gather(anc, 1, anc)
+    reach = reach & tree.expanded & has_child[:, None]
+
+    # stable compaction: kept nodes first, in their original order
+    order = torch.argsort((~reach).to(torch.int8), dim=1, stable=True)
+    new_id_of_old = torch.empty_like(order).scatter_(
+        1, order, idx.expand(b, n).contiguous())
+    n_keep = reach.sum(-1)
+    keep = idx < n_keep[:, None]
+    grows = rows[:, None]
+
+    def gather(x):
+        return x[grows, order]
+
+    def kept(x, fill):
+        k = keep.reshape(keep.shape + (1,) * (x.dim() - 2))
+        return torch.where(k, gather(x), fill)
+
+    def remap_ids(ids):
+        """Old node ids -> new ones; links to dropped nodes become -1."""
+        safe = ids.clamp(min=0).long().reshape(b, -1)
+        mapped = torch.gather(new_id_of_old, 1, safe).reshape(ids.shape)
+        target_kept = torch.gather(reach, 1, safe).reshape(ids.shape)
+        return torch.where((ids >= 0) & target_kept, mapped, -1).to(I32)
+
+    parent = remap_ids(gather(tree.parent))
+    parent = torch.where(keep, parent, -1)
+    children = remap_ids(gather(tree.children))
+    children = torch.where(keep[:, :, None, None], children, -1)
+    root = torch.where(has_child, new_id_of_old[rows, c_safe], 0)
+    parent[rows, root] = -1               # the new root has no parent
+    out = Tree(
+        states=tree_map(gather, tree.states),
+        expanded=kept(tree.expanded, False),
+        terminal=kept(tree.terminal, False),
+        value=gather(tree.value), player=gather(tree.player),
+        parent=parent, legal=kept(tree.legal, False),
+        prior=kept(tree.prior, 0.0), visit=kept(tree.visit, 0),
+        wsum=kept(tree.wsum, 0.0), children=children,
+        next_free=n_keep.to(I32), root=root.to(I32))
+    return out, has_child
+
+
+def _select_tree(pred: torch.Tensor, a: Tree, b: Tree) -> Tree:
+    """Per game, ``a``'s arrays where ``pred`` else ``b``'s, as a new
+    ``Tree`` of fresh tensors."""
+    def sel(x, y):
+        p = pred.reshape(pred.shape + (1,) * (x.dim() - 1))
+        return torch.where(p, x, y)
+
+    return Tree(**{
+        f.name: (tree_map(sel, getattr(a, f.name), getattr(b, f.name))
+                 if f.name == "states" else
+                 sel(getattr(a, f.name), getattr(b, f.name)))
+        for f in dataclasses.fields(Tree)})
+
+
+def carried_roots_match(prev_tree: Tree, root: GameState) -> torch.Tensor:
+    """[B] bool: the carried tree's root state equals ``root`` in every
+    field (the reference reuses only exact transposition-table hits,
+    alphazero_mcts.cpp:229-245; a partial check would search a tree whose
+    cards or mobilization context diverged)."""
     rows = _rows(root.batch_size, root.device)
-    counts = tree.visit[rows, tree.root.long()]
-    pi = counts.to(F32)
-    pi = pi / pi.sum(-1, keepdim=True).clamp(min=1e-9)
-    return SearchResult(visit_counts=counts, pi=pi,
-                        root_value=tree.value[rows, tree.root.long()],
-                        tree=tree)
+    r = prev_tree.root.long()
+    same = torch.ones((root.batch_size,), dtype=torch.bool,
+                      device=root.device)
+    for f in dataclasses.fields(GameState):
+        carried = getattr(prev_tree.states, f.name)[rows, r]
+        d = carried == getattr(root, f.name)
+        same &= d.reshape(d.shape[0], -1).all(-1)
+    return same
+
+
+def search_with_reuse(root: GameState, gumbel: torch.Tensor, cfg: Config,
+                      eval_fn: EvalFn, prev_tree: Tree | None,
+                      reused: torch.Tensor | None,
+                      noise_u: torch.Tensor | None = None) -> SearchResult:
+    """``search`` from a rerooted tree (``reroot``): games with
+    ``~reused``, or whose carried root state is stale in any field, start
+    from a fresh tree.  ``prev_tree=None`` means no game reuses (the first
+    decision of a chunk), and the search is ``search``'s."""
+    rules.require_uniform(cfg, None)
+    tree = init_tree(root, cfg, eval_fn)
+    if prev_tree is not None:
+        same = reused & carried_roots_match(prev_tree, root)
+        tree = _select_tree(same, prev_tree, tree)
+    return _run_search(tree, gumbel, cfg, eval_fn, noise_u)
 
 
 def pick_move(result: SearchResult, state: GameState, cfg: Config,

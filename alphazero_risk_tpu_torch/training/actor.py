@@ -19,7 +19,13 @@ in blocks that can be put back, ``ff_block(k)`` and ``ff_rewind(m)``).
 the numbers another implementation drew.  ``run_scripted_episodes`` (the
 supervised-bootstrap generator: scripted and random agents only, every
 decision recorded) takes one ``opp()`` draw per step from the same kind of
-object.  Tree reuse across moves is not ported yet.
+object.
+
+With ``cfg.tree_reuse`` the single-net paths (self-play and versus) carry
+each search's tree to the next decision: the move's realised battle outcome
+reroots it (``mcts.reroot``) and ``mcts.search_with_reuse`` continues from
+it wherever the carried root still equals the game's state.  Trees are
+carried within a ``run_episodes`` call and start fresh in each chunk.
 """
 
 from __future__ import annotations
@@ -32,7 +38,8 @@ import torch.nn.functional as F
 from ..agents import blocks, random_agent, script_agent
 from ..agents.blocks import OPP_AZ, OPP_RANDOM, OPP_SCRIPT
 from ..agents.common import BlockDraws, draw_step_randoms
-from ..config import Config, NUM_ACTIONS, NUM_LANDS, STATUS_NOT_ENDED
+from ..config import (Config, NUM_ACTIONS, NUM_LANDS, PH_ATTACK, SKIP_ACTION,
+                      STATUS_NOT_ENDED)
 from ..env import rules
 from ..env.featurize import featurize
 from ..env.state import GameState, tree_select
@@ -94,6 +101,18 @@ def state_of_samples(s: SampleBatch, cfg: Config) -> GameState:
 
 def features_of_samples(s: SampleBatch, cfg: Config) -> torch.Tensor:
     return featurize(state_of_samples(s, cfg), cfg)
+
+
+def prepare_samples(data, idx, cfg: Config):
+    """The learner's minibatch ``{features, policy, value}`` from compact
+    sample rows ``data[k][idx]`` (``idx`` None: every row).  The policy
+    travels float16 (``_record``, ``replay.FIELDS``); the loss takes it in
+    float32."""
+    sub = data if idx is None else {k: v[idx] for k, v in data.items()}
+    sb = SampleBatch(valid=None, **sub)
+    return {"features": features_of_samples(sb, cfg),
+            "policy": sub["policy"].to(F32),
+            "value": sub["value"]}
 
 
 def _record(state: GameState, pi: torch.Tensor,
@@ -240,10 +259,6 @@ def run_episodes(eval_fn, state0: GameState, draws, cfg: Config,
     blocks of ``FF_BLOCK`` to ``FF_BLOCK_MAX`` iterations; on the card one
     launch of the multi-step entry and one host sync per block).
     """
-    if cfg.tree_reuse:
-        raise NotImplementedError(
-            "tree reuse is not ported yet: it comes with a later slice of "
-            "the port")
     # the search expands by step_with_outcome, which has no card uniform
     rules.require_uniform(cfg, None)
     b, dev = state0.batch_size, state0.device
@@ -252,6 +267,10 @@ def run_episodes(eval_fn, state0: GameState, draws, cfg: Config,
     if fast_forward and opponent not in (OPP_SCRIPT, OPP_RANDOM):
         raise ValueError(opponent)
     ff_kinds = tuple(OPP_AZ if az else opponent for az in az_seats)
+    # tree reuse on the single-net paths: the arena's two seats would need
+    # two trees.  No tree is carried into a chunk's first decision.
+    reuse = cfg.tree_reuse and not paired_eval
+    tree_prev, reused_prev = None, None
     state = state0
     carry = script_agent.init_carry(b, dev) if carry_in is None else carry_in
     prev = (torch.full((b,), -1, dtype=I32, device=dev)
@@ -280,10 +299,21 @@ def run_episodes(eval_fn, state0: GameState, draws, cfg: Config,
         else:
             efn = eval_fn
         noise_u = draws.root_noise() if cfg.use_dirichlet_noise else None
-        res = mcts.search(state, draws.gumbel(), cfg, efn, noise_u=noise_u)
+        if reuse:
+            res = mcts.search_with_reuse(state, draws.gumbel(), cfg, efn,
+                                         tree_prev, reused_prev,
+                                         noise_u=noise_u)
+        else:
+            res = mcts.search(state, draws.gumbel(), cfg, efn,
+                              noise_u=noise_u)
         action = mcts.pick_move(res, state, cfg, sample_moves,
                                 draws.pick() if sample_moves else None)
-        s_az = rules.step(state, action, draws.az_dice(), cfg)
+        dice = draws.az_dice()
+        s_az = rules.step(state, action, dice, cfg)
+        if reuse:
+            tree_prev, reused_prev = mcts.reroot(
+                res.tree, action, realised_outcome(state, action, dice),
+                cfg)
 
         # --- opponent path ---
         if both_az or fast_forward:
@@ -314,6 +344,23 @@ def run_episodes(eval_fn, state0: GameState, draws, cfg: Config,
     return ActorOutput(state=state, samples=samples,
                        status=rules.game_status(state, cfg), carry=carry,
                        prev_player=prev, az_decisions=decisions)
+
+
+def realised_outcome(state: GameState, action: torch.Tensor,
+                     dice: torch.Tensor) -> torch.Tensor:
+    """[B] int32: the chance outcome of the search tree that ``action``
+    with ``dice`` realises, the attacker's losses on a battle move (the
+    source ``step`` picks, one ``battle`` round on the same dice), 0 on any
+    other move."""
+    rows = torch.arange(state.batch_size, device=state.device)
+    li = action.clamp(0, NUM_LANDS - 1)
+    owned_with_army = ((state.owner == state.cur_player[:, None])
+                       & (state.army >= 2))
+    frm = rules.best_attack_from(state, li, owned_with_army)
+    a0 = state.army[rows, frm.long()]
+    a1, _, _ = rules.battle(a0, state.army[rows, li.long()], dice)
+    is_battle = (state.phase == PH_ATTACK) & (action != SKIP_ACTION)
+    return torch.where(is_battle, a0 - a1, 0).to(I32)
 
 
 def run_scripted_episodes(state0: GameState, draws, cfg: Config,

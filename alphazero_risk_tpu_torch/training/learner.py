@@ -2,8 +2,9 @@
 
 Port of ``alphazero_risk_tpu/training/learner.py`` (reference
 ``alphazero_nn.cpp:351-410``): shuffled minibatch Adam epochs over the
-replay buffer, loss = softmax-CE(policy) + MSE(value) + 1e-3 L2
-(``build_graph.py:92-103``).
+replay buffer (``make_epoch_fn``) or over the valid window of the device
+ring (``make_ring_epoch_fn``), loss = softmax-CE(policy) + MSE(value) +
+1e-3 L2 (``build_graph.py:92-103``).
 
 The train state is an ``AZNet`` (parameters and BatchNorm running
 statistics, updated in place by a training-mode forward) with its Adam
@@ -85,6 +86,31 @@ def update(state: TrainState, cfg: Config, batch: Dict[str, torch.Tensor]):
                    "v_loss": aux["v_loss"].detach()}
 
 
+def _minibatches(state: TrainState, cfg: Config, data, perm: torch.Tensor,
+                 prepare_batch: Callable):
+    """One update per row of ``perm`` ([steps, batch_size] indices into
+    ``data``).  Returns the means over the steps of ``loss``, ``pi_loss``
+    and ``v_loss`` (NaN when no step runs) and ``first_pi_loss``, the
+    policy loss of the first minibatch taken before its update."""
+    nan = torch.tensor(float("nan"), device=perm.device)
+    sums: Dict[str, torch.Tensor] = {}
+    first = nan
+    for i, idx in enumerate(perm):
+        state, m = update(state, cfg, prepare_batch(data, idx))
+        if i == 0:
+            first = m["pi_loss"]
+        for k, v in m.items():
+            sums[k] = sums[k] + v if k in sums else v
+    nb = perm.shape[0]
+    keys = ("loss", "pi_loss", "v_loss")
+    return state, {**{k: sums[k] / nb if nb else nan for k in keys},
+                   "first_pi_loss": first}
+
+
+def _gather_batch(data, idx):
+    return {k: v[idx] for k, v in data.items()}
+
+
 def make_epoch_fn(cfg: Config, prepare_batch: Optional[Callable] = None):
     """One epoch = shuffle + one update per minibatch.
 
@@ -100,9 +126,7 @@ def make_epoch_fn(cfg: Config, prepare_batch: Optional[Callable] = None):
     -> {features, policy, value}`` lets callers keep the replay compact and
     expand feature planes per minibatch.
     """
-    if prepare_batch is None:
-        def prepare_batch(data, idx):
-            return {k: v[idx] for k, v in data.items()}
+    prepare_batch = prepare_batch or _gather_batch
 
     def epoch(state: TrainState, data: Dict[str, Any],
               generator: torch.Generator | None = None,
@@ -115,18 +139,45 @@ def make_epoch_fn(cfg: Config, prepare_batch: Optional[Callable] = None):
                                   device=generator.device)
         perm = perm[: nb * cfg.batch_size].to(dev).reshape(
             nb, cfg.batch_size)
-        nan = torch.tensor(float("nan"), device=dev)
-        sums: Dict[str, torch.Tensor] = {}
-        first = nan
-        for i, idx in enumerate(perm):
-            state, m = update(state, cfg, prepare_batch(data, idx))
-            if i == 0:
-                first = m["pi_loss"]
-            for k, v in m.items():
-                sums[k] = sums[k] + v if k in sums else v
-        keys = ("loss", "pi_loss", "v_loss")
-        return state, {**{k: sums[k] / nb if nb else nan for k in keys},
-                       "first_pi_loss": first}
+        return _minibatches(state, cfg, data, perm, prepare_batch)
+
+    return epoch
+
+
+def make_ring_epoch_fn(cfg: Config, prepare_batch: Optional[Callable] = None):
+    """``make_epoch_fn`` over the device-resident ring
+    (``device_replay.DeviceReplay``).
+
+    ``data`` holds ``cap`` physical slots of which the logical window
+    ``[start, start + size) mod cap`` is valid.  One uniform vector
+    ``r[cap]`` orders the window: ``argsort(r + (slot >= size))`` (stable,
+    as JAX's) puts the valid logical slots first in random order, each is
+    mapped to its physical slot ``(start + i) % cap``, and ``size //
+    batch_size`` updates run on them.  Nothing is uploaded.
+
+    ``epoch(state, data, start, size, generator=None, r=None)``: ``r``
+    ([cap] float32) gives the uniforms explicitly, otherwise they are drawn
+    from ``generator``.  Returns the metrics of ``make_epoch_fn`` (NaN
+    losses when no step runs).
+    """
+    prepare_batch = prepare_batch or _gather_batch
+
+    def epoch(state: TrainState, data: Dict[str, Any], start: int,
+              size: int, generator: torch.Generator | None = None,
+              r: torch.Tensor | None = None):
+        first = next(iter(data.values()))
+        cap, dev = first.shape[0], first.device
+        steps = size // cfg.batch_size
+        if r is None:
+            r = torch.rand((cap,), generator=generator,
+                           device=generator.device)
+        r = r.to(dev)
+        invalid = torch.arange(cap, device=dev) >= size
+        order = torch.argsort(r + invalid.to(r.dtype), stable=True)
+        phys = (start + order[: steps * cfg.batch_size]) % cap
+        return _minibatches(state, cfg, data,
+                            phys.reshape(steps, cfg.batch_size),
+                            prepare_batch)
 
     return epoch
 

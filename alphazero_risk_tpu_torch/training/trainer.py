@@ -23,8 +23,13 @@ As in the JAX trainer, on a rejected gate ``_revert`` restores the last
 *accepted* model (the reference reloads a possibly stale 'latest' file,
 alphazero_trainer.cpp:170-175).
 
-Not ported yet: the device-resident replay ring and the mesh / multi-host
-branches.
+With ``cfg.device_replay`` the samples stay on the device: self-play
+chunks go into a ``DeviceReplay`` ring and the epochs sample it in place
+(``make_ring_epoch_fn``); ``train_epochs`` dispatches on the buffer's type.
+With ``cfg.tree_reuse`` the searching paths but the arena carry each
+search's subtree to the next decision (``actor.run_episodes``).
+
+Not ported yet: the mesh / multi-host branches.
 """
 
 from __future__ import annotations
@@ -49,7 +54,9 @@ from ..models.resnet import AZNet
 from ..utils.logging import Logs
 from . import actor as A
 from .checkpoints import CheckpointManager
-from .learner import create_train_state, make_epoch_fn, train_state_of
+from .device_replay import DeviceReplay
+from .learner import (create_train_state, make_epoch_fn, make_ring_epoch_fn,
+                      train_state_of)
 from .replay import ReplayBuffer
 
 
@@ -80,10 +87,6 @@ def sequential_verdict(wins: int, losses: int, threshold: float,
 class Trainer:
     def __init__(self, cfg: Config, seed: int = 0, device="cuda",
                  log_dir: Optional[str] = None):
-        if cfg.device_replay:
-            raise NotImplementedError(
-                "the device-resident replay ring is not ported yet: it "
-                "comes with a later slice of the port")
         self.cfg = cfg
         self.seed = seed
         self.device = resolve_device(device)
@@ -93,7 +96,7 @@ class Trainer:
         # generate/actor model = last accepted weights
         # (reference "az_generate" group, alphazero_risk.cpp:49-62)
         self.net = copy.deepcopy(self.train_state.net)
-        self.replay = ReplayBuffer(cfg)
+        self.replay = self._new_buffer()
         self.logs = Logs(log_dir or cfg.log_dir)
         self.ckpt = CheckpointManager(cfg)
         self.iteration = 0
@@ -101,6 +104,8 @@ class Trainer:
         # and benchmarks search without root Dirichlet noise.
         self._ecfg = cfg.replace(use_dirichlet_noise=False)
         self._epoch = make_epoch_fn(cfg, prepare_batch=self._prepare_batch)
+        self._ring_epoch = make_ring_epoch_fn(
+            cfg, prepare_batch=self._prepare_batch)
         self.epoch_log = []       # one dict of losses per epoch trained
         # az_decisions: searches made for live AlphaZero movers; steps:
         # lockstep micro-steps driven (one search of the batch each but in
@@ -202,6 +207,13 @@ class Trainer:
                 carry_in=carry, prev_in=prev)
         return call
 
+    def _new_buffer(self):
+        """An empty replay buffer: the device ring under
+        ``cfg.device_replay``, else the host buffer."""
+        if self.cfg.device_replay:
+            return DeviceReplay(self.cfg, self.device)
+        return ReplayBuffer(self.cfg)
+
     # ------------------------------------------------------------------
     def _round_games(self, games: int) -> int:
         """Games run in mirrored pairs: round up to an even count once at
@@ -235,15 +247,7 @@ class Trainer:
         return state0.replace(cur_player=alt)
 
     def _prepare_batch(self, data, idx):
-        sub = data if idx is None else {k: v[idx] for k, v in data.items()}
-        sb = A.SampleBatch(valid=None, **sub)
-        return {
-            "features": A.features_of_samples(sb, self.cfg),
-            # policy travels float16 (actor._record / replay.FIELDS); the
-            # CE loss runs in float32
-            "policy": sub["policy"].to(torch.float32),
-            "value": sub["value"],
-        }
+        return A.prepare_samples(data, idx, self.cfg)
 
     @torch.inference_mode()
     def _episode_loop(self, chunk_call, state0, early_stop=None,
@@ -304,6 +308,9 @@ class Trainer:
         """N shuffled epochs over the buffer (reference train,
         alphazero_nn.cpp:351-410)."""
         epochs = epochs or self.cfg.epochs
+        # the buffer's type, not the flag: a caller may swap in either
+        if isinstance(self.replay, DeviceReplay):
+            return self._train_epochs_ring(epochs)
         arrays = self.replay.sample_arrays()
         n = next(iter(arrays.values())).shape[0]
         cap = self.cfg.train_upload_max_samples
@@ -314,6 +321,19 @@ class Trainer:
         for e in range(epochs):
             self.train_state, metrics = self._epoch(
                 self.train_state, data, generator=self.gen)
+            pi_loss, v_loss = self._log_epoch(
+                e, float(metrics["pi_loss"]), float(metrics["v_loss"]),
+                float(metrics["first_pi_loss"]))
+        return pi_loss, v_loss
+
+    def _train_epochs_ring(self, epochs: int) -> Tuple[float, float]:
+        """Epochs over the device-resident ring: no upload, the samples
+        were ingested on the device."""
+        data, start, size = self.replay.epoch_view()
+        pi_loss = v_loss = float("nan")
+        for e in range(epochs):
+            self.train_state, metrics = self._ring_epoch(
+                self.train_state, data, start, size, generator=self.gen)
             pi_loss, v_loss = self._log_epoch(
                 e, float(metrics["pi_loss"]), float(metrics["v_loss"]),
                 float(metrics["first_pi_loss"]))
@@ -554,7 +574,7 @@ class Trainer:
         saves ``temp``, ``latest`` and the meta."""
         cfg = self.cfg
         for self.iteration in range(loops or cfg.data_train_loops):
-            fresh = ReplayBuffer(cfg)
+            fresh = self._new_buffer()
             for kinds, games in (((A.OPP_SCRIPT, A.OPP_SCRIPT),
                                   cfg.data_games_ss),
                                  ((A.OPP_SCRIPT, A.OPP_RANDOM),

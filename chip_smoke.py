@@ -106,11 +106,30 @@ when all of them pass):
    at the 1,024 full-cards states (states, carries, records equal), (e)
    400 steps of random legal play through ``rules.step_key`` on 1,024
    fresh deals (final states equal).  Its launch counts are those of
-   (b), (d), (a) and (e).
+   (b), (d), (a) and (e);
+8. reuse: tree reuse and the device replay ring on the flagship, int8.
+   (a) One search under ``tree_reuse`` at 32 simulations (N = 66) on 64
+   of phase 3's played states, each game rerooted through its played
+   edge and searched again by ``search_with_reuse``: K2, K3 (visit and
+   wsum), K6 and K7's expand held against their plain versions on the
+   tree that search starts from, at GAMES and every batch of
+   ``PATH_BATCHES``, and on the tree it leaves; the same at TRAIN's 8
+   simulations (N = 18); ``reroot`` and the staleness select timed, the
+   share of games reused printed.  (b) ``Trainer.play`` of PLAY_GAMES
+   mirrored games against the ScriptPlayer under ``tree_reuse`` (decisions/s
+   beside phase 4's, the share of searches that continued a carried
+   tree).  (c) One ``Trainer.train`` iteration at TRAIN's cuts with
+   ``device_replay`` and ``tree_reuse``: the ring after self-play equal
+   to a host buffer fed the same records, the launch counts equal to what
+   the step counts imply, ``latest`` reloaded and the replay npz read
+   back by the host buffer; the ring's ingest and epochs timed beside the
+   host buffer's on the same samples.  (d) ``cross_validate`` over (c)'s
+   npz, 2 folds of at most 2 epochs at 20x256.  Its launch counts are
+   those of (b) and (c).
 
 The line before the card's is a JSON object with one entry per kernel:
-``launches`` sums the four main paths (play, train, data, cards), each
-also given alone; the full-cards timings are the ``cards_*`` keys of
+``launches`` sums the five main paths (play, train, data, cards, reuse),
+each also given alone; the full-cards timings are the ``cards_*`` keys of
 K7, K9, K10 and the multi-step entry.  The last line is ``{"ok": true,
 "device": {...}}``.  Imports nothing of JAX.
 """
@@ -1511,7 +1530,8 @@ def check_forward(trainer, states, cfg):
 def phase_kernels(cfg, dev):
     """Load and fold the flagship, then hold each kernel against its plain
     version on the card.  Returns (trainer, kernel entries, the mixed
-    states of the rules kernels' checks)."""
+    states of the rules kernels' checks, the full-cards states, and the
+    1,024 random-play states that phase 8 roots its rerooted trees in)."""
     import torch
     from alphazero_risk_tpu_torch.env import rules
     from alphazero_risk_tpu_torch.env.featurize import featurize
@@ -1672,7 +1692,7 @@ def phase_kernels(cfg, dev):
     ]
     check_forward(trainer, states, cfg)
     log(f"kernel checks: {time.perf_counter() - t0:.1f} s")
-    return trainer, entries, mx, cmx
+    return trainer, entries, mx, cmx, states
 
 
 def profile_window(trainer, games, steps=1):
@@ -1779,6 +1799,7 @@ def phase_slice(trainer, entries, games=PLAY_GAMES):
         f"launches {kernels.counts()}")
     if bres["games"] != games:
         fail("bf16 pass did not play its games")
+    return dps
 
 
 def expected_launches(st, sims, blocks):
@@ -1805,10 +1826,6 @@ def phase_train(base, entries):
     import numpy as np
     import torch
     from alphazero_risk_tpu_torch import kernels
-    from alphazero_risk_tpu_torch.env.featurize import featurize
-    from alphazero_risk_tpu_torch.env.state import new_game
-    from alphazero_risk_tpu_torch.models import fast_infer as FI
-    from alphazero_risk_tpu_torch.training.replay import FIELDS, ReplayBuffer
     from alphazero_risk_tpu_torch.training.trainer import Trainer
 
     dev = base.device
@@ -1958,14 +1975,31 @@ def phase_train(base, entries):
     for e in entries:
         e["launches_train"] = counts[e["name"]]
 
-    # checkpoints and meta; latest reloaded into a fresh trainer folds to
-    # the same evaluation as the in-memory learner
+    check_reload(trainer, cfg, accepted, trainer.replay.data, "train")
+    return phases
+
+
+def check_reload(trainer, cfg, accepted, arrays, what):
+    """The files of one ``train`` iteration: ``latest`` and the meta
+    written, ``best`` as the gate decided; ``latest`` reloaded into a fresh
+    trainer folds to the same evaluation as the in-memory learner, with its
+    step count; the replay npz read back by the host buffer equals
+    ``arrays`` (the buffer's logical contents)."""
+    import numpy as np
+    import torch
+    from alphazero_risk_tpu_torch.env.featurize import featurize
+    from alphazero_risk_tpu_torch.env.state import new_game
+    from alphazero_risk_tpu_torch.models import fast_infer as FI
+    from alphazero_risk_tpu_torch.training.replay import FIELDS, ReplayBuffer
+    from alphazero_risk_tpu_torch.training.trainer import Trainer
+
+    dev = trainer.device
     meta = trainer.ckpt.load_meta()
     if not (trainer.ckpt.exists("latest") and meta
             and meta["iteration"] == 1
             and trainer.ckpt.exists("best") == accepted):
-        fail(f"checkpoints or meta missing: meta {meta}")
-    fresh = Trainer(cfg, seed=4, device=dev)
+        fail(f"{what}: checkpoints or meta missing: meta {meta}")
+    fresh = Trainer(cfg.replace(device_replay=False), seed=4, device=dev)
     fresh.train_state = fresh.ckpt.restore("latest", fresh.train_state)
     states = new_game(64, generator=torch.Generator(device=dev)
                       .manual_seed(9), device=dev)
@@ -1977,20 +2011,19 @@ def phase_train(base, entries):
     torch.cuda.synchronize()
     if not (torch.equal(la, lb) and torch.equal(va, vb)
             and bool(torch.isfinite(la).all())):
-        fail("the reloaded 'latest' evaluates differently from the "
-             "in-memory learner")
+        fail(f"{what}: the reloaded 'latest' evaluates differently from "
+             f"the in-memory learner")
     if fresh.train_state.step != trainer.train_state.step:
-        fail("the reloaded 'latest' lost its step count")
+        fail(f"{what}: the reloaded 'latest' lost its step count")
+    n = len(arrays["value"])
     back = ReplayBuffer(cfg)
     if not back.load(trainer._replay_path()) or len(back) != n or any(
-            not np.array_equal(back.data[k], trainer.replay.data[k])
-            or back.data[k].dtype != trainer.replay.data[k].dtype
-            for k in FIELDS):
-        fail("the replay npz does not read back equal")
-    log(f"train: latest reloaded (step {fresh.train_state.step}) and "
-        f"evaluates equal on 64 states; replay npz read back equal "
-        f"({n} samples)")
-    return phases
+            not np.array_equal(back.data[k], arrays[k])
+            or back.data[k].dtype != arrays[k].dtype for k in FIELDS):
+        fail(f"{what}: the replay npz does not read back equal")
+    log(f"{what}: latest reloaded (step {fresh.train_state.step}) and "
+        f"evaluates equal on 64 states; replay npz read back equal by the "
+        f"host buffer ({n} samples)")
 
 
 def profile_scripted(mx, cfg, steps=16):
@@ -2472,6 +2505,290 @@ def phase_match_sr(cfg, dev):
                       "data (d)")[0]
 
 
+def reused_trees(trainer, cfg, root, seed, what):
+    """One search under ``tree_reuse`` at ``cfg``'s simulations on
+    ``root``'s games (the flagship's int8 eval, N = 2 S + 2 nodes), the
+    played moves (argmax, dice from ``seed``) rerooting each game's tree
+    through its played edge, then ``search_with_reuse`` from the rerooted
+    trees at the next states.  Prints the time per call of ``reroot`` and
+    of the staleness select, and the share of games reused.  Returns
+    the tree that search starts from, the tree it leaves and the next
+    states."""
+    import torch
+    from alphazero_risk_tpu_torch.env import rules
+    from alphazero_risk_tpu_torch.mcts import search as S
+    from alphazero_risk_tpu_torch.training import actor as A
+
+    dev, b = trainer.device, root.batch_size
+    efn = trainer._eval_fn()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.inference_mode():
+        res = S.search(root, S.draw_gumbel(gen, cfg, b, dev), cfg, efn)
+        action = S.pick_move(res, root, cfg, sample=False)
+        dice = rules.roll_dice(gen, b)
+        outcome = A.realised_outcome(root, action, dice)
+        nxt = rules.step(root, action, dice, cfg)
+        tree, reused = S.reroot(res.tree, action, outcome, cfg)
+        fresh = S.init_tree(nxt, cfg, efn)
+        same = reused & S.carried_roots_match(tree, nxt)
+        start = S._select_tree(same, tree, fresh)
+        ms_reroot = time_ms(lambda: S.reroot(res.tree, action, outcome, cfg),
+                            20)
+        ms_select = time_ms(lambda: S._select_tree(
+            reused & S.carried_roots_match(tree, nxt), tree, fresh), 20)
+        after = S.search_with_reuse(nxt, S.draw_gumbel(gen, cfg, b, dev),
+                                    cfg, efn, tree, reused).tree
+    torch.cuda.synchronize()
+    n_keep = tree.next_free[same].float()
+    battle = int(((outcome > 0) & same).sum())
+    log(f"reuse {what}: B={b} N={cfg.num_nodes}: {int(same.sum())}/{b} "
+        f"games reused ({int(reused.sum())} with an expanded child, "
+        f"{battle} through a battle outcome > 0), kept nodes mean "
+        f"{float(n_keep.mean()) if len(n_keep) else 0.0:.2f} max "
+        f"{int(n_keep.max()) if len(n_keep) else 0}; reroot "
+        f"{ms_reroot:.4f} ms, staleness select {ms_select:.4f} ms per call; "
+        f"after search_with_reuse next_free mean "
+        f"{float(after.next_free.float().mean()):.2f}")
+    if not bool(same.any()):
+        fail(f"reuse {what}: no game continued its tree")
+    return start, after, nxt
+
+
+def check_reused_trees(trainer, states, sims, seed, what):
+    """K7's expand, K2, K3 and K6 held against their plain versions on
+    rerooted trees (``reused_trees``) at GAMES and at every batch of
+    ``PATH_BATCHES``: the tree a reusing search starts from, and at GAMES
+    the tree it leaves."""
+    import torch
+    from alphazero_risk_tpu_torch.env.state import tree_map
+    from alphazero_risk_tpu_torch.mcts import search as S
+
+    dev = trainer.device
+    cfg = trainer._ecfg.replace(mcts_simulations=sims, tree_reuse=True)
+    root = tree_map(lambda x: x[:GAMES].contiguous(), states)
+    start, after, nxt = reused_trees(trainer, cfg, root, seed, what)
+    gum = S.draw_gumbel(torch.Generator(device=dev).manual_seed(seed + 1),
+                        cfg, GAMES, dev)[0]
+    with torch.inference_mode():
+        for nb in [GAMES] + PATH_BATCHES:
+            tree, ngum = slice_tree(start, nb), gum[:, :nb].contiguous()
+            check_k7_expand(tree, ngum, cfg, timed=False)
+            check_k2_k3(clone_tree(tree), ngum, cfg, dev, timed=False,
+                        what=f" rerooted {what}")
+            check_k6(tree, ngum, tree_map(lambda x: x[:nb].contiguous(), nxt),
+                     cfg, trainer._eval_fn(), timed=False)
+        check_k7_expand(after, gum, cfg, timed=False)
+        check_k2_k3(clone_tree(after), gum, cfg, dev, timed=False,
+                    what=f" after search_with_reuse {what}")
+        check_k6(after, gum, nxt, cfg, trainer._eval_fn(), timed=False)
+
+
+def phase_reuse(base, states, entries, play_dps, card):
+    """Phase 8, tree reuse and the device ring on the flagship, int8:
+    (a) the kernels on rerooted trees (N = 66 at 32 simulations, N = 18 at
+    TRAIN's 8); (b) ``Trainer.play`` of PLAY_GAMES mirrored games against
+    the ScriptPlayer under ``tree_reuse``; (c) one ``Trainer.train``
+    iteration at TRAIN's cuts with ``device_replay`` and ``tree_reuse``,
+    the ring held against a host buffer fed the same records, and the
+    ring's ingest and epochs timed beside the host buffer's on the same
+    samples; (d) ``cross_validate`` over (c)'s replay npz.  The launches
+    of (b) and (c) are each entry's ``launches_reuse``."""
+    import numpy as np
+    import torch
+    from alphazero_risk_tpu_torch import kernels
+    from alphazero_risk_tpu_torch.mcts import search as S
+    from alphazero_risk_tpu_torch.training import actor as A
+    from alphazero_risk_tpu_torch.training.analysis import cross_validate
+    from alphazero_risk_tpu_torch.training.device_replay import DeviceReplay
+    from alphazero_risk_tpu_torch.training.replay import FIELDS, ReplayBuffer
+    from alphazero_risk_tpu_torch.training.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    dev = base.device
+    # (a) the kernels on rerooted trees
+    check_reused_trees(base, states, SIMS, 30, "play")
+    check_reused_trees(base, states, TRAIN["mcts_simulations"], 31, "train")
+    log(f"reuse (a): {time.perf_counter() - t_phase:.1f} s")
+
+    # (b) play under tree_reuse; the share of searches that continue a
+    # carried tree, counted on the device
+    t0 = time.perf_counter()
+    rt = Trainer(base.cfg.replace(tree_reuse=True), seed=0, device=dev)
+    rt.net = base.net
+    rt.folded()
+    share = [torch.zeros((), dtype=torch.int64, device=dev), 0]
+    select = S._select_tree
+
+    def counted(pred, a, b):
+        share[0] += pred.sum()
+        share[1] += pred.numel()
+        return select(pred, a, b)
+
+    S._select_tree = counted
+    try:
+        kernels.reset_counts()
+        res = rt.play(A.OPP_SCRIPT, PLAY_GAMES)
+        counts_b = kernels.counts()
+    finally:
+        S._select_tree = select
+    st = rt.play_stats
+    dps = st["az_decisions"] / st["seconds"]
+    # a finished game's root is terminal and has no child to carry, and
+    # after the fast-forward every live game is at an AZ turn: the carried
+    # searches are live AZ decisions
+    log(f"reuse (b) play: {json.dumps(res)}; {st['az_decisions']} AZ "
+        f"decisions in {st['seconds']:.1f} s: {dps:.2f} decisions/s (phase "
+        f"4 without reuse {play_dps:.2f}); {int(share[0])} of them "
+        f"({int(share[0]) / max(st['az_decisions'], 1):.3f}) continued a "
+        f"carried tree, of {share[1]} game-searches in all; launches "
+        f"{counts_b}")
+    if res["games"] != PLAY_GAMES or res["unfinished"] != 0:
+        fail(f"reuse (b): games unfinished: {res}")
+    for k in kernels.ALL:
+        if k not in (kernels.RANDOM_STEP, kernels.SCRIPT_STEP) and \
+                counts_b[k.name] <= 0:
+            fail(f"kernel {k.name} was not launched by reuse (b)")
+    if int(share[0]) <= 0:
+        fail("reuse (b): no search continued a carried tree")
+    log(f"reuse (b): {time.perf_counter() - t0:.1f} s")
+
+    # (c) one training iteration on the ring, with tree reuse
+    t0 = time.perf_counter()
+    ring_dir = WORK / "ring"
+    cfg = base.cfg.replace(**TRAIN, device_replay=True, tree_reuse=True,
+                           checkpoint_dir=str(ring_dir / "checkpoints"),
+                           data_dir=str(ring_dir / "data"),
+                           log_dir=str(ring_dir / "log"))
+    trainer = Trainer(cfg, seed=3, device=dev)
+    trainer.load_weights(base.net)
+    trainer.folded()
+    ring = trainer.replay
+    if not isinstance(ring, DeviceReplay) or ring.cap != \
+            cfg.samples_storage_max:
+        fail("reuse (c): the trainer did not build the device ring")
+    mirror = ReplayBuffer(cfg)
+    ingest = {"ring": 0.0, "host": 0.0, "calls": 0}
+    extend = ring.extend_from_actor
+
+    def both(samples, status, final_round=None):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        n = extend(samples, status, final_round=final_round)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        m = mirror.extend_from_actor(samples, status,
+                                     final_round=final_round)
+        ingest["ring"] += t2 - t1
+        ingest["host"] += time.perf_counter() - t2
+        ingest["calls"] += 1
+        if n != m:
+            fail(f"reuse (c): the ring took {n} records, the host {m}")
+        return n
+
+    ring.extend_from_actor = both
+    snap, ring_secs = {}, [0.0]
+    selfplay, epochs = trainer.generate_selfplay, trainer.train_epochs
+
+    def watched_selfplay():
+        n = selfplay()
+        got = ring.sample_arrays()
+        bad = [k for k in FIELDS
+               if not (np.array_equal(got[k], mirror.data[k])
+                       and got[k].dtype == mirror.data[k].dtype)]
+        if bad or not len(ring) == len(mirror) == n:
+            fail(f"reuse (c): after self-play the ring differs from the "
+                 f"host buffer fed the same records: {bad}")
+        snap.update(got)
+        return n
+
+    def watched_epochs(*a, **kw):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = epochs(*a, **kw)
+        torch.cuda.synchronize()
+        ring_secs[0] = time.perf_counter() - t1
+        return out
+
+    trainer.generate_selfplay = watched_selfplay
+    trainer.train_epochs = watched_epochs
+    s0 = dict(trainer.play_stats)
+    kernels.reset_counts()
+    trainer.train(iterations=1, resume=False)
+    accepted = trainer.ckpt.exists("best")
+    if not accepted:
+        log("reuse (c): gate rejected the candidate; benchmark run directly")
+        trainer.benchmark()
+    torch.cuda.synchronize()
+    counts_c = kernels.counts()
+    st = {k: trainer.play_stats[k] - s0[k]
+          for k in ("steps", "paired_steps", "folds")}
+    want = expected_launches(st, cfg.mcts_simulations, cfg.blocks)
+    if want != {k: counts_c[k] for k in want}:
+        fail(f"reuse (c): launch counts {counts_c} differ from the "
+             f"expected {want}")
+    for k in kernels.ALL:
+        if k not in (kernels.RANDOM_STEP, kernels.SCRIPT_STEP) and \
+                counts_c[k.name] <= 0:
+            fail(f"kernel {k.name} was not launched by reuse (c)")
+    ep = trainer.epoch_log
+    n_sp = len(snap["value"])
+    if len(ep) != cfg.epochs or not all(
+            np.isfinite(e["pi_loss"]) and np.isfinite(e["v_loss"])
+            for e in ep) or trainer.train_state.step != cfg.epochs * (
+                n_sp // cfg.batch_size):
+        fail(f"reuse (c): ring epochs {ep}, step {trainer.train_state.step} "
+             f"over {n_sp} samples")
+    verdict = "accepted" if accepted else "reverted"
+    log(f"reuse (c): one iteration (ring, tree reuse) in "
+        f"{time.perf_counter() - t0:.1f} s, {verdict}; self-play {n_sp} "
+        f"records, ring {len(ring)} of {ring.cap} slots; "
+        f"epochs {json.dumps(ep)}; launches {counts_c}")
+    check_reload(trainer, cfg, accepted, ring.sample_arrays(), "reuse (c)")
+    # the epochs on the same self-play samples, warm, in turns: one
+    # trainer (another seed, the flagship's weights) on a host buffer
+    # (which uploads them each call) and on a ring, host, ring, ring, host
+    host = Trainer(cfg.replace(device_replay=False, tree_reuse=False,
+                               log_dir=str(ring_dir / "log_host")),
+                   seed=5, device=dev)
+    host.load_weights(base.net)
+    bufs = {"host": ReplayBuffer(cfg), "ring": DeviceReplay(cfg, dev)}
+    for b in bufs.values():
+        b.extend(snap)
+    turns = []
+    for name in ("host", "ring", "ring", "host"):
+        host.replay = bufs[name]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        host.train_epochs()
+        torch.cuda.synchronize()
+        turns.append(f"{name} {time.perf_counter() - t1:.2f}")
+    log(f"reuse (c): ingest of {ingest['calls']} chunk batches: ring "
+        f"{ingest['ring']:.3f} s, host buffer {ingest['host']:.3f} s; "
+        f"{cfg.epochs} epochs over the {n_sp} self-play samples: in the "
+        f"iteration (the process's first epochs) ring {ring_secs[0]:.2f} "
+        f"s; then in turns {', '.join(turns)} s; {card}")
+    for e in entries:
+        e["launches_reuse"] = counts_b[e["name"]] + counts_c[e["name"]]
+
+    # (d) k-fold analysis over (c)'s replay file at full width
+    t0 = time.perf_counter()
+    report = cross_validate(cfg, trainer._replay_path(), folds=2,
+                            max_epochs=2, seed=0, device=dev)
+    torch.cuda.synchronize()
+    cv = time.perf_counter() - t0
+    folds = report.get("folds", [])
+    if len(folds) != 2 or not all(
+            1 <= f["epochs"] <= 2 and np.isfinite(f["best_val"])
+            for f in folds):
+        fail(f"reuse (d): cross_validate report {report}")
+    brief = [{k: f[k] for k in ("fold", "epochs", "best_val")}
+             for f in folds]
+    log(f"reuse (d): cross_validate over {report['samples']} samples, 2 "
+        f"folds at {cfg.blocks}x{cfg.filters}: {cv:.1f} s "
+        f"({cv / 2:.1f} s per fold); {json.dumps(brief)}")
+    log(f"reuse: {time.perf_counter() - t_phase:.1f} s on {card}")
+
+
 def main():
     t_start = time.perf_counter()
     card = phase_device()
@@ -2483,18 +2800,21 @@ def main():
     cfg = Config(mcts_simulations=SIMS, fast_infer=True, fast_infer_int8=True,
                  checkpoint_dir=str(WORK / "checkpoints"),
                  data_dir=str(WORK / "data"), log_dir=str(WORK / "log"))
-    trainer, entries, mx, cmx = phase_kernels(cfg, torch.device("cuda"))
+    trainer, entries, mx, cmx, states = phase_kernels(cfg,
+                                                      torch.device("cuda"))
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
-    phase_slice(trainer, entries)
+    play_dps = phase_slice(trainer, entries)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     phase_train(trainer, entries)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     phase_data(trainer, mx, entries)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     phase_cards(entries, cmx, cfg.replace(**CARDS), card)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    phase_reuse(trainer, states, entries, play_dps, card)
     for e in entries:
-        e["launches"] = sum(e[f"launches_{p}"]
-                            for p in ("play", "train", "data", "cards"))
+        e["launches"] = sum(e[f"launches_{p}"] for p in
+                            ("play", "train", "data", "cards", "reuse"))
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": entries}))
     print(card)

@@ -40,12 +40,21 @@ def _entry_points():
     from alphazero_risk_tpu_torch.config import Config
     from alphazero_risk_tpu_torch.env.state import new_game
     from alphazero_risk_tpu_torch.models.resnet import build_network
+    from alphazero_risk_tpu_torch.training.analysis import cross_validate
     from alphazero_risk_tpu_torch.training.checkpoints import load_params_npz
+    from alphazero_risk_tpu_torch.training.device_replay import DeviceReplay
     from alphazero_risk_tpu_torch.training.trainer import Trainer
     from alphazero_risk_tpu_torch import cli
     small = Config(blocks=1, filters=8, value_hidden=4)
     return {
         "Trainer": lambda dev: Trainer(small, device=dev),
+        "Trainer_ring": lambda dev: Trainer(
+            small.replace(device_replay=True,
+                          samples_storage_max_batches=1), device=dev),
+        "DeviceReplay": lambda dev: DeviceReplay(
+            small.replace(samples_storage_max_batches=1), device=dev),
+        "cross_validate": lambda dev: cross_validate(
+            small, str(ROOT / "missing.npz"), device=dev),
         "new_game": lambda dev: new_game(2, device=dev),
         "build_network": lambda dev: build_network(small, device=dev),
         "load_params_npz": lambda dev: load_params_npz(
@@ -57,8 +66,9 @@ def _entry_points():
     }
 
 
-@pytest.mark.parametrize("name", ["Trainer", "new_game", "build_network",
-                                  "load_params_npz", "cli"])
+@pytest.mark.parametrize("name", ["Trainer", "Trainer_ring", "DeviceReplay",
+                                  "cross_validate", "new_game",
+                                  "build_network", "load_params_npz", "cli"])
 def test_entry_points_need_a_card_or_cpu(name, monkeypatch, capsys):
     fn = _entry_points()[name]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -81,6 +91,7 @@ def test_import_builds_and_loads_nothing():
     for name in names:
         importlib.import_module(name)
     for mod in ("training.learner", "training.replay", "training.trainer",
+                "training.device_replay", "training.analysis", "env.checks",
                 "agents.random_agent", "utils.logging", "cli"):
         assert f"{pkg.__name__}.{mod}" in names
     assert "triton" not in sys.modules

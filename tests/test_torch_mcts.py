@@ -210,8 +210,23 @@ def test_root_noise_matches_jax():
     assert not torch.equal(tres.tree.prior[:, 0], plain.tree.prior[:, 0])
     with pytest.raises(ValueError, match="noise_u"):
         TM.search(root, search_gumbel(k_sims, 8, 12, 12), cfg, port_eval)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TM.search(root, None, cfg.replace(tree_reuse=True), port_eval)
+    # under tree_reuse both packages search with 2 S + 2 nodes, the same
+    # tree (the budget a carried subtree needs; tests/test_torch_reuse.py
+    # holds the reuse itself)
+    rcfg = cfg.replace(tree_reuse=True)
+    jrc = jconfig.Config(**dataclasses.asdict(rcfg))
+    jr = jax.jit(lambda r, k: JM.search(r, k, jrc, jax_eval))(
+        to_jax(root), key)
+    tr = TM.search(root, search_gumbel(k_sims, 8, 12, 12), rcfg, port_eval,
+                   noise_u=noise_u)
+    assert tuple(tr.tree.player.shape) == (12, rcfg.num_nodes) == (12, 18)
+    for name in ("children", "visit", "next_free", "parent"):
+        np.testing.assert_array_equal(getattr(tr.tree, name).numpy(),
+                                      np.asarray(getattr(jr.tree, name)),
+                                      err_msg=name)
+    np.testing.assert_allclose(tr.tree.prior.numpy(),
+                               np.asarray(jr.tree.prior), rtol=1e-5,
+                               atol=1e-9)
 
 
 def test_draw_noise_uniform_contract():

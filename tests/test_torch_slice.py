@@ -384,11 +384,30 @@ def test_train_epochs_chunked_upload(tmp_path, monkeypatch):
     assert t.train_state.step == 2 * 3 * (96 // 32)
 
 
-def test_not_ported_paths_name_the_later_slice(tmp_path, monkeypatch):
+def test_reuse_and_ring_run_and_full_cards_searches_refuse(tmp_path,
+                                                          monkeypatch):
+    """The two switches the port once refused now run: under
+    ``tree_reuse`` the Trainer plays its games on trees of JAX's node
+    budget (2 S + 2), and under ``device_replay`` it keeps a ring of JAX's
+    capacity, fields and dtypes.  Full cards stay refused by every
+    searching path, as in JAX."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Trainer(TINY.replace(tree_reuse=True), device="cpu").play(
-            TA.OPP_SCRIPT, 2)
+    from alphazero_risk_tpu.training import device_replay as JDR
+    from alphazero_risk_tpu_torch.training import device_replay as TDR
+    reuse = TINY.replace(tree_reuse=True)
+    assert reuse.num_nodes == jconfig.Config(
+        **dataclasses.asdict(reuse)).num_nodes == 2 * 2 + 2
+    t = Trainer(reuse, device="cpu")
+    res = t.play(TA.OPP_SCRIPT, 2)
+    assert res["games"] == 2 and t.play_stats["az_decisions"] > 0
+    ring_cfg = TINY.replace(device_replay=True)
+    ring = Trainer(ring_cfg, device="cpu").replay
+    jring = JDR.DeviceReplay(jconfig.Config(**dataclasses.asdict(ring_cfg)))
+    assert isinstance(ring, TDR.DeviceReplay) and ring.cap == jring.cap
+    for k, v in ring.data.items():
+        j = np.asarray(jring.data[k])
+        assert (tuple(v.shape), v.numpy().dtype) == (j.shape, j.dtype), k
+        np.testing.assert_array_equal(v.numpy(), j)
     # full cards are ported, but neither package searches under them (no
     # card uniform for step_with_outcome): the port refuses up front
     from alphazero_risk_tpu.env import rules as JR
@@ -402,6 +421,7 @@ def test_not_ported_paths_name_the_later_slice(tmp_path, monkeypatch):
     node = torch.zeros(2, dtype=torch.int32)
     for refused in (
             lambda: TM.search(root, None, full, None),
+            lambda: TM.search_with_reuse(root, None, full, None, None, None),
             lambda: TA.run_episodes(None, root, None, full, 1),
             lambda: TR.expand(TS.tree_map(lambda x: x[:, None], root), node,
                               node, node, full)):
@@ -412,8 +432,6 @@ def test_not_ported_paths_name_the_later_slice(tmp_path, monkeypatch):
         JR.step_with_outcome(j_new_game(jax.random.PRNGKey(0), 2), zeros,
                              zeros, jconfig.Config(**dataclasses.asdict(
                                  full)))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Trainer(TINY.replace(device_replay=True), device="cpu")
 
 
 def test_cli_train_and_play_random(tmp_path, monkeypatch, capsys):
