@@ -1,12 +1,14 @@
 """Command-line entry point of the port.
 
-Port of the ``play``, ``train``, ``train-script``, ``train-data`` and
-``analysis`` modes of ``alphazero_risk_tpu/cli.py``.
+Port of the ``play``, ``train``, ``train-script``, ``train-data``,
+``analysis`` and ``watch`` modes of ``alphazero_risk_tpu/cli.py``.
 ``play``: AlphaZero (``--p1 az``, the weights of ``--c1``, by default the
 checkpoint role ``latest``) against the ScriptPlayer (``--p2 sp``),
 the RandomPlayer (``--p2 rp``) or another checkpoint role (``--p2 az
 --c2 ROLE``) in mirrored pairs, with argmax moves; or two heuristic players
-(``--p1 sp|rp --p2 sp|rp``) through ``agents.driver.play_match``.
+(``--p1 sp|rp --p2 sp|rp``): with ``--cpu`` on the native C++ engine
+(``native.py``) when its library loads, as the JAX CLI plays them, and
+otherwise through ``agents.driver.play_match``.
 ``train``: the AlphaZero loop (self-play, epochs, gating arena, benchmark,
 checkpoints), resuming from ``checkpoints/`` when it holds a ``latest``.
 ``train-script``: the same loop on games against the ScriptPlayer.
@@ -15,6 +17,13 @@ checkpoints), resuming from ``checkpoints/`` when it holds a ``latest``.
 ``analysis``: 5-fold cross-validation of fresh networks on
 ``{data_dir}/training_samples.npz`` (the replay file the train modes
 write), printed as one JSON line.
+``watch``: the game viewer (``utils/watch.py``), one game rendered turn by
+turn (``--micro``: every micro-decision; ``--no-pause``: without waiting
+for Enter).  Heuristic seats play on the scalar oracle; a game with an
+AlphaZero seat (``--c1``/``--c2`` roles, plain network) steps the batched
+engine and search at B=1.
+Every mode but ``watch`` first writes the effective settings to
+``{log_dir}/settings.txt``.
 The network paths optionally run the BN-folded bf16 (``--fast``) or int8
 (``--fast --int8``) inference.  Runs on the card unless ``--cpu`` is given.
 
@@ -31,6 +40,8 @@ Usage:
   python -m alphazero_risk_tpu_torch.cli -m play --p1 sp --p2 rp --games 64
   python -m alphazero_risk_tpu_torch.cli -m analysis --cpu --blocks 2 \\
       --filters 32 --value-hidden 16 --bs 32
+  python -m alphazero_risk_tpu_torch.cli -m watch --p1 az --p2 sp --mcts 32
+  python -m alphazero_risk_tpu_torch.cli -m watch --p1 sp --p2 rp --no-pause
 """
 
 from __future__ import annotations
@@ -49,7 +60,11 @@ def build_parser() -> argparse.ArgumentParser:
         description="AlphaZero for the game Risk (PyTorch/CUDA port)")
     p.add_argument("-m", "--mode", default="play",
                    choices=["play", "train", "train-script", "train-data",
-                            "analysis"])
+                            "analysis", "watch"])
+    p.add_argument("--micro", action="store_true",
+                   help="watch mode: pause every micro-decision, not turn")
+    p.add_argument("--no-pause", action="store_true",
+                   help="watch mode: dump all turns without waiting")
     p.add_argument("--p1", default="az", choices=["az", "sp", "rp"],
                    help="player 1 in play mode (AlphaZero, ScriptPlayer or "
                         "RandomPlayer)")
@@ -64,7 +79,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(latest, best, iter-N) or a params npz in the "
                         "save_params_npz format")
     p.add_argument("--c2", default="best",
-                   help="checkpoint role of player 2 (play --p2 az)")
+                   help="checkpoint role of player 2 (play and watch with "
+                        "--p2 az)")
     p.add_argument("--games", "--cg", type=int, default=1000,
                    help="games for play/compare (rounded up to mirrored "
                         "pairs)")
@@ -144,7 +160,8 @@ def config_from_args(args) -> Config:
             over[field] = bool(v)
     over["compare_games"] = args.games
     over["fast_infer"] = bool(args.fast)
-    over["fast_infer_int8"] = bool(args.fast and args.int8)
+    # as the JAX CLI sets it: --int8 takes effect only with --fast
+    over["fast_infer_int8"] = bool(args.int8)
     return Config().replace(**over)
 
 
@@ -169,15 +186,61 @@ def play_heuristic(args, cfg: Config, device) -> dict:
             "engine": "torch", "micro_steps": res.steps, **summarize(res)}
 
 
+def play_native(args, cfg: Config):
+    """``-m play --p1 sp|rp --p2 sp|rp --cpu`` on the native C++ engine, as
+    the JAX CLI plays it; None when the library does not load."""
+    from .native import NativeEngine, available
+    if not available():
+        return None
+    res, _, steps = NativeEngine(cfg).play_games(args.p1, args.p2,
+                                                 args.games, args.seed)
+    return {"mode": "play", "p1": args.p1, "p2": args.p2,
+            "engine": "native", "games": int(res.shape[0]),
+            "p0_wins": int((res == 0).sum()),
+            "p1_wins": int((res == 1).sum()),
+            "draws": int((res == -2).sum()), "micro_steps": steps}
+
+
+def watch(args, cfg: Config, device) -> None:
+    """``-m watch``: AlphaZero seats go to ``watch_game_az`` (on the card
+    unless ``--cpu``), heuristic pairs to the oracle viewer."""
+    if "az" in (args.p1, args.p2):
+        from .utils.watch import watch_game_az
+        watch_game_az(args.p1, args.p2, seed=args.seed, cfg=cfg,
+                      ckpt_dir=Config().checkpoint_dir,
+                      roles=(args.c1 or "latest", args.c2),
+                      micro=args.micro, pause=not args.no_pause,
+                      device=device)
+    else:
+        from .utils.watch import watch_game
+        watch_game(args.p1, args.p2, seed=args.seed, cfg=cfg,
+                   micro=args.micro, pause=not args.no_pause)
+
+
+def write_settings(cfg: Config) -> None:
+    """Dump the effective settings like the reference
+    (settings.h:198-210)."""
+    os.makedirs(cfg.log_dir, exist_ok=True)
+    with open(f"{cfg.log_dir}/settings.txt", "w") as f:
+        for field in dataclasses.fields(cfg):
+            f.write(f"{field.name}={getattr(cfg, field.name)}\n")
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
     device = "cpu" if args.cpu else "cuda"
 
+    if args.mode == "watch":
+        watch(args, cfg, device)
+        return
+    write_settings(cfg)
+
     if args.mode == "play" and args.p1 != "az":
         if args.p2 == "az":
             raise SystemExit("put the az player in --p1")
-        print(json.dumps(play_heuristic(args, cfg, device)))
+        res = play_native(args, cfg) if args.cpu else None
+        print(json.dumps(res or play_heuristic(args, cfg, device)))
         return
 
     if args.mode == "analysis":
@@ -190,13 +253,6 @@ def main(argv=None):
     from .training import actor as A
     from .training.checkpoints import load_params_npz
     from .training.trainer import Trainer
-
-    if args.mode != "play":
-        # Dump effective settings like the reference (settings.h:198-210).
-        os.makedirs(cfg.log_dir, exist_ok=True)
-        with open(f"{cfg.log_dir}/settings.txt", "w") as f:
-            for field in dataclasses.fields(cfg):
-                f.write(f"{field.name}={getattr(cfg, field.name)}\n")
 
     trainer = Trainer(cfg, seed=args.seed, device=device)
     # play restores the role latest by default, as the JAX CLI does; the

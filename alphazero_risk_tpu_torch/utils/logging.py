@@ -1,16 +1,17 @@
-"""Metrics logging: the append-mode log files of the training loop
-(reference ``log.h:39-82``), kept format-compatible enough for the
-reference's chart tooling style, plus a JSONL mirror for programmatic use.
+"""Metrics logging: the reference's five append-mode log files and the
+console progress bar (reference ``log.h:11-91``), kept format-compatible
+enough for the reference's chart tooling style, plus a JSONL mirror for
+programmatic use.
 
-The port's own copy of what it needs from
-``alphazero_risk_tpu/utils/logging.py`` (the port imports nothing of the
-JAX package): same files, same line formats.
+The port's own copy of ``alphazero_risk_tpu/utils/logging.py`` (the port
+imports nothing of the JAX package): same files, same line formats.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import sys
 import time
 
 
@@ -28,14 +29,18 @@ class LogFile:
 
 
 class Logs:
-    """improvement / benchmark / nn-training logs (reference
-    log.h:39-82) and the JSONL event mirror."""
+    """improvement / benchmark / nn-training / nn-performance /
+    mcts-performance logs (reference log.h:39-82) and the JSONL event
+    mirror."""
 
     def __init__(self, log_dir: str = "log"):
         self.dir = log_dir
         self.improvement = LogFile(f"{log_dir}/azr-improvement-log.txt")
         self.benchmark = LogFile(f"{log_dir}/azr-benchmark-log.txt")
         self.nn_training = LogFile(f"{log_dir}/azr-nn-log.txt")
+        self.nn_performance = LogFile(f"{log_dir}/nn-performance-log.txt")
+        self.mcts_performance = LogFile(
+            f"{log_dir}/mcts-performance-log.txt")
         self.jsonl = LogFile(f"{log_dir}/events.jsonl")
 
     def event(self, kind: str, **kw) -> None:
@@ -69,3 +74,13 @@ class Logs:
         self.event("nn_epoch", iteration=iteration, epoch=epoch,
                    pi_loss=pi_loss, v_loss=v_loss)
 
+
+def print_progress(i: int, total: int, width: int = 40) -> None:
+    """Console progress bar (reference UtilityFormat::printProgress,
+    log.h:11-21)."""
+    frac = i / max(total, 1)
+    bar = "#" * int(frac * width)
+    sys.stdout.write(f"\r[{bar:<{width}}] {i}/{total}")
+    sys.stdout.flush()
+    if i >= total:
+        sys.stdout.write("\n")

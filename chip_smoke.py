@@ -125,11 +125,30 @@ when all of them pass):
    back by the host buffer; the ring's ingest and epochs timed beside the
    host buffer's on the same samples.  (d) ``cross_validate`` over (c)'s
    npz, 2 folds of at most 2 epochs at 20x256.  Its launch counts are
-   those of (b) and (c).
+   those of (b) and (c);
+9. watch: the game viewer with an AlphaZero seat on the card at B=1
+   (``utils/watch.py::watch_game_az``: the plain 20x256 network restored
+   from phase 5's ``latest``, one ``run_episodes`` call per micro-step).
+   (a) az vs sp, every micro-step rendered, headless: at 32 simulations
+   (the viewer's default) for WATCH_TIMED_STEPS micro-steps on the
+   kernels, timed (seconds per AlphaZero decision); at TRAIN's 8 for
+   WATCH_STEPS micro-steps (through the setup into the attack phase) once
+   on the kernels and once under ``plain_versions()`` from the same seed:
+   the printed boards and ``pi`` lines equal line for line.  Every run's
+   launches equal what its micro-step count implies (``watch_launches``;
+   none in the plain run).  (b) K2, K3, K6, K7 (step and expand), K8 (its
+   three forms), K9 and K10 held against their plain versions at B=1 on
+   (a)'s own roots, trees and ScriptPlayer inputs (every WATCH_HOLDS-th
+   search of each run).  (c) az vs az, ``latest`` against ``best`` (the
+   flagship saved as ``best`` if phase 5 left none) through the paired
+   eval, WATCH_PAIRED_STEPS micro-steps.  (d) ``python -m
+   alphazero_risk_tpu_torch.cli -m watch --p1 sp --p2 rp --no-pause`` as
+   a subprocess: rc 0 and a final "wins in round" or "draw" line.  Its
+   launch counts are those of (a) and (c).
 
 The line before the card's is a JSON object with one entry per kernel:
-``launches`` sums the five main paths (play, train, data, cards, reuse),
-each also given alone; the full-cards timings are the ``cards_*`` keys of
+``launches`` sums the six main paths (play, train, data, cards, reuse,
+watch), each also given alone; the full-cards timings are the ``cards_*`` keys of
 K7, K9, K10 and the multi-step entry.  The last line is ``{"ok": true,
 "device": {...}}``.  Imports nothing of JAX.
 """
@@ -895,15 +914,36 @@ def check_k6(tree, gum, root, cfg, eval_fn, timed=True):
 
 @contextlib.contextmanager
 def plain_versions():
-    """Inside the block the agents' steps and the status of the rules run
-    their plain versions: what the kernels are held against over a whole
-    ``run_scripted_episodes`` chunk."""
+    """Inside the block the agents' single steps (K9, K10), the rules
+    (K7's step, step_with_outcome and expand; K8's views, and with them
+    legality, status and features) and the search's node write, descent
+    and backup (K6, K2, K3) run their plain versions on the card: what the
+    kernels are held against over a whole ``run_scripted_episodes`` chunk
+    and a whole game of the viewer.  (The folded network's K1, K4, K5 and
+    the multi-step entry keep their kernels.)"""
     from alphazero_risk_tpu_torch.agents import random_agent as RA
     from alphazero_risk_tpu_torch.agents import script_agent as SA
     from alphazero_risk_tpu_torch.env import rules
+    from alphazero_risk_tpu_torch.mcts import search as S
+
+    def state_views(st, cfg, *, legal=False, status=False, features=False):
+        return rules._state_views_plain(st, cfg, legal, status, features)
+
+    def write_nodes(tree, src, status, value, legal, probs, path=None):
+        return S._write_nodes_plain(tree, src, status, value, legal, probs,
+                                    path)
+
     swaps = [(SA, "script_step_recorded", SA._script_step_recorded_plain),
              (RA, "random_step_recorded", RA._random_step_recorded_plain),
-             (rules, "game_status", rules._game_status_plain)]
+             (rules, "game_status", rules._game_status_plain),
+             (rules, "legal_actions", rules._legal_actions_plain),
+             (rules, "state_views", state_views),
+             (rules, "step", rules._step_plain),
+             (rules, "step_with_outcome", rules._step_with_outcome_plain),
+             (rules, "expand", rules._expand_plain),
+             (S, "descend", S._descend_plain),
+             (S, "backup", S._backup_plain),
+             (S, "write_nodes", write_nodes)]
     saved = [(m, name, getattr(m, name)) for m, name, _ in swaps]
     for m, name, fn in swaps:
         setattr(m, name, fn)
@@ -1121,8 +1161,8 @@ def check_k7_expand(tree, gum, cfg, timed=True):
 
 def check_k8(st, cfg, timed=True, what=""):
     """K8 against its plain versions on the states ``st``: each output
-    alone and all three from one launch (features bit for bit, NaN where a
-    share is 0/0)."""
+    alone, all three from one launch, and legality with status (features
+    bit for bit, NaN where a share is 0/0)."""
     import torch
     from alphazero_risk_tpu_torch.env import rules
     from alphazero_risk_tpu_torch.env.featurize import (_featurize_plain,
@@ -1133,15 +1173,17 @@ def check_k8(st, cfg, timed=True, what=""):
     alone = (rules.legal_actions(st, cfg), rules.game_status(st, cfg),
              featurize(st, cfg))
     both = rules.state_views(st, cfg, legal=True, status=True, features=True)
+    pair = rules.state_views(st, cfg, legal=True, status=True)
     torch.cuda.synchronize()
-    for got in (alone, both):
+    for got in (alone, both, pair):
         for name, g, w in zip(("legal", "status", "features"), got, want):
             if not (torch.equal(torch.isnan(g), torch.isnan(w))
                     and torch.equal(g.nan_to_num(), w.nan_to_num())):
                 fail(f"K8 {name} differs from the plain version at B={n}")
     nan_games = int(torch.isnan(want[2]).flatten(1).any(-1).sum())
     msg = (f"K8 state_views B={n}{what}: legal, status and features equal, "
-           f"alone and together ({nan_games} games with a 0/0 share)")
+           f"alone, all three together and legal with status ({nan_games} "
+           f"games with a 0/0 share)")
     log(msg)
     if not timed:
         return None
@@ -2789,6 +2831,246 @@ def phase_reuse(base, states, entries, play_dps, card):
     log(f"reuse: {time.perf_counter() - t_phase:.1f} s on {card}")
 
 
+# Phase 9, the AlphaZero viewer at B=1: a micro-step is one search of the
+# plain 20x256 network, 0.53 s at 32 simulations on the kernels and 1.64 s
+# on the plain versions (NVIDIA H100 80GB HBM3, 700.00 W; a whole game
+# held at 32 simulations took this script past its time limit), so the
+# held run searches at TRAIN's simulations over the setup (about 50
+# micro-steps) into the battle phases, and 32 simulations, the viewer's
+# default, run on the kernels alone.
+WATCH_TIMED_STEPS = 30    # (a) at SIMS, kernels only
+WATCH_STEPS = 90          # (a) at TRAIN's simulations, kernels and plain
+WATCH_PAIRED_STEPS = 10   # (c) az vs az at TRAIN's simulations
+WATCH_HOLDS = 30          # (b) holds every 30th search's tree and states
+
+
+@contextlib.contextmanager
+def quiet():
+    """Inside the block ``log`` collects its lines instead of printing
+    them (the B=1 holds of phase 9 print one summary)."""
+    global log
+    saved, lines = log, []
+    log = lambda *a: lines.append(" ".join(str(x) for x in a))  # noqa: E731
+    try:
+        yield lines
+    finally:
+        log = saved
+
+
+def watch_launches(steps, sims, opponent):
+    """The launches ``steps`` micro-steps of the AlphaZero viewer imply, and
+    its final status: every step searches (``record_all``, or the paired
+    eval): K8 for the step's status, the root's legality and status, the
+    root's and each simulation's features and the chunk's closing status;
+    K6 for the root and each simulation; K2, K7's expand and K3 per
+    simulation, K7 for the move; the opponent's single step (K9 or K10)
+    once a step.  The plain network launches no K1, K4 or K5."""
+    want = {"mcts_descend": steps * sims, "mcts_backup": steps * sims,
+            "write_nodes": steps * (sims + 1),
+            "rules_step": steps * (sims + 1),
+            "state_views": steps * (sims + 4) + 1,
+            "script_step": steps if opponent == "sp" else 0,
+            "random_step": steps if opponent == "rp" else 0,
+            "conv3x3_i8": 0, "conv3x3_bf16": 0, "heads_eval": 0,
+            "agent_steps": 0}
+    return want
+
+
+def run_watch(p1, p2, cfg, max_steps, capture=None, plain=False):
+    """``watch_game_az`` on the card from ``WORK/checkpoints``'s latest and
+    best, seed 0, ``micro``, headless, on the kernels or (``plain``) under
+    ``plain_versions()``.  Fails unless the launches are those its
+    micro-steps imply (none when ``plain``).  Returns (stdout, seconds,
+    launch counts, micro-steps, AlphaZero moves).  ``capture`` (a list)
+    collects every ``WATCH_HOLDS``-th search's (root, noise, eval_fn,
+    tree) and the ScriptPlayer's inputs of the same step."""
+    import io
+    import torch
+    from alphazero_risk_tpu_torch import kernels
+    from alphazero_risk_tpu_torch.agents import script_agent as SA
+    from alphazero_risk_tpu_torch.mcts import search as S
+    from alphazero_risk_tpu_torch.utils.watch import watch_game_az
+
+    search, script = S.search, SA.script_step_recorded
+    n = [0, 0]
+
+    def captured_search(root, gumbel, c, eval_fn, noise_u=None):
+        res = search(root, gumbel, c, eval_fn, noise_u=noise_u)
+        if n[0] % WATCH_HOLDS == 0:
+            capture.append({"root": root, "gum": gumbel, "eval_fn": eval_fn,
+                            "tree": res.tree, "cfg": c})
+        n[0] += 1
+        return res
+
+    def captured_script(st, carry, reset, u, dice, c):
+        if n[1] % WATCH_HOLDS == 0:
+            capture[-1]["k9"] = (st, carry, reset, u, dice)
+        n[1] += 1
+        return script(st, carry, reset, u, dice, c)
+
+    if capture is not None:
+        S.search, SA.script_step_recorded = captured_search, captured_script
+    out = io.StringIO()
+    try:
+        with plain_versions() if plain else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            kernels.reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                watch_game_az(p1, p2, seed=0, cfg=cfg,
+                              ckpt_dir=str(WORK / "checkpoints"),
+                              roles=("latest", "best"), micro=True,
+                              pause=False, max_steps=max_steps,
+                              device="cuda")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = kernels.counts()
+    finally:
+        S.search, SA.script_step_recorded = search, script
+    text = out.getvalue()
+    steps = text.count("[micro-step")
+    want = watch_launches(steps, cfg.mcts_simulations, p2)
+    if plain:
+        want = {k: 0 for k in want}
+    if counts != want:
+        fail(f"watch {p1} vs {p2}{' (plain)' if plain else ''}: launches "
+             f"{counts} differ from the expected {want} for {steps} "
+             f"micro-steps")
+    if steps == 0 or "pi: " not in text:
+        fail(f"watch {p1} vs {p2}: no micro-step printed")
+    return text, secs, counts, steps, text.count("last mover: player 0 (az)")
+
+
+def hold_watch_kernels(capture):
+    """Phase 9 (b): the kernels of the viewer's path held against their
+    plain versions at B=1 on its own captured states and trees."""
+    import types
+    import torch
+    from alphazero_risk_tpu_torch.env import rules
+    held = 0
+    for c in capture:
+        tree, root, gum, cfg = c["tree"], c["root"], c["gum"], c["cfg"]
+        if tree.player.shape[0] != 1:
+            fail("watch (b): the viewer's tree is not a batch of one")
+        check_k2_k3(tree, gum[0], cfg, root.device, timed=False,
+                    what=" (watch)")
+        check_k6(tree, gum[1], root, cfg, c["eval_fn"], timed=False)
+        check_k7_expand(tree, gum[-1], cfg, timed=False)
+        check_k8(root, cfg, timed=False, what=" (watch)")
+        gen = torch.Generator(device=root.device).manual_seed(held)
+        legal = rules._legal_actions_plain(root, cfg)
+        pick = torch.rand(legal.shape, generator=gen, device=root.device)
+        action = torch.argmax(torch.where(legal, pick, -1.0), -1).to(
+            torch.int32)
+        st, carry, reset, u, dice = c["k9"]
+        check_k7(types.SimpleNamespace(state=root, action=action, dice=dice,
+                                       u=u), cfg, timed=False)
+        check_k9_k10(types.SimpleNamespace(state=st, carry=carry,
+                                           reset=reset, u=u, dice=dice),
+                     cfg, timed=False)
+        held += 1
+    return held
+
+
+def phase_watch(base, entries, card):
+    """Phase 9, the game viewer with AlphaZero seats on the card at B=1
+    (``utils/watch.py::watch_game_az``, the plain 20x256 network) from
+    phase 5's ``latest``: (a) az vs sp, micro, headless: at SIMS
+    simulations (the viewer's default) for WATCH_TIMED_STEPS micro-steps
+    on the kernels, timed; at TRAIN's simulations for WATCH_STEPS
+    micro-steps on the kernels and under ``plain_versions()`` from the
+    same seed (printed boards and ``pi`` lines equal); launches equal to
+    what the micro-steps imply; (b) K2, K3, K6, K7 (step and expand), K8
+    (three forms), K9 and K10 held at B=1 on the captured states and trees
+    of (a); (c) az vs az (``latest`` against ``best``, the paired eval)
+    for WATCH_PAIRED_STEPS micro-steps; (d) the CLI's heuristic viewer as
+    a subprocess.  The launches of (a) and (c) are each entry's
+    ``launches_watch``."""
+    import copy
+    from alphazero_risk_tpu_torch.training.checkpoints import (
+        CheckpointManager)
+    from alphazero_risk_tpu_torch.training.learner import train_state_of
+
+    t_phase = time.perf_counter()
+    cfg = base.cfg.replace(mcts_simulations=SIMS)
+    held_cfg = cfg.replace(mcts_simulations=TRAIN["mcts_simulations"])
+    mgr = CheckpointManager(cfg, str(WORK / "checkpoints"))
+    if not mgr.exists("latest"):
+        fail("watch: phase 5 left no 'latest' checkpoint")
+    # (a) az vs sp: timed at SIMS on the kernels; held at TRAIN's
+    # simulations, kernels against the plain versions
+    capture = []
+    out_t, secs_t, counts_t, steps_t, az_t = run_watch(
+        "az", "sp", cfg, WATCH_TIMED_STEPS, capture=capture)
+    log(f"watch (a) az vs sp, B=1, {SIMS} simulations, {cfg.blocks}x"
+        f"{cfg.filters} plain net, on the kernels: {steps_t} micro-steps "
+        f"({az_t} AlphaZero moves) in {secs_t:.1f} s: "
+        f"{secs_t / steps_t:.4f} s per micro-step (one search each), "
+        f"{secs_t / max(az_t, 1):.4f} s per AlphaZero decision; launches "
+        f"as implied {counts_t}; {card}")
+    out_k, secs_k, counts_k, steps, az = run_watch(
+        "az", "sp", held_cfg, WATCH_STEPS, capture=capture)
+    out_p, secs_p, _, _, _ = run_watch("az", "sp", held_cfg, WATCH_STEPS,
+                                       plain=True)
+    lines_k, lines_p = out_k.splitlines(), out_p.splitlines()
+    if lines_k != lines_p:
+        bad = next((i for i, (a, b) in enumerate(zip(lines_k, lines_p))
+                    if a != b), min(len(lines_k), len(lines_p)))
+        fail(f"watch (a): the kernel and plain viewers differ at line {bad}: "
+             f"{lines_k[bad:bad + 1]} against {lines_p[bad:bad + 1]}")
+    if "  ATTACK  " not in out_k:
+        fail(f"watch (a): {steps} micro-steps reached no attack phase")
+    log(f"watch (a) az vs sp, B=1, {held_cfg.mcts_simulations} simulations: "
+        f"{steps} micro-steps ({az} AlphaZero moves), {lines_k[-1]}; the "
+        f"kernel and plain viewers print equal boards and pi lines "
+        f"({len(lines_k)} lines); kernels {secs_k:.1f} s "
+        f"({secs_k / steps:.4f} s per micro-step, "
+        f"{secs_k / max(az, 1):.4f} s per AlphaZero decision), plain "
+        f"versions {secs_p:.1f} s ({secs_p / steps:.4f} s per micro-step); "
+        f"launches as implied {counts_k}; {card}")
+
+    # (b) the kernels at B=1 on the viewer's own states and trees
+    with quiet() as held_lines:
+        held = hold_watch_kernels(capture)
+    if held < 4:
+        fail(f"watch (b): only {held} captured searches")
+    log(f"watch (b): K2, K3, K6, K7 (step and expand), K8 (three forms), "
+        f"K9 and K10 equal to their plain versions at B=1 on {held} of "
+        f"(a)'s searches (N = {cfg.num_nodes} and {held_cfg.num_nodes}), "
+        f"their roots and the ScriptPlayer's inputs "
+        f"({len(held_lines)} holds)")
+
+    # (c) az vs az through the paired eval, latest against best
+    if not mgr.exists("best"):
+        mgr.save("best", train_state_of(copy.deepcopy(base.net), cfg))
+        log("watch (c): saved the flagship as 'best'")
+    out_c, secs_c, counts_c, steps_c, _ = run_watch(
+        "az", "az", held_cfg, WATCH_PAIRED_STEPS)
+    log(f"watch (c) az vs az (latest vs best, paired eval), "
+        f"{held_cfg.mcts_simulations} simulations: {steps_c} micro-steps "
+        f"in {secs_c:.1f} s ({secs_c / steps_c:.4f} s per decision); "
+        f"{out_c.splitlines()[-1]}; launches as implied")
+    for e in entries:
+        e["launches_watch"] = sum(c[e["name"]] for c in
+                                  (counts_t, counts_k, counts_c))
+
+    # (d) the CLI's heuristic viewer, headless, as a user runs it
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "alphazero_risk_tpu_torch.cli", "-m",
+         "watch", "--p1", "sp", "--p2", "rp", "--no-pause"],
+        cwd=str(ROOT), capture_output=True, text=True, timeout=300,
+        stdin=subprocess.DEVNULL)
+    last = (proc.stdout.strip().splitlines() or [""])[-1]
+    if proc.returncode != 0 or not ("wins in round" in last
+                                    or "draw" in last):
+        fail(f"watch (d): rc {proc.returncode}, last line {last!r}, "
+             f"stderr {proc.stderr[-2000:]}")
+    log(f"watch (d): -m watch --p1 sp --p2 rp --no-pause rc 0 in "
+        f"{time.perf_counter() - t0:.1f} s: {last}")
+    log(f"watch: {time.perf_counter() - t_phase:.1f} s on {card}")
+
+
 def main():
     t_start = time.perf_counter()
     card = phase_device()
@@ -2812,9 +3094,12 @@ def main():
     phase_cards(entries, cmx, cfg.replace(**CARDS), card)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     phase_reuse(trainer, states, entries, play_dps, card)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    phase_watch(trainer, entries, card)
     for e in entries:
         e["launches"] = sum(e[f"launches_{p}"] for p in
-                            ("play", "train", "data", "cards", "reuse"))
+                            ("play", "train", "data", "cards", "reuse",
+                             "watch"))
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": entries}))
     print(card)

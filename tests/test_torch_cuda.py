@@ -989,3 +989,232 @@ def test_full_cards_play_match_in_blocks_matches_plain(cuda, agents):
     assert torch.equal(res.rounds, ref.round)
     assert bool((res.status != -1).all())
     assert bool((ref.card_sets_played > 0).any())
+
+
+# ------------------------------------------------ tree reuse on the card
+
+def _played_move(cfg, root, seed):
+    """One search on the CPU over ``root``, its argmax move, the move's
+    dice and the chance outcome they realise."""
+    gen = torch.Generator().manual_seed(seed)
+    res = S.search(root, S.draw_gumbel(gen, cfg, root.batch_size, "cpu"),
+                   cfg, uniform_eval)
+    action = S.pick_move(res, root, cfg, False)
+    dice = rules.roll_dice(gen, root.batch_size)
+    return res.tree, action, dice, A.realised_outcome(root, action, dice)
+
+
+@pytest.mark.parametrize("sims", [8, 32])
+@pytest.mark.parametrize("batch", [1, 3, 64])
+def test_reroot_matches_cpu(cuda, batch, sims):
+    """``reroot`` on the card (its stable ``int8`` argsort of the drop
+    flags) equals the CPU's, which equals JAX's: every array of the
+    compacted tree, the garbage past ``n_keep`` included, and the reuse
+    flags."""
+    cfg = Config(mcts_simulations=sims, max_depth=16, tree_reuse=True)
+    root = played_roots(batch, 120, seed=sims + batch)
+    tree, action, _, outcome = _played_move(cfg, root, batch)
+    want, want_reused = S.reroot(tree, action, outcome, cfg)
+    got, got_reused = S.reroot(_to(tree, cuda), action.to(cuda),
+                               outcome.to(cuda), cfg)
+    assert torch.equal(got_reused.cpu(), want_reused)
+    _assert_trees_equal(_to(got, "cpu"), want)
+    if batch == 64:
+        assert bool(want_reused.any()) and int(want.next_free.max()) > 1
+
+
+@pytest.mark.parametrize("batch", [1, 3, 64])
+def test_search_kernels_on_rerooted_trees_match_plain(cuda, batch):
+    """On the tree ``search_with_reuse`` starts from (carried subtrees
+    where the played child was expanded, fresh roots elsewhere): K2, K7's
+    expand, K6 and K3 against their plain versions; then the whole
+    reusing search on the card equal to the CPU's."""
+    cfg = Config(mcts_simulations=8, max_depth=16, tree_reuse=True)
+    root = played_roots(batch, 120, seed=40 + batch)
+    tree, action, dice, outcome = _played_move(cfg, root, batch)
+    nxt = rules.step(root, action, dice, cfg)
+    carried, reused = S.reroot(tree, action, outcome, cfg)
+    gum = S.draw_gumbel(torch.Generator().manual_seed(batch), cfg, batch,
+                        "cpu")
+    cnxt = tree_map(lambda x: x.to(cuda), nxt)
+    ccarried, creused = _to(carried, cuda), reused.to(cuda)
+    start = S._select_tree(creused & S.carried_roots_match(ccarried, cnxt),
+                           ccarried, S.init_tree(cnxt, cfg, uniform_eval))
+    g0 = gum[0].to(cuda)
+    path = _assert_descent_matches_plain(start, g0, cfg)
+    args = (start.states, path.exp_n, path.exp_a, path.exp_o, cfg)
+    got, ref = rules.expand(*args), rules._expand_plain(*args)
+    _assert_states_equal(got[0], ref[0])
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+    kt, pt = _clone_tree(start), _clone_tree(start)
+    ins = S.expansion_inputs(kt, path, cfg, uniform_eval)
+    lv, lp = S.write_nodes(kt, *ins, path)
+    rv, rp = S._write_nodes_plain(pt, *ins, path)
+    assert torch.equal(lv, rv) and torch.equal(lp, rp)
+    _assert_trees_equal(kt, pt)
+    S.backup(kt, path, lv, lp)
+    S._backup_plain(pt, path, rv, rp)
+    assert torch.equal(kt.visit, pt.visit) and torch.equal(kt.wsum, pt.wsum)
+    on_card = S.search_with_reuse(cnxt, gum.to(cuda), cfg, uniform_eval,
+                                  ccarried, creused)
+    on_cpu = S.search_with_reuse(nxt, gum, cfg, uniform_eval, carried,
+                                 reused)
+    _assert_trees_equal(_to(on_card.tree, "cpu"), on_cpu.tree)
+    assert torch.equal(on_card.pi.cpu(), on_cpu.pi)
+
+
+# ------------------------------------------- the device ring on the card
+
+def _actor_samples(t, b, seed):
+    """A [t, b] ``SampleBatch`` of random records, about 60% valid."""
+    g = torch.Generator().manual_seed(seed)
+
+    def ints(lo, hi, shape, dtype):
+        return torch.randint(lo, hi, shape, generator=g).to(dtype)
+
+    pol = torch.rand((t, b, 43), generator=g)
+    return A.SampleBatch(
+        owner=ints(0, 3, (t, b, 42), torch.int8),
+        army=ints(1, 33, (t, b, 42), torch.int8),
+        cur_player=ints(0, 2, (t, b), torch.int8),
+        phase=ints(0, 6, (t, b), torch.int8),
+        round=ints(1, 59, (t, b), torch.int16),
+        reinforcements=ints(0, 30, (t, b), torch.int16),
+        attacks_during_turn=ints(0, 9, (t, b), torch.int16),
+        can_draw_card=ints(0, 2, (t, b), torch.bool),
+        policy=(pol / pol.sum(-1, keepdim=True)).half(),
+        value=torch.zeros((t, b)),
+        valid=torch.rand((t, b), generator=g) < 0.6)
+
+
+RING = Config(batch_size=16, samples_storage_min_batches=1,
+              samples_storage_max_batches=4)          # 64 slots
+
+
+def _assert_rings_equal(a, b):
+    assert (a.start, a.size, a.old_game_index) == \
+        (b.start, b.size, b.old_game_index)
+    for k in a.data:
+        assert torch.equal(a.data[k].cpu(), b.data[k].cpu()), k
+
+
+def test_device_ring_wraps_on_the_card_as_on_the_cpu(cuda):
+    """``DeviceReplay`` on the card and on the CPU, fed the same actor
+    records (wrapping ``index_copy_`` writes, an ingest larger than the
+    ring that keeps only its newest rows), host arrays and trims: every
+    slot, the window and the old-game index equal after each
+    operation."""
+    from alphazero_risk_tpu_torch.training.device_replay import DeviceReplay
+    rings = {"cpu": DeviceReplay(RING, "cpu"), "cuda": DeviceReplay(RING,
+                                                                  cuda)}
+    for i, (t, b) in enumerate([(6, 4), (9, 5), (20, 8), (3, 2), (30, 6)]):
+        samples = _actor_samples(t, b, i)
+        status = torch.randint(-2, 2, (b,), generator=torch.Generator()
+                               .manual_seed(i)).to(torch.int32)
+        final = torch.randint(20, 58, (b,), dtype=torch.int32)
+        n = {}
+        for name, ring in rings.items():
+            dev = ring.device
+            n[name] = ring.extend_from_actor(
+                A.SampleBatch(*(x.to(dev) for x in samples)),
+                status.to(dev), final_round=final.to(dev))
+        assert n["cpu"] == n["cuda"] > 0
+        _assert_rings_equal(rings["cpu"], rings["cuda"])
+        if i % 2:
+            for ring in rings.values():
+                ring.mark_old_games()
+                ring.trim()
+            _assert_rings_equal(rings["cpu"], rings["cuda"])
+    host = rings["cpu"].sample_arrays(40)
+    for ring in rings.values():
+        ring.extend(host)
+    _assert_rings_equal(rings["cpu"], rings["cuda"])
+    assert rings["cuda"].size == RING.samples_storage_max
+
+
+def test_ring_epoch_order_matches_cpu(cuda, monkeypatch):
+    """``make_ring_epoch_fn``'s stable argsort on the card orders a window
+    as on the CPU, with the uniforms tied (all equal, or four values) and
+    not, at wrapped windows; then one real epoch on the card trains."""
+    from alphazero_risk_tpu_torch.training import learner as L
+    from alphazero_risk_tpu_torch.training.device_replay import DeviceReplay
+    cap = RING.samples_storage_max
+    seen = []
+    monkeypatch.setattr(L, "_minibatches",
+                        lambda state, cfg, data, perm, prep:
+                        seen.append(perm.cpu()) or (state, {}))
+    epoch = L.make_ring_epoch_fn(RING)
+    g = torch.Generator().manual_seed(3)
+    data = {"value": torch.zeros(cap)}
+    for r in (torch.zeros(cap), torch.randint(0, 4, (cap,), generator=g)
+              .float() / 4, torch.rand(cap, generator=g)):
+        for start, size in ((0, cap), (37, 50), (60, 20), (5, 15)):
+            seen.clear()
+            epoch(None, data, start, size, r=r)
+            epoch(None, {"value": data["value"].to(cuda)}, start, size,
+                  r=r.to(cuda))
+            assert torch.equal(seen[0], seen[1]), (start, size)
+    monkeypatch.undo()
+    from alphazero_risk_tpu_torch.training.learner import create_train_state
+    cfg = RING.replace(blocks=1, filters=16, value_hidden=8)
+    ring = DeviceReplay(cfg, cuda)
+    samples = _actor_samples(30, 6, 9)
+    ring.extend_from_actor(A.SampleBatch(*(x.to(cuda) for x in samples)),
+                           torch.zeros(6, dtype=torch.int32, device=cuda))
+    state = create_train_state(cfg, seed=0, device=cuda)
+    state, m = L.make_ring_epoch_fn(
+        cfg, prepare_batch=lambda d, i: A.prepare_samples(d, i, cfg))(
+        state, *ring.epoch_view(),
+        generator=torch.Generator(device=cuda).manual_seed(1))
+    assert state.step == ring.size // cfg.batch_size > 0
+    assert bool(torch.isfinite(m["loss"]))
+
+
+# --------------------------------------- the viewer's batch of one
+
+@pytest.mark.parametrize("p2", ["sp", "rp", "az"])
+def test_watch_steps_at_one_game_match_plain(cuda, p2):
+    """The AlphaZero viewer's step loop (``utils.watch.az_steps``) at
+    B=1 on the card: the kernels (K2, K3, K6, K7's step and expand, K8,
+    and K9 or K10 for the opponent) against every one of them swapped for
+    its plain version (``chip_smoke.plain_versions``) from the same seed,
+    through the setup into the battle phases: every state and ``pi``
+    equal, the launch counts those the step count implies."""
+    import itertools
+
+    from alphazero_risk_tpu_torch.models.resnet import build_network
+    from alphazero_risk_tpu_torch.utils import watch as W
+    from chip_smoke import plain_versions, watch_launches
+
+    cfg = Config(blocks=1, filters=32, value_hidden=16, mcts_simulations=8,
+                 max_depth=16)
+    net = build_network(cfg, device=cuda, seed=3).eval()
+    if p2 == "az":
+        efn = A.make_paired_eval_fn(
+            net, build_network(cfg, device=cuda, seed=4).eval(), cfg)
+        kw = dict(paired=True)
+    else:
+        efn = A.make_eval_fn(net, cfg)
+        kw = dict(opponent={"sp": A.OPP_SCRIPT, "rp": A.OPP_RANDOM}[p2],
+                  az_seats=(True, False))
+
+    def run():
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        st = new_game(1, generator=gen, device=cuda)
+        draws = itertools.repeat(A.GeneratorDraws(gen, cfg, 1, cuda))
+        return [(s, pi.clone(), m)
+                for s, pi, m in W.az_steps(efn, st, cfg, draws, 90, **kw)]
+
+    kernels.reset_counts()
+    got = run()
+    counts = kernels.counts()
+    with plain_versions():
+        ref = run()
+    assert len(got) == len(ref) == 90
+    for (s, pi, m), (rs, rpi, rm) in zip(got, ref):
+        _assert_states_equal(s, rs)
+        assert torch.equal(pi, rpi) and m == rm
+    want = watch_launches(90, cfg.mcts_simulations, p2)
+    want["state_views"] -= 1          # the viewer's closing status
+    assert counts == want
+    assert 3 in {int(s.phase[0]) for s, _, _ in got}   # an attack phase

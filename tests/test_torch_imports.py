@@ -44,9 +44,18 @@ def _entry_points():
     from alphazero_risk_tpu_torch.training.checkpoints import load_params_npz
     from alphazero_risk_tpu_torch.training.device_replay import DeviceReplay
     from alphazero_risk_tpu_torch.training.trainer import Trainer
+    from alphazero_risk_tpu_torch.utils.watch import watch_game_az
     from alphazero_risk_tpu_torch import cli
     small = Config(blocks=1, filters=8, value_hidden=4)
     return {
+        "watch_game_az": lambda dev: watch_game_az(
+            "az", "sp", cfg=small.replace(mcts_simulations=2), pause=False,
+            max_steps=2, device=dev),
+        # the native engine plays heuristic matches only under --cpu;
+        # without it the CLI plays them on the card
+        "NativeEngine": lambda dev: cli.main(
+            ["-m", "play", "--p1", "sp", "--p2", "rp", "--games", "2"]
+            + (["--cpu"] if dev == "cpu" else [])),
         "Trainer": lambda dev: Trainer(small, device=dev),
         "Trainer_ring": lambda dev: Trainer(
             small.replace(device_replay=True,
@@ -68,8 +77,12 @@ def _entry_points():
 
 @pytest.mark.parametrize("name", ["Trainer", "Trainer_ring", "DeviceReplay",
                                   "cross_validate", "new_game",
-                                  "build_network", "load_params_npz", "cli"])
-def test_entry_points_need_a_card_or_cpu(name, monkeypatch, capsys):
+                                  "build_network", "load_params_npz", "cli",
+                                  "watch_game_az", "NativeEngine"])
+def test_entry_points_need_a_card_or_cpu(name, monkeypatch, capsys,
+                                         tmp_path):
+    # the CLI and the viewer write settings and checkpoints where they run
+    monkeypatch.chdir(tmp_path)
     fn = _entry_points()[name]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -92,7 +105,9 @@ def test_import_builds_and_loads_nothing():
         importlib.import_module(name)
     for mod in ("training.learner", "training.replay", "training.trainer",
                 "training.device_replay", "training.analysis", "env.checks",
-                "agents.random_agent", "utils.logging", "cli"):
+                "agents.random_agent", "utils.logging", "cli", "env.oracle",
+                "agents.oracle_agents", "utils.board", "utils.watch",
+                "utils.profiling", "native"):
         assert f"{pkg.__name__}.{mod}" in names
     assert "triton" not in sys.modules
     from alphazero_risk_tpu_torch import kernels

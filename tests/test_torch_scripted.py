@@ -257,14 +257,26 @@ def test_cli_train_data_train_script_and_play_az(tmp_path, monkeypatch,
 
 @pytest.mark.parametrize("p1,p2", [("sp", "rp"), ("sp", "sp")])
 def test_cli_play_heuristic_players(p1, p2, tmp_path, monkeypatch, capsys):
-    """``-m play --p1 sp|rp --p2 sp|rp`` runs ``play_match`` to the end
-    with no network; an az player only sits in --p1."""
+    """``-m play --p1 sp|rp --p2 sp|rp --cpu`` runs ``play_match`` to the
+    end with no network when the native engine does not load, and the
+    native engine's matches when it does; an az player only sits in
+    --p1."""
+    from alphazero_risk_tpu_torch import native
     monkeypatch.chdir(tmp_path)
-    cli.main(["-m", "play", "--p1", p1, "--p2", p2, "--games", "4", "--cpu"])
+    args = ["-m", "play", "--p1", p1, "--p2", p2, "--games", "4", "--cpu"]
+    with monkeypatch.context() as m:
+        m.setattr(native, "available", lambda: False)
+        cli.main(args)
     res = _last_json(capsys)
     assert (res["p1"], res["p2"], res["engine"]) == (p1, p2, "torch")
     assert res["games"] == 4 and res["unfinished"] == 0
     assert res["p0_wins"] + res["p1_wins"] + res["draws"] == 4
     assert 0 < res["micro_steps"] < Config().max_game_steps
+    cli.main(args)
+    res = _last_json(capsys)
+    assert (res["p1"], res["p2"], res["engine"]) == (p1, p2, "native")
+    assert res["games"] == 4
+    assert res["p0_wins"] + res["p1_wins"] + res["draws"] == 4
+    assert res["micro_steps"] > 0
     with pytest.raises(SystemExit, match="--p1"):
         cli.main(["-m", "play", "--p1", p1, "--p2", "az", "--cpu"])
