@@ -27,6 +27,14 @@ Every mode but ``watch`` first writes the effective settings to
 The network paths optionally run the BN-folded bf16 (``--fast``) or int8
 (``--fast --int8``) inference.  Runs on the card unless ``--cpu`` is given.
 
+A process world (``parallel/distributed.py``): one process per card, each
+started with ``--coordinator HOST:PORT --nprocs N --procid I`` (rank I takes
+card ``I % cards``; NCCL between the cards).  ``--cpu-collectives gloo``
+runs the collectives on gloo: two ranks on one card need it, and so does a
+``--cpu`` world.  The train modes then play and learn as one process with
+the same seed would, each rank keeping its replay in
+``{data_dir}/training_samples.p{I}.npz``; rank 0 writes the checkpoints.
+
 Usage:
   python -m alphazero_risk_tpu_torch.cli -m play --p1 az --p2 sp \\
       --games 64 --mcts 32 --fast --int8 \\
@@ -42,6 +50,9 @@ Usage:
       --filters 32 --value-hidden 16 --bs 32
   python -m alphazero_risk_tpu_torch.cli -m watch --p1 az --p2 sp --mcts 32
   python -m alphazero_risk_tpu_torch.cli -m watch --p1 sp --p2 rp --no-pause
+  python -m alphazero_risk_tpu_torch.cli -m train --cpu \\
+      --cpu-collectives gloo --coordinator 127.0.0.1:29500 --nprocs 2 \\
+      --procid 0    # and --procid 1 in a second shell
 """
 
 from __future__ import annotations
@@ -128,6 +139,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with --fast: int8-quantized trunk")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU instead of the card")
+    # multi-host launch (one process per card; see parallel/distributed.py)
+    p.add_argument("--coordinator", default=None,
+                   help="multi-host: coordinator address host:port")
+    p.add_argument("--nprocs", type=int, default=None,
+                   help="multi-host: total number of processes")
+    p.add_argument("--procid", type=int, default=None,
+                   help="multi-host: this process's id")
+    p.add_argument("--cpu-collectives", default=None,
+                   choices=["gloo", "mpi"],
+                   help="multi-host on CPU processes: collectives impl")
     return p
 
 
@@ -230,7 +251,20 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
     device = "cpu" if args.cpu else "cuda"
+    from .parallel import distributed as D
+    if args.coordinator is not None or args.nprocs is not None:
+        # before any trainer is built: the world gives this rank its card
+        device = D.initialize(args.coordinator, args.nprocs, args.procid,
+                              cpu_collectives=args.cpu_collectives,
+                              device=device)
+    try:
+        run(args, cfg, device)
+    finally:
+        D.shutdown()
 
+
+def run(args, cfg: Config, device) -> None:
+    """Run the mode of the parsed ``args``."""
     if args.mode == "watch":
         watch(args, cfg, device)
         return

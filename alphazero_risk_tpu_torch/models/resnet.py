@@ -8,9 +8,13 @@ in ``eval()`` mode it uses its running statistics; in ``train()`` mode it
 normalizes with the batch mean and the biased batch variance, computed in
 float32 as ``E[x^2] - E[x]^2``, and updates the running statistics in place
 as ``0.99 * old + 0.01 * batch`` (Flax keeps the biased variance there too;
-``nn.BatchNorm2d`` would store the unbiased one).  The ``nn.BatchNorm2d``
-modules only hold the parameters and buffers; their own forward is not
-used.  The forward is differentiable in both modes.
+``nn.BatchNorm2d`` would store the unbiased one).  In a process world
+(``parallel/distributed.py``) the batch is the global one, as under JAX's
+GSPMD: the per-channel sums of ``x`` and ``x^2`` are all-reduced (one
+differentiable all-reduce a layer), so the normalization, its gradient and
+the running statistics are those of the concatenated batch.  The
+``nn.BatchNorm2d`` modules only hold the parameters and buffers; their own
+forward is not used.  The forward is differentiable in both modes.
 
 Layout at the public boundary is the JAX package's: ``forward`` takes NHWC
 ``[B, 7, 6, F]`` features and the policy and value heads flatten their
@@ -33,6 +37,7 @@ from torch import nn
 
 from ..config import Config, NUM_ACTIONS
 from ..device import resolve_device
+from ..parallel import distributed as D
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -46,18 +51,35 @@ def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
 
 
 BN_MOMENTUM = 0.99
+_DIMS = (0, 2, 3)
+
+
+def _local_moments(x: torch.Tensor):
+    """Per-channel E[x] and E[x^2] over this process's batch."""
+    return x.mean(dim=_DIMS), (x * x).mean(dim=_DIMS)
+
+
+def _global_moments(x: torch.Tensor):
+    """Per-channel E[x] and E[x^2] over the world's batch: one
+    differentiable all-reduce of both sums."""
+    n = x.shape[0] * x.shape[2] * x.shape[3] * D.world()
+    s = D.all_reduce_sum(torch.stack([x.sum(dim=_DIMS),
+                                      (x * x).sum(dim=_DIMS)]))
+    return s[0] / n, s[1] / n
 
 
 def _bn(bn: nn.BatchNorm2d, x: torch.Tensor,
         training: bool | None = None) -> torch.Tensor:
     """Flax BatchNorm: (x - mean) * (rsqrt(var + eps) * scale) + bias, in
     float32, rounded to bf16.  In training mode (``training``, or the
-    module's own mode when it is None) mean and var are the batch's, and the
-    running statistics are updated in place."""
+    module's own mode when it is None) mean and var are the batch's (the
+    world's in a process world), and the running statistics are updated in
+    place."""
     shape = (1, -1, 1, 1)
     if bn.training if training is None else training:
-        mean = x.mean(dim=(0, 2, 3))
-        var = ((x * x).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0.0)
+        moments = _global_moments if D.world() > 1 else _local_moments
+        mean, ex2 = moments(x)
+        var = (ex2 - mean * mean).clamp(min=0.0)
         with torch.no_grad():
             bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean
                                   + (1 - BN_MOMENTUM) * mean)

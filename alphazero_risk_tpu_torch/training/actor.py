@@ -16,7 +16,10 @@ Gumbel noise of a sampled move, the dice of the AlphaZero move and the
 opponent's ``u``/dice (of the step, and of the fast-forward's iterations
 in blocks that can be put back, ``ff_block(k)`` and ``ff_rewind(m)``).
 ``GeneratorDraws`` draws them from a ``torch.Generator``; a test can hand in
-the numbers another implementation drew.  ``run_scripted_episodes`` (the
+the numbers another implementation drew.  In a process world
+``WorldDraws`` draws the world's global tensors and keeps this rank's rows,
+so every rank's generator stays in step and each game sees the numbers it
+would see in one process.  ``run_scripted_episodes`` (the
 supervised-bootstrap generator: scripted and random agents only, every
 decision recorded) takes one ``opp()`` draw per step from the same kind of
 object.
@@ -45,6 +48,7 @@ from ..env.featurize import featurize
 from ..env.state import GameState, tree_select
 from ..mcts import search as mcts
 from ..models.resnet import AZNet
+from ..parallel import distributed as D
 
 # The opponent fast-forward's blocks of draws: the first of FF_BLOCK
 # iterations, each next one twice the last, at most FF_BLOCK_MAX.  In the
@@ -211,6 +215,54 @@ class GeneratorDraws:
         return draw_step_randoms(self.gen, self.batch, self.device)
 
 
+class WorldDraws(GeneratorDraws):
+    """``GeneratorDraws`` of a process world: every draw is the global
+    batch's (``batch * world`` games), as in JAX, where a chunk is one
+    global dispatch, and this rank keeps its rows ``[r * batch, (r + 1) *
+    batch)`` (dim 0; dim 1 of a fast-forward block, dim 2 of ``gumbel``).
+
+    The fast-forward runs a data-dependent number of iterations: ``while
+    some game moves``, which in JAX is a world-wide condition.
+    ``ff_agree`` takes the world's maximum of this rank's iterations (one
+    all-reduce) and advances the draws by the iterations the other ranks
+    ran beyond this one's."""
+
+    def __init__(self, generator: torch.Generator, cfg: Config,
+                 batch: int, device):
+        super().__init__(generator, cfg, batch * D.world(), device)
+        self.rows = slice(D.rank() * batch, (D.rank() + 1) * batch)
+
+    def _mine(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        # a copy: contiguous and aligned, as the kernels take their inputs
+        idx = (slice(None),) * dim + (self.rows,)
+        return x[idx].clone(memory_format=torch.contiguous_format)
+
+    def ff_block(self, k: int):
+        u, dice = super().ff_block(k)
+        return self._mine(u, 1), self._mine(dice, 1)
+
+    def ff_agree(self, iterations: int) -> None:
+        behind = D.allgather_max(iterations) - iterations
+        if behind > 0:
+            super().ff_block(behind)
+
+    def gumbel(self) -> torch.Tensor:
+        return self._mine(super().gumbel(), 2)
+
+    def root_noise(self) -> torch.Tensor:
+        return self._mine(super().root_noise())
+
+    def pick(self) -> torch.Tensor:
+        return self._mine(super().pick())
+
+    def az_dice(self) -> torch.Tensor:
+        return self._mine(super().az_dice())
+
+    def opp(self):
+        u, dice = super().opp()
+        return self._mine(u), self._mine(dice)
+
+
 class ActorOutput(NamedTuple):
     state: GameState
     samples: SampleBatch            # [T, B, ...]
@@ -257,7 +309,9 @@ def run_episodes(eval_fn, state0: GameState, draws, cfg: Config,
     no MCTS compute is spent on games an opponent is moving in.  The
     opponent fast-forwards in blocks of draws (``blocks.run_agent_blocks``,
     blocks of ``FF_BLOCK`` to ``FF_BLOCK_MAX`` iterations; on the card one
-    launch of the multi-step entry and one host sync per block).
+    launch of the multi-step entry and one host sync per block).  A draws
+    object with an ``ff_agree`` method (``WorldDraws``) is then given the
+    fast-forward's iterations, to agree on them with the other ranks.
     """
     # the search expands by step_with_outcome, which has no card uniform
     rules.require_uniform(cfg, None)
@@ -281,12 +335,16 @@ def run_episodes(eval_fn, state0: GameState, draws, cfg: Config,
     def az_mask_of(st):
         return torch.where(st.cur_player == 0, az_seats[0], az_seats[1])
 
+    ff_agree = getattr(draws, "ff_agree", None)
+
     for _ in range(num_steps):
         draws.begin_step()
         if fast_forward:
-            state, carry, prev, _, _ = blocks.run_agent_blocks(
+            state, carry, prev, ff_iters, _ = blocks.run_agent_blocks(
                 state, carry, prev, cfg, draws.ff_block, draws.ff_rewind,
                 kinds=ff_kinds, k=FF_BLOCK, k_max=FF_BLOCK_MAX)
+            if ff_agree is not None:
+                ff_agree(ff_iters)
 
         live = rules.game_status(state, cfg) == STATUS_NOT_ENDED
         mover = state.cur_player

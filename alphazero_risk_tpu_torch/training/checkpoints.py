@@ -3,7 +3,10 @@
 Port of ``alphazero_risk_tpu/training/checkpoints.py``.
 
 ``CheckpointManager`` keeps the roles latest / best / iter-N / temp and a
-meta sidecar (iteration and the generator's state) for resume.  Role files
+meta sidecar (iteration and the generator's state) for resume.  In a
+process world (``parallel/distributed.py``) the checkpoint directory must
+be shared: rank 0 alone writes each file, the others wait for it, every
+rank restores, and a role's existence is agreed across the world.  Role files
 are the port's own: one ``torch.save`` of the step, the network's
 ``state_dict`` and the Adam state per role (the JAX package uses orbax
 there; the two are not interchangeable).
@@ -33,6 +36,7 @@ from ..config import Config
 from ..device import resolve_device
 from ..models.fast_infer import pack_heads, pack_trunk_wq
 from ..models.resnet import AZNet, build_network
+from ..parallel import distributed as D
 from .learner import TrainState, train_state_of
 
 _CONV = re.compile(r"(stem_conv|policy_conv|value_conv|block_\d+/conv_[ab])$")
@@ -177,12 +181,16 @@ class CheckpointManager:
         return os.path.join(self.dir, role + ".pt")
 
     def save(self, role: str, train_state: TrainState) -> None:
-        """role: 'latest', 'best', 'iter-<n>', 'temp' (settings.h:25-27)."""
-        tmp = self._path(role) + ".tmp"
-        torch.save({"step": train_state.step,
-                    "net": train_state.net.state_dict(),
-                    "opt": train_state.opt.state_dict()}, tmp)
-        os.replace(tmp, self._path(role))
+        """role: 'latest', 'best', 'iter-<n>', 'temp' (settings.h:25-27).
+        In a process world rank 0 writes it (every rank holds the same
+        state) and the others wait."""
+        if D.rank() == 0:
+            tmp = self._path(role) + ".tmp"
+            torch.save({"step": train_state.step,
+                        "net": train_state.net.state_dict(),
+                        "opt": train_state.opt.state_dict()}, tmp)
+            os.replace(tmp, self._path(role))
+        D.barrier()
 
     def restore(self, role: str, target: TrainState) -> TrainState:
         """A new train state shaped like ``target`` holding the role's
@@ -204,15 +212,30 @@ class CheckpointManager:
         return state
 
     def exists(self, role: str) -> bool:
-        return os.path.exists(self._path(role))
+        """Whether the role exists, agreed across the process world: with a
+        directory that is not shared some ranks would restore and others
+        start fresh, so a role present on some ranks only raises."""
+        local = os.path.exists(self._path(role))
+        if D.world() == 1:
+            return local
+        lo, hi = D.allgather_min(int(local)), D.allgather_max(int(local))
+        if lo != hi:
+            raise RuntimeError(
+                f"checkpoint '{role}' exists on some processes but not "
+                f"others: checkpoint_dir must be a shared filesystem")
+        return bool(lo)
 
     # ---- sidecar metadata: {iteration, generator state} so resume
     # continues numbering and does not replay identical game deals ----
     def save_meta(self, meta: dict) -> None:
-        tmp = os.path.join(self.dir, "meta.json.tmp")
-        with open(tmp, "w") as f:
-            json.dump(meta, f)
-        os.replace(tmp, os.path.join(self.dir, "meta.json"))
+        """Write the sidecar (rank 0 of a process world; the others
+        wait)."""
+        if D.rank() == 0:
+            tmp = os.path.join(self.dir, "meta.json.tmp")
+            with open(tmp, "w") as f:
+                json.dump(meta, f)
+            os.replace(tmp, os.path.join(self.dir, "meta.json"))
+        D.barrier()
 
     def load_meta(self) -> Optional[dict]:
         path = os.path.join(self.dir, "meta.json")

@@ -13,6 +13,15 @@ optimizer.  ``torch.optim.Adam`` at its defaults is optax's ``adam``: b1
 part of the loss (``l2_coeff * sum(w**2)``), not weight decay.  The
 network's convolutions and products go to PyTorch's own, as the JAX learner
 leaves them to XLA.
+
+In a process world (``parallel/distributed.py``) each rank's ``update``
+takes its rows of the global minibatch and the update is the one of the
+concatenated batch, as under JAX's GSPMD: BatchNorm normalizes with the
+world's statistics (``models/resnet.py``), the gradients are all-reduced
+as one flat buffer and divided by the world's size (the gradient of the
+global mean loss, the L2 term counted once), and the step's losses are
+world means.  Adam's state stays equal on every rank because the
+gradients are.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ from torch import nn
 from ..config import Config
 from ..device import resolve_device
 from ..models.resnet import AZNet, build_network
+from ..parallel import distributed as D
 
 
 @dataclasses.dataclass
@@ -75,15 +85,33 @@ def loss_fn(net: AZNet, cfg: Config, batch: Dict[str, torch.Tensor]):
     return total, {"pi_loss": pi_loss, "v_loss": v_loss, "l2": l2}
 
 
+def _world_mean_(params, metrics: torch.Tensor) -> torch.Tensor:
+    """Replace every gradient and the ``metrics`` by their world means, in
+    one all-reduce of one flat buffer.  Returns the metrics' means."""
+    grads = [p.grad for p in params]
+    flat = torch.cat([g.reshape(-1) for g in grads] + [metrics])
+    D.all_reduce_(flat).div_(D.world())
+    i = 0
+    for g in grads:
+        g.copy_(flat[i:i + g.numel()].view_as(g))
+        i += g.numel()
+    return flat[i:]
+
+
 def update(state: TrainState, cfg: Config, batch: Dict[str, torch.Tensor]):
-    """One Adam step on one minibatch, in place on ``state``."""
+    """One Adam step on one minibatch, in place on ``state`` (in a process
+    world, on this rank's rows of the global minibatch)."""
     state.opt.zero_grad(set_to_none=True)
     total, aux = loss_fn(state.net, cfg, batch)
     total.backward()
+    metrics = torch.stack([total.detach(), aux["pi_loss"].detach(),
+                           aux["v_loss"].detach()]).to(torch.float32)
+    if D.world() > 1:
+        metrics = _world_mean_(list(state.net.parameters()), metrics)
     state.opt.step()
     state.step += 1
-    return state, {"loss": total.detach(), "pi_loss": aux["pi_loss"].detach(),
-                   "v_loss": aux["v_loss"].detach()}
+    return state, {"loss": metrics[0], "pi_loss": metrics[1],
+                   "v_loss": metrics[2]}
 
 
 def _minibatches(state: TrainState, cfg: Config, data, perm: torch.Tensor,

@@ -1,8 +1,9 @@
 """AlphaZero training orchestration.
 
 Port of ``alphazero_risk_tpu/training/trainer.py`` (reference
-``AlphaZeroTrainer``, alphazero_trainer.{h,cpp}): a single-process
-actor-learner loop over batched self-play on one device.
+``AlphaZeroTrainer``, alphazero_trainer.{h,cpp}): an actor-learner loop
+over batched self-play, on one device or in a process world of one card
+per rank.
 
   train:  loop { self-play -> trim -> N epochs -> gating arena ->
           accept (save best/iter, promote) / revert -> benchmark }
@@ -29,7 +30,16 @@ chunks go into a ``DeviceReplay`` ring and the epochs sample it in place
 With ``cfg.tree_reuse`` the searching paths but the arena carry each
 search's subtree to the next decision (``actor.run_episodes``).
 
-Not ported yet: the mesh / multi-host branches.
+In a process world (``parallel/distributed.py``, one process per card) the
+trainer keeps the JAX package's multi-host semantics: every rank deals the
+same global wave and the same global draws and plays its rows of them, so
+a W-rank world plays the games of one process with the same seed.  Game
+counts round to multiples of lcm(2, W), ``env_batch_per_device`` caps the
+global wave, the all-done check and the tallies are world sums (every
+rank reaches the same gate verdict), each rank keeps its own replay
+(``training_samples.p{rank}.npz``), and the learner takes ``batch_size /
+W`` rows a step from each rank in one world update
+(``_train_epochs_multihost``).  The device ring is single-process.
 """
 
 from __future__ import annotations
@@ -51,12 +61,14 @@ from ..env.state import new_game
 from ..models.fast_infer import (default_calib_feats, fold_for_inference,
                                  make_fast_eval_fn, make_fast_paired_eval_fn)
 from ..models.resnet import AZNet
+from ..parallel import distributed as D
+from ..parallel.mesh import make_mesh, replicate, shard_batch
 from ..utils.logging import Logs
 from . import actor as A
 from .checkpoints import CheckpointManager
 from .device_replay import DeviceReplay
 from .learner import (create_train_state, make_epoch_fn, make_ring_epoch_fn,
-                      train_state_of)
+                      train_state_of, update)
 from .replay import ReplayBuffer
 
 
@@ -90,9 +102,20 @@ class Trainer:
         self.cfg = cfg
         self.seed = seed
         self.device = resolve_device(device)
+        # the process world (parallel/distributed.py): replay stays
+        # rank-local, games and minibatches are split over the ranks
+        self.world, self.rank = D.world(), D.rank()
+        if cfg.device_replay and self.world > 1:
+            raise ValueError(
+                "device_replay is single-process only: the multi-process "
+                "path splits episode batches and keeps replay rank-local")
+        self.mesh = make_mesh(axis=cfg.dp_axis, device=self.device) \
+            if self.world > 1 else None
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
         self.train_state = create_train_state(cfg, seed, self.device)
+        if self.mesh is not None:
+            replicate(self.mesh, self.train_state.net)
         # generate/actor model = last accepted weights
         # (reference "az_generate" group, alphazero_risk.cpp:49-62)
         self.net = copy.deepcopy(self.train_state.net)
@@ -166,10 +189,15 @@ class Trainer:
     # ---- chunk-callable builders: (state, carry, prev) -> ActorOutput ----
     # The searching ones refuse full cards before folding a network (the
     # search has no card uniform, as in the JAX package).
+    def _draws(self, cfg: Config, batch: int):
+        """The draws of a chunk of ``batch`` games (this rank's rows of the
+        world's draws in a process world)."""
+        kind = A.WorldDraws if self.world > 1 else A.GeneratorDraws
+        return kind(self.gen, cfg, batch, self.device)
+
     def _chunk_call(self, efn, cfg, **kw):
         def call(state, carry, prev):
-            draws = A.GeneratorDraws(self.gen, cfg, state.batch_size,
-                                     self.device)
+            draws = self._draws(cfg, state.batch_size)
             return A.run_episodes(efn, state, draws, cfg,
                                   cfg.actor_chunk_steps, carry_in=carry,
                                   prev_in=prev, **kw)
@@ -200,8 +228,7 @@ class Trainer:
 
     def _scripted_call(self, kinds: Tuple[int, int]):
         def call(state, carry, prev):
-            draws = A.GeneratorDraws(self.gen, self.cfg, state.batch_size,
-                                     self.device)
+            draws = self._draws(self.cfg, state.batch_size)
             return A.run_scripted_episodes(
                 state, draws, self.cfg, self.cfg.actor_chunk_steps, kinds,
                 carry_in=carry, prev_in=prev)
@@ -215,17 +242,31 @@ class Trainer:
         return ReplayBuffer(self.cfg)
 
     # ------------------------------------------------------------------
+    def _game_unit(self) -> int:
+        """Games run in mirrored pairs and split over the world's ranks, so
+        counts are multiples of lcm(2, world)."""
+        return math.lcm(2, self.world)
+
     def _round_games(self, games: int) -> int:
-        """Games run in mirrored pairs: round up to an even count once at
-        entry, so reported tallies match the games played."""
-        return -(-games // 2) * 2
+        """Round a requested game count up to the unit once at entry, so
+        reported tallies match the games played."""
+        unit = self._game_unit()
+        return -(-games // unit) * unit
 
     def _wave_batch(self, remaining: int) -> int:
-        cap = max(self.cfg.env_batch_per_device // 2, 1) * 2
+        """The next wave's global batch: ``env_batch_per_device`` caps it,
+        as in JAX."""
+        unit = self._game_unit()
+        cap = max(self.cfg.env_batch_per_device // unit, 1) * unit
         return min(cap, remaining)
 
     def _replay_path(self) -> str:
-        return f"{self.cfg.data_dir}/training_samples.npz"
+        """The replay file; a rank of a world keeps its own games in its
+        own file."""
+        base = f"{self.cfg.data_dir}/training_samples"
+        if self.world > 1:
+            return f"{base}.p{self.rank}.npz"
+        return f"{base}.npz"
 
     def _install_sigint_flush(self):
         """Flush the replay buffer to disk on Ctrl-C (reference SIGINT
@@ -238,13 +279,20 @@ class Trainer:
         signal.signal(signal.SIGINT, handler)
 
     def _initial_states(self, batch: int):
-        """Fresh deals, mirrored in pairs when cfg.mirror_games."""
+        """Fresh deals of a global wave of ``batch`` games, mirrored in
+        pairs when cfg.mirror_games; in a process world, this rank's rows
+        of them."""
         if self.cfg.mirror_games:
-            return mirrored_initial_states(batch, generator=self.gen,
-                                           device=self.device)
-        state0 = new_game(batch, generator=self.gen, device=self.device)
-        alt = torch.arange(batch, dtype=torch.int32, device=self.device) % 2
-        return state0.replace(cur_player=alt)
+            state0 = mirrored_initial_states(batch, generator=self.gen,
+                                             device=self.device)
+        else:
+            state0 = new_game(batch, generator=self.gen, device=self.device)
+            alt = torch.arange(batch, dtype=torch.int32,
+                               device=self.device) % 2
+            state0 = state0.replace(cur_player=alt)
+        if self.mesh is not None:
+            state0 = shard_batch(self.mesh, state0)
+        return state0
 
     def _prepare_batch(self, data, idx):
         return A.prepare_samples(data, idx, self.cfg)
@@ -259,6 +307,11 @@ class Trainer:
         row after every chunk; returning True abandons the still-running
         games (they stay STATUS_NOT_ENDED and are excluded from tallies).
         The returned samples are all chunks' records, [T, B, ...].
+
+        In a process world the state, samples and status are this rank's
+        games; the all-done check is a world sum, so the ranks run the
+        same chunks, and ``early_stop`` must answer the same on every rank
+        (``_global_tally`` does).
         """
         carry, prev = None, None
         state = state0
@@ -272,7 +325,10 @@ class Trainer:
             state, carry, prev = out.state, out.carry, out.prev_player
             decisions += int(out.az_decisions)
             status = out.status.cpu().numpy()
-            if int((status == STATUS_NOT_ENDED).sum()) == 0:
+            live = int((status == STATUS_NOT_ENDED).sum())
+            if self.world > 1:
+                live = int(D.allgather_metrics({"live": live})["live"])
+            if live == 0:
                 break
             if early_stop is not None and early_stop(status):
                 break
@@ -308,6 +364,8 @@ class Trainer:
         """N shuffled epochs over the buffer (reference train,
         alphazero_nn.cpp:351-410)."""
         epochs = epochs or self.cfg.epochs
+        if self.world > 1:
+            return self._train_epochs_multihost(epochs)
         # the buffer's type, not the flag: a caller may swap in either
         if isinstance(self.replay, DeviceReplay):
             return self._train_epochs_ring(epochs)
@@ -378,6 +436,44 @@ class Trainer:
                                               first)
         return pi_loss, v_loss
 
+    def _train_epochs_multihost(self, epochs: int) -> Tuple[float, float]:
+        """Epochs of a process world (JAX ``_train_epochs_multihost``):
+        each rank shuffles its own replay and gives ``batch_size / world``
+        rows a step to one world update (``learner.update``: the update of
+        the concatenated global minibatch).  The steps come from the
+        world's shortest buffer, so the ranks update in lockstep; each rank
+        shuffles its full buffer and truncates, so a longer buffer does not
+        train only its oldest rows.  No upload cap, as in JAX."""
+        cfg = self.cfg
+        if cfg.batch_size % self.world:
+            raise ValueError(f"batch_size {cfg.batch_size} does not split "
+                             f"over {self.world} processes")
+        bs_local = cfg.batch_size // self.world
+        steps = D.allgather_min(len(self.replay)) // bs_local
+        if steps == 0:
+            return float("nan"), float("nan")
+        data = self._upload(self.replay.sample_arrays())
+        seed = int(torch.randint(0, np.iinfo(np.int32).max, (),
+                                 generator=self.gen,
+                                 device=self.gen.device))
+        rng = np.random.default_rng(seed + self.rank)
+        pi_loss = v_loss = float("nan")
+        for e in range(epochs):
+            perm = rng.permutation(len(self.replay))[:steps * bs_local]
+            perm = torch.from_numpy(perm).to(self.device).reshape(
+                steps, bs_local)
+            sums = torch.zeros(2, dtype=torch.float32, device=self.device)
+            first = None
+            for idx in perm:
+                self.train_state, m = update(
+                    self.train_state, cfg, self._prepare_batch(data, idx))
+                if first is None:
+                    first = m["pi_loss"]
+                sums += torch.stack([m["pi_loss"], m["v_loss"]])
+            pi_loss, v_loss = (sums / steps).tolist()
+            self._log_epoch(e, pi_loss, v_loss, float(first))
+        return pi_loss, v_loss
+
     def gate(self, revert_on_fail: Optional[bool] = None) -> bool:
         """Arena new-vs-old; accept at >= compare_threshold win share
         (reference updateIfImprovement, alphazero_trainer.cpp:134-198)."""
@@ -444,8 +540,9 @@ class Trainer:
         return bool(improved)
 
     def _global_tally(self, status: np.ndarray, started: np.ndarray) -> dict:
-        """Win/draw tallies (single process: plain local counts)."""
-        return {
+        """Win/draw tallies of this rank's status rows, summed over the
+        world (single process: plain local counts)."""
+        t = {
             "games": int(status.shape[0]),
             "p0_wins": int((status == 0).sum()),
             "p1_wins": int((status == 1).sum()),
@@ -454,6 +551,9 @@ class Trainer:
             "p0_win_started": int(((status == 0) & (started == 0)).sum()),
             "p1_win_started": int(((status == 1) & (started == 1)).sum()),
         }
+        if self.world > 1:
+            t = {k: int(v) for k, v in D.allgather_metrics(t).items()}
+        return t
 
     def _accept(self):
         self.net = copy.deepcopy(self.train_state.net)

@@ -144,11 +144,28 @@ when all of them pass):
    eval, WATCH_PAIRED_STEPS micro-steps.  (d) ``python -m
    alphazero_risk_tpu_torch.cli -m watch --p1 sp --p2 rp --no-pause`` as
    a subprocess: rc 0 and a final "wins in round" or "draw" line.  Its
-   launch counts are those of (a) and (c).
+   launch counts are those of (a) and (c);
+10. world: a process world of two ranks (``parallel/distributed.py``),
+   each a subprocess of this script (``--world-rank``): both on the one
+   card under gloo, or one card each under NCCL where two are visible;
+   the backend and devices are printed.  (a) ``Trainer.play`` of phase
+   4's 32 mirrored games from phase 4's generator state (20x256, int8,
+   32 simulations), 16 a rank: every game's final state and status,
+   concatenated in rank order, equal phase 4's, and both ranks report
+   phase 4's tally (the global draws and the fast-forward's agreement);
+   (b) one ``Trainer.train`` iteration at TRAIN's cuts and the
+   benchmark: the same ``pi_loss``/``v_loss`` every epoch and the same
+   gate verdict on both ranks, ``training_samples.p0.npz`` and ``.p1.npz``
+   written, the checkpoints written by rank 0 alone.  (a), (b), the
+   fast-forward all-reduces per decision and the gradient all-reduce per
+   learner step are timed.  A rank that fails or outlives WORLD_TIMEOUT
+   fails the script.  Its launch counts are the two ranks' of (a) and
+   (b).
 
 The line before the card's is a JSON object with one entry per kernel:
-``launches`` sums the six main paths (play, train, data, cards, reuse,
-watch), each also given alone; the full-cards timings are the ``cards_*`` keys of
+``launches`` sums the seven main paths (play, train, data, cards, reuse,
+watch, world), each also given alone (``launches_world`` both ranks'
+launches in phase 10); the full-cards timings are the ``cards_*`` keys of
 K7, K9, K10 and the multi-step entry.  The last line is ``{"ok": true,
 "device": {...}}``.  Imports nothing of JAX.
 """
@@ -157,6 +174,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1773,17 +1791,27 @@ def profile_window(trainer, games, steps=1):
 
 def phase_slice(trainer, entries, games=PLAY_GAMES):
     """The main path (Trainer.play, int8, to the end), then a short bf16
-    pass.  Fills each entry's main-path launch count."""
+    pass.  Fills each entry's main-path launch count.  Returns the
+    decisions/s and what phase 10 holds its world against: the generator's
+    state the play started from, its tally and every game's final state
+    and status (``WORK/world/slice.pt``)."""
+    import torch
     from alphazero_risk_tpu_torch import kernels
     from alphazero_risk_tpu_torch.training import actor as A
     from alphazero_risk_tpu_torch.training.trainer import Trainer
 
     cfg, dev = trainer.cfg, trainer.device
     steps0 = trainer.play_stats["steps"]
+    gen_state = trainer.gen.get_state()
+    waves = recorded_waves(trainer)
     with watched_blocks(keep=24, every=12) as ff:
         kernels.reset_counts()
         res = trainer.play(A.OPP_SCRIPT, games)
         counts = kernels.counts()
+    del trainer._episode_loop
+    (WORK / "world").mkdir(parents=True, exist_ok=True)
+    torch.save({"gen_state": gen_state, "tally": res, "waves": waves},
+               WORK / "world" / "slice.pt")
     st = trainer.play_stats
     dps = st["az_decisions"] / st["seconds"]
     az_wins = res["p0_wins"] / max(res["games"] - res["unfinished"], 1)
@@ -1842,6 +1870,25 @@ def phase_slice(trainer, entries, games=PLAY_GAMES):
     if bres["games"] != games:
         fail("bf16 pass did not play its games")
     return dps
+
+
+def recorded_waves(trainer):
+    """Record every wave ``trainer._episode_loop`` drives, on the CPU: its
+    final state, statuses and starters (in the list returned; ``del
+    trainer._episode_loop`` ends it)."""
+    import dataclasses
+    waves = []
+    loop = trainer._episode_loop
+
+    def recorded(chunk_call, state0, *a, **kw):
+        out = loop(chunk_call, state0, *a, **kw)
+        waves.append({"status": out.status.cpu(),
+                      "started": state0.cur_player.cpu(),
+                      "state": {f.name: getattr(out.state, f.name).cpu()
+                                for f in dataclasses.fields(out.state)}})
+        return out
+    trainer._episode_loop = recorded
+    return waves
 
 
 def expected_launches(st, sims, blocks):
@@ -3071,7 +3118,270 @@ def phase_watch(base, entries, card):
     log(f"watch: {time.perf_counter() - t_phase:.1f} s on {card}")
 
 
+WORLD = 2                   # ranks of phase 10
+WORLD_TIMEOUT = 420         # seconds a rank may take
+
+
+def world_rank(rank: int, port: int, backend: str):
+    """One rank of phase 10 (``python chip_smoke.py --world-rank R
+    --world-port P --world-backend gloo|nccl``, started by
+    ``phase_world``): (a) ``Trainer.play`` of phase 4's games from phase
+    4's generator state, (b) one ``Trainer.train`` iteration at TRAIN's
+    cuts and the benchmark; the launch counts read around each.  Writes
+    its results to
+    ``WORK/world/rank{R}.json``."""
+    import torch
+    from alphazero_risk_tpu_torch import kernels
+    from alphazero_risk_tpu_torch.config import Config
+    from alphazero_risk_tpu_torch.parallel import distributed as D
+    from alphazero_risk_tpu_torch.training import actor as A
+    from alphazero_risk_tpu_torch.training import checkpoints as C
+    from alphazero_risk_tpu_torch.training import learner as L
+    from alphazero_risk_tpu_torch.training.trainer import Trainer
+
+    # the ranks share the host's cores
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // WORLD))
+    dev = D.initialize(f"127.0.0.1:{port}", WORLD, rank,
+                       cpu_collectives=None if backend == "nccl" else backend)
+    wdir = WORK / "world"
+    cfg = Config(mcts_simulations=SIMS, fast_infer=True,
+                 fast_infer_int8=True,
+                 checkpoint_dir=str(wdir / "checkpoints"),
+                 data_dir=str(wdir / "data"), log_dir=str(wdir / f"log{rank}"))
+    out = {"rank": rank, "device": str(dev),
+           "backend": torch.distributed.get_backend()}
+    net = C.load_params_npz(str(FLAGSHIP), cfg, device=dev)
+
+    # the fast-forward's agreements and the gradient all-reduces, timed
+    ff = {"calls": 0, "seconds": 0.0}
+    agree = A.WorldDraws.ff_agree
+
+    def timed_agree(self, iterations):
+        t0 = time.perf_counter()
+        agree(self, iterations)
+        ff["calls"] += 1
+        ff["seconds"] += time.perf_counter() - t0
+    A.WorldDraws.ff_agree = timed_agree
+    grads = {"calls": 0, "seconds": 0.0}
+    world_mean = L._world_mean_
+
+    def timed_mean(params, metrics):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = world_mean(params, metrics)
+        torch.cuda.synchronize()
+        grads["calls"] += 1
+        grads["seconds"] += time.perf_counter() - t0
+        return res
+    L._world_mean_ = timed_mean
+
+    # (a) phase 4's games, this rank's rows of them
+    ref = torch.load(wdir / "slice.pt", weights_only=False)
+    t = Trainer(cfg, seed=0, device=dev)
+    t.net = net
+    t.folded()
+    t.gen.set_state(ref["gen_state"])
+    waves = recorded_waves(t)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    out["play"] = t.play(A.OPP_SCRIPT, PLAY_GAMES)
+    torch.cuda.synchronize()
+    out["play_seconds"] = time.perf_counter() - t0
+    out["play_launches"] = kernels.counts()
+    out["play_decisions"] = t.play_stats["az_decisions"]
+    out["play_ff"] = dict(ff)
+    torch.save(waves, wdir / f"waves{rank}.pt")
+
+    # (b) one training iteration at TRAIN's cuts (and the benchmark), in
+    # a shared directory
+    tcfg = cfg.replace(**TRAIN)
+    t = Trainer(tcfg, seed=3, device=dev)
+    t.load_weights(net)
+    t.folded()
+    verdicts = []
+    gate = t.gate
+
+    def recorded_gate(*a, **kw):
+        verdicts.append(bool(gate(*a, **kw)))
+        return verdicts[-1]
+    t.gate = recorded_gate
+    writes = []
+    save = C.torch.save
+
+    def recorded_save(obj, path):
+        writes.append(str(path))
+        save(obj, path)
+    C.torch.save = recorded_save
+    ff.update(calls=0, seconds=0.0)
+    decisions0 = t.play_stats["az_decisions"]
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    t.train(iterations=1, resume=False)
+    if not verdicts[-1]:
+        # the gate rejected the candidate: train() skips the benchmark
+        # then, so run it here on the reverted weights, as phase 5 does
+        t.benchmark()
+    torch.cuda.synchronize()
+    out["train_seconds"] = time.perf_counter() - t0
+    out["train_launches"] = kernels.counts()
+    C.torch.save = save
+    out["train_decisions"] = t.play_stats["az_decisions"] - decisions0
+    out["train_ff"] = dict(ff)
+    out["grad_allreduce"] = grads
+    out["epochs"] = [{k: e[k] for k in ("epoch", "pi_loss", "v_loss",
+                                        "first_pi_loss")}
+                     for e in t.epoch_log]
+    out["verdicts"] = verdicts
+    out["writes"] = [Path(w).name for w in writes]
+    out["replay"] = {"path": Path(t._replay_path()).name,
+                     "samples": len(t.replay),
+                     "written": Path(t._replay_path()).exists()}
+    out["steps"] = t.train_state.step
+    D.shutdown()
+    (wdir / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def phase_world(entries, card):
+    """Phase 10, a process world of WORLD ranks on the card(s) through
+    ``parallel/distributed.py`` (every rank on ``cuda:0`` under gloo with
+    one card; one card a rank under NCCL with more): (a) ``Trainer.play``
+    of phase 4's 32 mirrored games from phase 4's generator state, every
+    game's final state and status, concatenated in rank order, equal to
+    phase 4's and the same tally on every rank; (b) one ``Trainer.train``
+    iteration at TRAIN's cuts and the benchmark, the same losses every
+    epoch and the same gate verdict on every rank, each rank's replay file
+    written, the checkpoints written by rank 0 alone.  The ranks' launch
+    counts of (a) and (b) are each entry's ``launches_world``."""
+    import socket
+    import torch
+    from alphazero_risk_tpu_torch import kernels
+
+    t_phase = time.perf_counter()
+    wdir = WORK / "world"
+    backend = "nccl" if torch.cuda.device_count() >= WORLD else "gloo"
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    logs = [wdir / f"rank{r}.log" for r in range(WORLD)]
+    procs = []
+    for r in range(WORLD):
+        with open(logs[r], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--world-rank", str(r), "--world-port", str(port),
+                 "--world-backend", backend], cwd=str(ROOT), stdout=f,
+                stderr=subprocess.STDOUT, stdin=subprocess.DEVNULL))
+    deadline = time.time() + WORLD_TIMEOUT
+    try:
+        for r, p in enumerate(procs):
+            try:
+                p.wait(timeout=max(1.0, deadline - time.time()))
+            except subprocess.TimeoutExpired:
+                fail(f"world: rank {r} still running after {WORLD_TIMEOUT} "
+                     f"s; {logs[r].read_text()[-3000:]}")
+            if p.returncode != 0:
+                fail(f"world: rank {r} rc {p.returncode}: "
+                     f"{logs[r].read_text()[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks = [json.loads((wdir / f"rank{r}.json").read_text())
+             for r in range(WORLD)]
+    log(f"world: {WORLD} ranks, backend {ranks[0]['backend']}, devices "
+        f"{[x['device'] for x in ranks]}, {card}")
+
+    # (a) the games of phase 4, rank by rank
+    ref = torch.load(wdir / "slice.pt", weights_only=False)
+    mine = [torch.load(wdir / f"waves{r}.pt", weights_only=False)
+            for r in range(WORLD)]
+    if any(len(w) != len(ref["waves"]) for w in mine):
+        fail(f"world (a): {[len(w) for w in mine]} waves against phase 4's "
+             f"{len(ref['waves'])}")
+    for i, full in enumerate(ref["waves"]):
+        got = {k: torch.cat([w[i][k] for w in mine])
+               for k in ("status", "started")}
+        for k in got:
+            if not torch.equal(got[k], full[k]):
+                fail(f"world (a): wave {i} {k} {got[k].tolist()} against "
+                     f"phase 4's {full[k].tolist()}")
+        for f, v in full["state"].items():
+            if not torch.equal(torch.cat([w[i]["state"][f] for w in mine]),
+                               v):
+                fail(f"world (a): wave {i}: the final {f} differs from "
+                     f"phase 4's")
+    for x in ranks:
+        if x["play"] != ref["tally"]:
+            fail(f"world (a): rank {x['rank']} tallied {x['play']}, phase 4 "
+                 f"{ref['tally']}")
+    dec = sum(x["play_decisions"] for x in ranks)
+    ffa = ranks[0]["play_ff"]
+    log(f"world (a): Trainer.play of {PLAY_GAMES} games, {WORLD} ranks of "
+        f"{PLAY_GAMES // WORLD}: every game's final state and status equal "
+        f"phase 4's; tally {json.dumps(ranks[0]['play'])} on every rank; "
+        f"{max(x['play_seconds'] for x in ranks):.1f} s "
+        f"({dec / max(x['play_seconds'] for x in ranks):.2f} decisions/s "
+        f"over the world); fast-forward all-reduces {ffa['calls']} for "
+        f"{ranks[0]['play_decisions']} rank-0 decisions, "
+        f"{1e3 * ffa['seconds'] / max(ffa['calls'], 1):.3f} ms each, "
+        f"{1e3 * ffa['seconds'] / max(ranks[0]['play_decisions'], 1):.3f} "
+        f"ms per decision; {card}")
+
+    # (b) one training iteration
+    e0 = ranks[0]["epochs"]
+    for x in ranks:
+        if x["epochs"] != e0 or x["verdicts"] != ranks[0]["verdicts"]:
+            fail(f"world (b): ranks disagree: "
+                 f"{[(y['epochs'], y['verdicts']) for y in ranks]}")
+        if not (x["replay"]["written"] and x["replay"]["path"]
+                == f"training_samples.p{x['rank']}.npz"
+                and x["replay"]["samples"] > 0):
+            fail(f"world (b): rank {x['rank']} replay {x['replay']}")
+    if ranks[0]["writes"] == [] or any(x["writes"] for x in ranks[1:]):
+        fail(f"world (b): checkpoint writes {[x['writes'] for x in ranks]}")
+    if len(e0) != TRAIN["epochs"] or not all(
+            e["pi_loss"] == e["pi_loss"] for e in e0):
+        fail(f"world (b): epochs {e0}")
+    g = ranks[0]["grad_allreduce"]
+    ffb = ranks[0]["train_ff"]
+    log(f"world (b): Trainer.train(1) at TRAIN's cuts in "
+        f"{max(x['train_seconds'] for x in ranks):.1f} s; epochs {e0} and "
+        f"gate {ranks[0]['verdicts']} equal on every rank; replay "
+        f"{[x['replay']['samples'] for x in ranks]} samples in "
+        f"{[x['replay']['path'] for x in ranks]}; checkpoints written by "
+        f"rank 0 only ({ranks[0]['writes']}); {ranks[0]['steps']} learner "
+        f"steps; gradient all-reduce {g['calls']} calls, "
+        f"{1e3 * g['seconds'] / max(g['calls'], 1):.2f} ms each "
+        f"({ranks[0]['backend']}); fast-forward all-reduces {ffb['calls']} "
+        f"for {ranks[0]['train_decisions']} rank-0 decisions, "
+        f"{1e3 * ffb['seconds'] / max(ffb['calls'], 1):.3f} ms each; {card}")
+
+    for x in ranks:
+        for part in ("play_launches", "train_launches"):
+            for k in kernels.ALL:
+                if k not in (kernels.SCRIPT_STEP, kernels.RANDOM_STEP) and \
+                        x[part][k.name] <= 0:
+                    fail(f"world: rank {x['rank']} did not launch {k.name} "
+                         f"in {part[:-9]}")
+    for e in entries:
+        e["launches_world"] = sum(x[p][e["name"]] for x in ranks
+                                  for p in ("play_launches",
+                                            "train_launches"))
+    log(f"world: launches (a) {[x['play_launches'] for x in ranks]}, (b) "
+        f"{[x['train_launches'] for x in ranks]}")
+    log(f"world: {time.perf_counter() - t_phase:.1f} s on {card}")
+
+
 def main():
+    if "--world-rank" in sys.argv:
+        a = sys.argv
+        world_rank(int(a[a.index("--world-rank") + 1]),
+                   int(a[a.index("--world-port") + 1]),
+                   a[a.index("--world-backend") + 1])
+        return
     t_start = time.perf_counter()
     card = phase_device()
     phase_build()
@@ -3096,10 +3406,12 @@ def main():
     phase_reuse(trainer, states, entries, play_dps, card)
     log(f"elapsed {time.perf_counter() - t_start:.1f} s")
     phase_watch(trainer, entries, card)
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s")
+    phase_world(entries, card)
     for e in entries:
         e["launches"] = sum(e[f"launches_{p}"] for p in
                             ("play", "train", "data", "cards", "reuse",
-                             "watch"))
+                             "watch", "world"))
     log(f"total {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": entries}))
     print(card)

@@ -1218,3 +1218,25 @@ def test_watch_steps_at_one_game_match_plain(cuda, p2):
     want["state_views"] -= 1          # the viewer's closing status
     assert counts == want
     assert 3 in {int(s.phase[0]) for s, _, _ in got}   # an attack phase
+
+
+def test_world_play_on_one_card_matches_one_process(cuda, tmp_path):
+    """A 2-rank gloo world with both ranks on ``cuda:0`` plays
+    ``play(OPP_SCRIPT)`` on the kernels (int8 trunk, the search kernels,
+    the multi-step entry's fast-forward, agreed over the world): each
+    rank's games are its rows of one process's games from the same seed,
+    bit for bit, and both ranks report the one-process tally."""
+    import torch_world as W
+    cfg = Config(blocks=2, filters=64, value_hidden=16, mcts_simulations=4,
+                 fast_infer=True, fast_infer_int8=True,
+                 env_batch_per_device=8, max_game_steps=192,
+                 actor_chunk_steps=48,
+                 checkpoint_dir=str(tmp_path / "checkpoints"),
+                 data_dir=str(tmp_path / "data"),
+                 log_dir=str(tmp_path / "log"))
+    one = W.trainer_runs(0, cfg, 3, 16, paths=("play",), device="cuda")
+    world = W.run_world(W.trainer_runs, 2, tmp_path, cfg, 3, 16, True,
+                        ("play",), timeout=600, device="cuda")
+    assert W.world_equals_one(one, world, "play")
+    assert [r["play"]["result"] for r in world] == [one["play"]["result"]] * 2
+    assert one["play"]["result"]["games"] == 16

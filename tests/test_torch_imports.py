@@ -107,7 +107,8 @@ def test_import_builds_and_loads_nothing():
                 "training.device_replay", "training.analysis", "env.checks",
                 "agents.random_agent", "utils.logging", "cli", "env.oracle",
                 "agents.oracle_agents", "utils.board", "utils.watch",
-                "utils.profiling", "native"):
+                "utils.profiling", "native", "parallel.distributed",
+                "parallel.mesh", "parallel.smoke"):
         assert f"{pkg.__name__}.{mod}" in names
     assert "triton" not in sys.modules
     from alphazero_risk_tpu_torch import kernels
