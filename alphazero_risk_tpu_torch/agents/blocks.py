@@ -11,6 +11,10 @@ tensors.  ``run_agent_blocks`` drives it in blocks of draws.  Together
 they replace the per-iteration loops of the JAX package: the opponent
 fast-forward of ``training/actor.py`` (``ff_cond`` / ``ff_body``) and
 ``play_match``'s ``while_loop`` in ``agents/driver.py``.
+
+Under the profiler (``utils.profiling``) each ``run_agent_blocks`` call is
+an ``actor.ff`` span, and each block's read of its step counts is a
+``host.sync`` span.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from .. import kernels
 from ..config import Config, STATUS_NOT_ENDED
 from ..env import rules
 from ..env.state import GameState, tree_select
+from ..utils import profiling
 from . import random_agent, script_agent
 from .script_agent import ScriptCarry
 
@@ -126,16 +131,18 @@ def run_agent_blocks(state: GameState, carry: ScriptCarry,
     the per-iteration loop, so the results are too.  Returns ``(state,
     carry, prev, iterations, blocks)``."""
     total = blocks = 0
-    while limit is None or total < limit:
-        kk = k if limit is None else min(k, limit - total)
-        u, dice = block(kk)
-        state, carry, prev, n = agent_steps(state, carry, prev, u, dice, cfg,
-                                            kinds)
-        blocks += 1
-        m = int(n.max()) if n.numel() else 0
-        rewind(m)
-        total += m
-        if m < kk:
-            break
-        k = min(2 * k, k_max)
+    with profiling.span("actor.ff"):
+        while limit is None or total < limit:
+            kk = k if limit is None else min(k, limit - total)
+            u, dice = block(kk)
+            state, carry, prev, n = agent_steps(state, carry, prev, u, dice,
+                                                cfg, kinds)
+            blocks += 1
+            with profiling.span("host.sync"):
+                m = int(n.max()) if n.numel() else 0
+            rewind(m)
+            total += m
+            if m < kk:
+                break
+            k = min(2 * k, k_max)
     return state, carry, prev, total, blocks

@@ -35,6 +35,9 @@ compacts the played child's subtree to the front of the node arrays, and
 ``search_with_reuse`` continues from it where the carried root still equals
 the game's state.  Both are plain tensor ops, run once per decision, and
 hand the kernels a new tree, which K6 packs at its first write.
+
+Under the profiler (``utils.profiling``) each call of ``search`` and
+``search_with_reuse`` is a ``search.run`` span.
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ from ..config import (
 from ..env import rules, topology
 from ..env.rules import argmax_first, take
 from ..env.state import GameState, tree_map
+from ..utils import profiling
 from .outcomes import OUTCOME_PROBS
 
 I32, F32 = torch.int32, torch.float32
@@ -624,8 +628,9 @@ def search(root: GameState, gumbel: torch.Tensor, cfg: Config,
     with ``cfg.use_dirichlet_noise``)."""
     # every expansion is a step_with_outcome: simple cards only
     rules.require_uniform(cfg, None)
-    return _run_search(init_tree(root, cfg, eval_fn), gumbel, cfg, eval_fn,
-                       noise_u)
+    with profiling.span("search.run"):
+        return _run_search(init_tree(root, cfg, eval_fn), gumbel, cfg,
+                           eval_fn, noise_u)
 
 
 def reroot(tree: Tree, action: torch.Tensor, outcome: torch.Tensor,
@@ -742,11 +747,12 @@ def search_with_reuse(root: GameState, gumbel: torch.Tensor, cfg: Config,
     from a fresh tree.  ``prev_tree=None`` means no game reuses (the first
     decision of a chunk), and the search is ``search``'s."""
     rules.require_uniform(cfg, None)
-    tree = init_tree(root, cfg, eval_fn)
-    if prev_tree is not None:
-        same = reused & carried_roots_match(prev_tree, root)
-        tree = _select_tree(same, prev_tree, tree)
-    return _run_search(tree, gumbel, cfg, eval_fn, noise_u)
+    with profiling.span("search.run"):
+        tree = init_tree(root, cfg, eval_fn)
+        if prev_tree is not None:
+            same = reused & carried_roots_match(prev_tree, root)
+            tree = _select_tree(same, prev_tree, tree)
+        return _run_search(tree, gumbel, cfg, eval_fn, noise_u)
 
 
 def pick_move(result: SearchResult, state: GameState, cfg: Config,

@@ -28,6 +28,11 @@ tensors packed once at fold time into one buffer (``pack_heads``,
 ``heads_pack`` of the folded dict).  On CPU tensors
 the wrappers compute the same functions in plain PyTorch (``_conv_bf16``
 with its elementwise epilogue; ``_heads`` and ``torch.softmax``).
+
+Under the profiler (``utils.profiling``) each evaluation of the eval
+functions is a ``net.eval`` span, each trunk pass's conv launches a
+``net.trunk`` span, and the counter ``net.boards`` adds the rows of every
+trunk pass.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from .. import kernels
 from ..config import Config
 from ..env.featurize import featurize
 from ..env.state import new_game
+from ..utils import profiling
 from .resnet import AZNet
 
 BOARD = 42
@@ -175,8 +181,27 @@ def quantize_trunk(folded: Dict[str, Any]) -> Dict[str, Any]:
     ws = ws.clamp(min=1e-12)
     wq = torch.round(w / ws[:, :, None, None, None, :]).clamp(-127, 127)
     wq = wq.to(I8).contiguous()
-    return {**folded, "trunk_wq": wq, "trunk_wqk": pack_trunk_wq(wq),
-            "trunk_ws": ws.to(F32).contiguous()}
+    out = {**folded, "trunk_wq": wq, "trunk_wqk": pack_trunk_wq(wq),
+           "trunk_ws": ws.to(F32).contiguous()}
+    return {**out, "trunk_convs": trunk_convs(out)}
+
+
+def trunk_convs(folded: Dict[str, Any]) -> tuple:
+    """K1's operands for each conv k = 2l + i of the int8 trunk, ``(w, ws,
+    bias, s, inv_s)``: views into ``trunk_wqk``, ``trunk_ws``, ``trunk_b``
+    and the calibrated ``act_s`` (the conv's input scale and its inverse;
+    None without ``act_s``).  Made once a fold (``quantize_trunk``,
+    ``calibrate_trunk`` and ``folded_from_jax`` keep them as the folded
+    dict's ``trunk_convs``), so that a trunk pass only launches K1."""
+    w, ws, b = (folded[k].flatten(0, 1).unbind()
+                for k in ("trunk_wqk", "trunk_ws", "trunk_b"))
+    act_s = folded.get("act_s")
+    if act_s is None:
+        s = inv = (None,) * len(w)
+    else:
+        s = act_s.flatten().unbind()
+        inv = (1.0 / act_s).flatten().unbind()
+    return tuple(zip(w, ws, b, s, inv))
 
 
 def conv_tile(kernel: kernels.Kernel, boards: int, cout: int
@@ -334,14 +359,17 @@ def _trunk_xla_bf16(folded, h, hb):
     Each conv hands the next one its output as bf16: conv_a writes bf16
     only, conv_b f32 (the next residual) and bf16 (the next conv_a's
     input), the last block f32 only."""
-    w, b = folded["trunk_w"], folded["trunk_b"]
-    L = w.shape[0]
-    for l in range(L):
-        x = h
-        _, y = conv3x3_bf16(hb, w[l, 0], b[l, 0], want_f32=False,
-                            want_bf16=True)
-        h, hb = conv3x3_bf16(y, w[l, 1], b[l, 1], residual=x,
-                             want_bf16=l + 1 < L)
+    # conv k = 2l + i indexes the flattened [2L, ...] stacks once
+    w, b = (folded[k].flatten(0, 1) for k in ("trunk_w", "trunk_b"))
+    n = w.shape[0]
+    profiling.count("net.boards", h.shape[0])
+    with profiling.span("net.trunk"):
+        for k in range(0, n, 2):
+            x = h
+            _, y = conv3x3_bf16(hb, w[k], b[k], want_f32=False,
+                                want_bf16=True)
+            h, hb = conv3x3_bf16(y, w[k + 1], b[k + 1], residual=x,
+                                 want_bf16=k + 2 < n)
     return h
 
 
@@ -349,30 +377,35 @@ def _trunk_xla_int8(folded, h):
     """int8 residual trunk on K1.  h [B,7,6,C] f32 -> same.
 
     Static per-conv activation scales when ``act_s`` was calibrated into
-    the folded dict: each conv then also emits the next conv's int8 input.
-    Dynamic per-tensor scales otherwise."""
-    w, ws, b = folded["trunk_wqk"], folded["trunk_ws"], folded["trunk_b"]
-    L = w.shape[0]
-    act_s = folded.get("act_s")          # [L, 2] f32 or None
+    the folded dict: each conv then also emits the next conv's int8 input,
+    and the ``net.trunk`` span holds the conv launches alone (the first
+    input's quantization lies before it).  Dynamic per-tensor scales
+    otherwise, quantized between the convs inside the span.  The convs'
+    operands are the fold's ``trunk_convs``."""
+    convs = folded["trunk_convs"]
+    n = len(convs)
     h = h.contiguous()
-    if act_s is None:
-        for l in range(L):
-            x = h
-            q, s = _quant_dyn(x)
-            y, _, _ = conv3x3_i8(q, w[l, 0], ws[l, 0], b[l, 0], s)
-            q2, s2 = _quant_dyn(y)
-            h, _, _ = conv3x3_i8(q2, w[l, 1], ws[l, 1], b[l, 1], s2,
-                                 residual=x)
+    profiling.count("net.boards", h.shape[0])
+    if convs[0][3] is None:
+        with profiling.span("net.trunk"):
+            for k in range(0, n, 2):
+                (wa, wsa, ba, _, _), (wb, wsb, bb, _, _) = convs[k:k + 2]
+                x = h
+                q, s = _quant_dyn(x)
+                y, _, _ = conv3x3_i8(q, wa, wsa, ba, s)
+                q2, s2 = _quant_dyn(y)
+                h, _, _ = conv3x3_i8(q2, wb, wsb, bb, s2, residual=x)
         return h
-    inv = 1.0 / act_s
-    q = _quantize(h, inv[0, 0])
-    for l in range(L):
-        x = h
-        _, q2, _ = conv3x3_i8(q, w[l, 0], ws[l, 0], b[l, 0], act_s[l, 0],
-                              inv_s_next=inv[l, 1], want_h=False)
-        nxt = inv[l + 1, 0] if l + 1 < L else None
-        h, q, _ = conv3x3_i8(q2, w[l, 1], ws[l, 1], b[l, 1], act_s[l, 1],
-                             residual=x, inv_s_next=nxt)
+    q = _quantize(h, convs[0][4])
+    with profiling.span("net.trunk"):
+        for k in range(0, n, 2):
+            (wa, wsa, ba, sa, _), (wb, wsb, bb, sb, invb) = convs[k:k + 2]
+            nxt = convs[k + 2][4] if k + 2 < n else None
+            x = h
+            _, q2, _ = conv3x3_i8(q, wa, wsa, ba, sa, inv_s_next=invb,
+                                  want_h=False)
+            h, q, _ = conv3x3_i8(q2, wb, wsb, bb, sb, residual=x,
+                                 inv_s_next=nxt)
     return h
 
 
@@ -395,7 +428,10 @@ def calibrate_trunk(folded: Dict[str, Any], feats: torch.Tensor,
                              want_bf16=True)
     act_max = torch.stack(scales).reshape(-1, 2)
     act_s = torch.clamp(act_max * margin, min=1e-6) / 127.0
-    return {**folded, "act_s": act_s.to(F32)}
+    out = {**folded, "act_s": act_s.to(F32)}
+    if "trunk_wqk" in out:
+        out["trunk_convs"] = trunk_convs(out)
+    return out
 
 
 def _heads(folded, h):
@@ -487,8 +523,9 @@ def make_fast_eval_fn(cfg: Config, *, int8: bool = False):
 
     @torch.no_grad()
     def eval_fn(folded, state, legal):
-        h = _trunk_out(folded, featurize(state, cfg), int8)
-        probs, value, _ = heads_eval(folded, h, legal)
+        with profiling.span("net.eval"):
+            h = _trunk_out(folded, featurize(state, cfg), int8)
+            probs, value, _ = heads_eval(folded, h, legal)
         return probs, value
 
     return eval_fn
@@ -503,13 +540,14 @@ def make_fast_paired_eval_fn(cfg: Config, *, int8: bool = False):
 
     @torch.no_grad()
     def eval_fn(folded_a, folded_b, use_a, state, legal):
-        feats = featurize(state, cfg)
-        pa, va, _ = heads_eval(folded_a, _trunk_out(folded_a, feats, int8),
-                               legal)
-        pb, vb, _ = heads_eval(folded_b, _trunk_out(folded_b, feats, int8),
-                               legal)
-        return (torch.where(use_a[:, None], pa, pb),
-                torch.where(use_a, va, vb))
+        with profiling.span("net.eval"):
+            feats = featurize(state, cfg)
+            pa, va, _ = heads_eval(folded_a,
+                                   _trunk_out(folded_a, feats, int8), legal)
+            pb, vb, _ = heads_eval(folded_b,
+                                   _trunk_out(folded_b, feats, int8), legal)
+            return (torch.where(use_a[:, None], pa, pb),
+                    torch.where(use_a, va, vb))
 
     return eval_fn
 

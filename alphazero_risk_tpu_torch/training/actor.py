@@ -49,6 +49,7 @@ from ..env.state import GameState, tree_select
 from ..mcts import search as mcts
 from ..models.resnet import AZNet
 from ..parallel import distributed as D
+from ..utils import profiling
 
 # The opponent fast-forward's blocks of draws: the first of FF_BLOCK
 # iterations, each next one twice the last, at most FF_BLOCK_MAX.  In the
@@ -312,6 +313,8 @@ def run_episodes(eval_fn, state0: GameState, draws, cfg: Config,
     launch of the multi-step entry and one host sync per block).  A draws
     object with an ``ff_agree`` method (``WorldDraws``) is then given the
     fast-forward's iterations, to agree on them with the other ranks.
+    Under the profiler (``utils.profiling``) each micro-step is an
+    ``actor.step`` span.
     """
     # the search expands by step_with_outcome, which has no card uniform
     rules.require_uniform(cfg, None)
@@ -338,65 +341,66 @@ def run_episodes(eval_fn, state0: GameState, draws, cfg: Config,
     ff_agree = getattr(draws, "ff_agree", None)
 
     for _ in range(num_steps):
-        draws.begin_step()
-        if fast_forward:
-            state, carry, prev, ff_iters, _ = blocks.run_agent_blocks(
-                state, carry, prev, cfg, draws.ff_block, draws.ff_rewind,
-                kinds=ff_kinds, k=FF_BLOCK, k_max=FF_BLOCK_MAX)
-            if ff_agree is not None:
-                ff_agree(ff_iters)
+        with profiling.span("actor.step"):
+            draws.begin_step()
+            if fast_forward:
+                state, carry, prev, ff_iters, _ = blocks.run_agent_blocks(
+                    state, carry, prev, cfg, draws.ff_block, draws.ff_rewind,
+                    kinds=ff_kinds, k=FF_BLOCK, k_max=FF_BLOCK_MAX)
+                if ff_agree is not None:
+                    ff_agree(ff_iters)
 
-        live = rules.game_status(state, cfg) == STATUS_NOT_ENDED
-        mover = state.cur_player
-        az_mask = az_mask_of(state)
+            live = rules.game_status(state, cfg) == STATUS_NOT_ENDED
+            mover = state.cur_player
+            az_mask = az_mask_of(state)
 
-        # --- AZ path: batched MCTS + visit-count policy ---
-        if paired_eval:
-            use_a = mover == 0
-            efn = lambda s, m: eval_fn(s, m, use_a)  # noqa: E731
-        else:
-            efn = eval_fn
-        noise_u = draws.root_noise() if cfg.use_dirichlet_noise else None
-        if reuse:
-            res = mcts.search_with_reuse(state, draws.gumbel(), cfg, efn,
-                                         tree_prev, reused_prev,
-                                         noise_u=noise_u)
-        else:
-            res = mcts.search(state, draws.gumbel(), cfg, efn,
-                              noise_u=noise_u)
-        action = mcts.pick_move(res, state, cfg, sample_moves,
-                                draws.pick() if sample_moves else None)
-        dice = draws.az_dice()
-        s_az = rules.step(state, action, dice, cfg)
-        if reuse:
-            tree_prev, reused_prev = mcts.reroot(
-                res.tree, action, realised_outcome(state, action, dice),
-                cfg)
+            # --- AZ path: batched MCTS + visit-count policy ---
+            if paired_eval:
+                use_a = mover == 0
+                efn = lambda s, m: eval_fn(s, m, use_a)  # noqa: E731
+            else:
+                efn = eval_fn
+            noise_u = draws.root_noise() if cfg.use_dirichlet_noise else None
+            if reuse:
+                res = mcts.search_with_reuse(state, draws.gumbel(), cfg, efn,
+                                             tree_prev, reused_prev,
+                                             noise_u=noise_u)
+            else:
+                res = mcts.search(state, draws.gumbel(), cfg, efn,
+                                  noise_u=noise_u)
+            action = mcts.pick_move(res, state, cfg, sample_moves,
+                                    draws.pick() if sample_moves else None)
+            dice = draws.az_dice()
+            s_az = rules.step(state, action, dice, cfg)
+            if reuse:
+                tree_prev, reused_prev = mcts.reroot(
+                    res.tree, action, realised_outcome(state, action, dice),
+                    cfg)
 
-        # --- opponent path ---
-        if both_az or fast_forward:
-            # after the fast-forward every live game is at an AZ turn, so
-            # the opponent's step would never be selected
-            nstate, n_carry = s_az, carry
-            pi = res.pi
-            rec_valid = live & az_mask
-        else:
-            reset = state.cur_player != prev
-            u, dice = draws.opp()
-            s_opp, n_carry, (opp_action, opp_rec) = _opponent_step(
-                opponent, state, carry, reset, u, dice, cfg)
-            nstate = tree_select(az_mask, s_az, s_opp)
-            n_carry = tree_select(az_mask | ~live, carry, n_carry)
-            # AZ movers contribute the MCTS pi; opponents one-hot actions
-            opp_pi = F.one_hot(opp_action.long(), NUM_ACTIONS).to(F32)
-            pi = torch.where(az_mask[:, None], res.pi, opp_pi)
-            rec_valid = live & (az_mask | opp_rec)
-        records.append(_record(state, pi, rec_valid))
+            # --- opponent path ---
+            if both_az or fast_forward:
+                # after the fast-forward every live game is at an AZ turn, so
+                # the opponent's step would never be selected
+                nstate, n_carry = s_az, carry
+                pi = res.pi
+                rec_valid = live & az_mask
+            else:
+                reset = state.cur_player != prev
+                u, dice = draws.opp()
+                s_opp, n_carry, (opp_action, opp_rec) = _opponent_step(
+                    opponent, state, carry, reset, u, dice, cfg)
+                nstate = tree_select(az_mask, s_az, s_opp)
+                n_carry = tree_select(az_mask | ~live, carry, n_carry)
+                # AZ movers contribute the MCTS pi; opponents one-hot actions
+                opp_pi = F.one_hot(opp_action.long(), NUM_ACTIONS).to(F32)
+                pi = torch.where(az_mask[:, None], res.pi, opp_pi)
+                rec_valid = live & (az_mask | opp_rec)
+            records.append(_record(state, pi, rec_valid))
 
-        state = tree_select(live, nstate, state)
-        carry = n_carry
-        prev = mover
-        decisions += (live & az_mask).sum()
+            state = tree_select(live, nstate, state)
+            carry = n_carry
+            prev = mover
+            decisions += (live & az_mask).sum()
 
     samples = SampleBatch(*(torch.stack(x) for x in zip(*records)))
     return ActorOutput(state=state, samples=samples,

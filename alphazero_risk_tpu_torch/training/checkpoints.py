@@ -34,7 +34,7 @@ import torch
 
 from ..config import Config
 from ..device import resolve_device
-from ..models.fast_infer import pack_heads, pack_trunk_wq
+from ..models.fast_infer import pack_heads, pack_trunk_wq, trunk_convs
 from ..models.resnet import AZNet, build_network
 from ..parallel import distributed as D
 from .learner import TrainState, train_state_of
@@ -167,6 +167,7 @@ def folded_from_jax(folded: Dict[str, np.ndarray],
         out[k] = t.to(dev)
     if "trunk_wq" in out:
         out["trunk_wqk"] = pack_trunk_wq(out["trunk_wq"])
+        out["trunk_convs"] = trunk_convs(out)
     out["heads_pack"] = pack_heads(out)
     return out
 

@@ -63,6 +63,7 @@ from ..models.fast_infer import (default_calib_feats, fold_for_inference,
 from ..models.resnet import AZNet
 from ..parallel import distributed as D
 from ..parallel.mesh import make_mesh, replicate, shard_batch
+from ..utils import profiling
 from ..utils.logging import Logs
 from . import actor as A
 from .checkpoints import CheckpointManager
@@ -311,7 +312,8 @@ class Trainer:
         In a process world the state, samples and status are this rank's
         games; the all-done check is a world sum, so the ranks run the
         same chunks, and ``early_stop`` must answer the same on every rank
-        (``_global_tally`` does).
+        (``_global_tally`` does).  Under the profiler the blocking reads of
+        a chunk's results are one ``host.sync`` span.
         """
         carry, prev = None, None
         state = state0
@@ -323,8 +325,9 @@ class Trainer:
             out = chunk_call(state, carry, prev)
             chunks.append(out.samples)
             state, carry, prev = out.state, out.carry, out.prev_player
-            decisions += int(out.az_decisions)
-            status = out.status.cpu().numpy()
+            with profiling.span("host.sync"):
+                decisions += int(out.az_decisions)
+                status = out.status.cpu().numpy()
             live = int((status == STATUS_NOT_ENDED).sum())
             if self.world > 1:
                 live = int(D.allgather_metrics({"live": live})["live"])

@@ -1240,3 +1240,36 @@ def test_world_play_on_one_card_matches_one_process(cuda, tmp_path):
     assert W.world_equals_one(one, world, "play")
     assert [r["play"]["result"] for r in world] == [one["play"]["result"]] * 2
     assert one["play"]["result"]["games"] == 16
+
+
+def test_spans_time_the_play_path_on_the_card(cuda):
+    """Under the profiler the play path's spans carry device seconds from
+    their CUDA events, nested as the spans are, and the games and
+    decisions equal those played without the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from alphazero_risk_tpu_torch.utils import profiling
+    cfg = Config(blocks=2, filters=64, value_hidden=16, mcts_simulations=4,
+                 max_depth=8, env_batch_per_device=4, fast_infer=True,
+                 fast_infer_int8=True)
+    plain = Trainer(cfg, seed=0, device=cuda)
+    off = plain.play(A.OPP_SCRIPT, 4)
+    traced = Trainer(cfg, seed=0, device=cuda)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        on = traced.play(A.OPP_SCRIPT, 4)
+    assert on == off
+    assert (traced.play_stats["az_decisions"]
+            == plain.play_stats["az_decisions"])
+    rep = profiling.report()
+    spans = rep["spans"]
+    assert set(spans) == {"actor.step", "actor.ff", "host.sync",
+                          "search.run", "net.eval", "net.trunk"}
+    # the fast-forward's reads, and the episode loop's at the top
+    assert set(spans["host.sync"]["parents"]) == {"actor.ff", None}
+    assert spans["net.trunk"]["device_s"] > 0
+    assert all(v["device_s"] >= 0 for v in spans.values())
+    assert rep["counters"]["net.boards"] == 4 * spans["net.trunk"]["count"]
+    # nested spans on one stream: a child's events lie between its
+    # parent's
+    dev = {k: v["device_s"] for k, v in spans.items()}
+    assert dev["net.trunk"] <= dev["net.eval"] <= dev["search.run"] \
+        <= dev["actor.step"]

@@ -608,3 +608,62 @@ def test_params_npz_interchange(tmp_path, writer):
     assert sorted(got) == sorted(half)
     for k, v in half.items():
         np.testing.assert_array_equal(got[k], v, err_msg=k)
+
+
+def _trunk_by_index(f, h):
+    """The int8 trunk with each conv's operands indexed out of the stacks
+    at each call."""
+    w, ws, b, act_s = (f["trunk_wqk"], f["trunk_ws"], f["trunk_b"],
+                       f.get("act_s"))
+    for l in range(w.shape[0]):
+        x = h
+        if act_s is None:
+            q, s = TF._quant_dyn(x)
+            y, _, _ = TF.conv3x3_i8(q, w[l, 0], ws[l, 0], b[l, 0], s)
+            q2, s2 = TF._quant_dyn(y)
+            h, _, _ = TF.conv3x3_i8(q2, w[l, 1], ws[l, 1], b[l, 1], s2,
+                                    residual=x)
+            continue
+        inv = 1.0 / act_s
+        q = TF._quantize(x, inv[l, 0])
+        y, _, _ = TF.conv3x3_i8(q, w[l, 0], ws[l, 0], b[l, 0], act_s[l, 0])
+        q2 = TF._quantize(y, inv[l, 1])
+        h, _, _ = TF.conv3x3_i8(q2, w[l, 1], ws[l, 1], b[l, 1], act_s[l, 1],
+                                residual=x)
+    return h
+
+
+@pytest.mark.parametrize("calibrated", [False, True])
+def test_trunk_convs_are_made_once_a_fold(calibrated):
+    """``fold_for_inference`` and ``folded_from_jax`` keep K1's per-conv
+    operands, ``trunk_convs``: views of the fold's own stacks (conv k =
+    2l + i) and of ``act_s`` and its inverse (None without ``act_s``); the
+    int8 trunk on them equals the trunk that indexes the stacks conv by
+    conv."""
+    _, variables = _randomized_variables(CFG, seed=21)
+    jx, tx = _inputs(CFG, 8, seed=21)
+    jq = JF.quantize_trunk(JF.fold_params(
+        variables, jconfig.Config(**dataclasses.asdict(CFG))))
+    if calibrated:
+        jq = JF.calibrate_trunk(jq, jx)
+    folds = [TF.fold_for_inference(_port_net(variables, CFG), CFG, int8=True,
+                                   calib_feats=tx if calibrated else None),
+             folded_from_jax(jq, device="cpu")]
+    for f in folds:
+        convs = f["trunk_convs"]
+        assert len(convs) == 2 * CFG.blocks
+        for k, (w, ws, b, s, inv) in enumerate(convs):
+            l, i = divmod(k, 2)
+            for view, key in ((w, "trunk_wqk"), (ws, "trunk_ws"),
+                              (b, "trunk_b")):
+                whole = f[key]
+                assert (view.untyped_storage().data_ptr()
+                        == whole.untyped_storage().data_ptr())
+                assert torch.equal(view, whole[l, i])
+            if calibrated:
+                assert torch.equal(s, f["act_s"][l, i])
+                assert torch.equal(inv, (1.0 / f["act_s"])[l, i])
+            else:
+                assert s is None and inv is None
+        h, _ = TF._stem(f, tx)
+        assert torch.equal(TF._trunk_xla_int8(f, h), _trunk_by_index(f, h))

@@ -13,9 +13,9 @@ logging utilities.
   Both networks run in float32 here: bf16 rounds differently in XLA and
   PyTorch, and a search's visit counts follow every bit of its priors.
 - ``-m watch --cpu --no-pause`` through ``cli.main``.
-- ``PhaseTimer``, the ``Logs`` files and ``print_progress`` equal to JAX's
-  for the same calls (apart from the ``ts`` field); ``trace`` writes a
-  Chrome trace on the CPU.
+- The ``Logs`` files and ``print_progress`` equal to JAX's for the same
+  calls (apart from the ``ts`` field); ``trace`` writes a Chrome trace on
+  the CPU.
 """
 
 import builtins
@@ -38,7 +38,6 @@ from alphazero_risk_tpu.models.resnet import AZNet as JAZNet
 from alphazero_risk_tpu.training import actor as JA
 from alphazero_risk_tpu.utils import board as JB
 from alphazero_risk_tpu.utils import logging as JLG
-from alphazero_risk_tpu.utils import profiling as JP
 from alphazero_risk_tpu.utils import watch as JW
 
 from alphazero_risk_tpu_torch import cli
@@ -317,15 +316,7 @@ def test_cli_watch_az_seat(tmp_path, monkeypatch, capsys):
     assert not os.path.exists("log/settings.txt")
 
 
-# ---------------------------------------------------------- logs, timing
-
-def _fake_clock(monkeypatch):
-    """``time.perf_counter`` as a fixed-step clock, so two runs of the same
-    calls measure the same seconds."""
-    import time
-    ticks = iter(range(10 ** 6))
-    monkeypatch.setattr(time, "perf_counter", lambda: next(ticks) * 0.25)
-
+# ----------------------------------------------------------- logs, trace
 
 def _read_dir(d):
     out = {}
@@ -340,37 +331,30 @@ def _read_dir(d):
     return out
 
 
-def test_logs_and_phase_timer_match_jax(tmp_path, monkeypatch, capsys):
-    """The same calls on the port's ``Logs`` and ``PhaseTimer`` and on
-    JAX's write the same files, line for line (the events apart from
-    their ``ts``), and keep the same totals; ``print_progress`` prints the
-    same bar."""
-    _fake_clock(monkeypatch)
+def test_logs_match_jax(tmp_path, capsys):
+    """The same calls on the port's ``Logs`` and on JAX's write the same
+    files, line for line (the events apart from their ``ts``);
+    ``print_progress`` prints the same bar."""
     summary = {"draws": 1, "p0_wins": 5, "p0_win_started": 3, "p1_wins": 2,
                "p1_win_started": 1}
     results = {}
-    for name, LG, P in (("port", TLG, TP), ("jax", JLG, JP)):
+    for name, LG in (("port", TLG), ("jax", JLG)):
         logs = LG.Logs(str(tmp_path / name))
-        timer = P.PhaseTimer(logs)
-        with timer.phase("selfplay"):
-            logs.log_improvement(3, 2, 10, 6, 8, 5)
-        with timer.phase("train"):
-            logs.log_nn_epoch(3, 1, 1.2345678, 0.5)
-        with timer.phase("selfplay"):
-            logs.log_benchmark(3, summary, dict(summary, draws=4))
+        logs.log_improvement(3, 2, 10, 6, 8, 5)
+        logs.log_nn_epoch(3, 1, 1.2345678, 0.5)
+        logs.log_benchmark(3, summary, dict(summary, draws=4))
         logs.nn_performance.write("3,512,0.125")
         logs.mcts_performance.write("3,32,0.5")
         logs.event("note", text="x", n=1)
         for i in (0, 3, 7, 10):
             LG.print_progress(i, 10, width=20)
-        results[name] = (_read_dir(tmp_path / name), timer.totals,
+        results[name] = (_read_dir(tmp_path / name),
                          capsys.readouterr().out)
     assert results["port"] == results["jax"]
-    files, totals, bar = results["port"]
+    files, bar = results["port"]
     assert set(files) == {"azr-improvement-log.txt", "azr-benchmark-log.txt",
                           "azr-nn-log.txt", "nn-performance-log.txt",
                           "mcts-performance-log.txt", "events.jsonl"}
-    assert totals == {"selfplay": 0.5, "train": 0.25}
     assert bar.endswith("[####################] 10/10\n")
 
 
