@@ -10,8 +10,10 @@ proxy fence), and once per other split of the large block shape
 (``-DAZ_CONV_LARGE_WG``, ``-DAZ_CONV_LARGE_MT``), and times each build
 back to back with CUDA events, in the conv_a form (bf16 or int8 out only)
 at C=256 and B=1,024 and 64.  A build with parts left out computes wrong
-results: its time only says what the parts cost.  Needs a CUDA card and
-``nvcc``.
+results: its time only says what the parts cost.  K1 at B=1,024 takes
+its wide design (``csrc/conv_i8_wide.cuh``), which none of these builds
+changes: its line there times that design as it is.  Needs a CUDA card
+and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -99,7 +101,8 @@ def main() -> None:
         s = torch.tensor(0.01, device=dev)
         inv = torch.tensor(0.3, device=dev)
         qo = torch.empty_like(q)
-        per, blocks = FI.conv_tile(kernels.CONV3X3_I8, b, c)
+        per, blocks = FI.conv_tile(kernels.CONV3X3_BF16, b, c)
+        k1 = "K1 wide" if FI.k1_wide(b, c, dev) else "K1 conv_a"
         stream = torch.cuda.current_stream().cuda_stream
         for v in [*VARIANTS, *SHAPES]:
             # the C entry points themselves, with no Python wrapper around
@@ -112,7 +115,7 @@ def main() -> None:
                                 P(inv), None, P(qo), None, b * 42, c,
                                 stream))
             print(f"B={b} {blocks} blocks of {per} boards {v:9s} K4 conv_a "
-                  f"{t4:8.2f} us  K1 conv_a {t1:8.2f} us", flush=True)
+                  f"{t4:8.2f} us  {k1} {t1:8.2f} us", flush=True)
 
 
 if __name__ == "__main__":

@@ -1,40 +1,62 @@
 // K1: int8 3x3 SAME convolution on the 7x6 board with a fused epilogue, on
-// the tensor cores (wgmma m64n64k32 s8 -> s32).
+// the tensor cores (wgmma s8 -> s32), in two designs chosen by the
+// launch's shape.
 //
 // Replaces: alphazero_risk_tpu/models/fast_infer.py, `_conv_i8` (an XLA
 // int8 x int8 -> int32 conv) together with the elementwise work around it in
 // `_trunk_xla_int8`: dequantize (acc * (s * ws) + b), the residual add, the
 // ReLU and the requantization of the next conv's input
-// (clip(rint(h * (1/s_next)), -127, 127)).
+// (clip(rint(h * (1/s_next)), -127, 127)).  Both stay as they are there.
 //
 // Bound on an H100 (1,979 TOP/s int8 dense, 3.35 TB/s): one conv at C=256
 // is 2*M*9*256^2 operations; the conv_b epilogue moves M*C*(1+4+4+1) bytes
 // plus the 0.6 MB weight.  At B=64 (M=2,688): 3.17 GOP, 1.6 us, against
-// 7.5 MB, 2.2 us.  At B=1,024: 50.7 GOP, 25.6 us, against 110 MB, 33 us.
-// About balanced at both, bytes slightly ahead.
+// 7.5 MB, 2.2 us.  At B=1,024: 50.7 GOP, 25.6 us, against 110 MB, 33 us
+// (conv_a moves 22.6 MB: its int8 work bounds it).  A third bound is L2:
+// every tile streams the whole weight (590 KB at C=256) from L2, so the
+// rows a weight slice serves set the L2 bytes a conv reads.
 //
-// Design (conv_tc.cuh): board-aligned tiles with each board's zero-padded
+// The wide design (conv_i8_wide.cuh) takes a launch where C=256 and its
+// tiles of 64 rows give every SM of the card one (ceil(42 B / 64) >= SMs:
+// B >= 200 on an H100's 132 SMs): tiles of 64 rows x all 256 output
+// channels, m64n256k32 per consumer warpgroup, so each A fragment serves
+// every output channel and each board's halo plane is staged once per
+// chunk; a producer warpgroup feeds a TMA weight ring and a TMA plane ring
+// through mbarriers; persistent blocks, one per SM, in clusters of 4 that
+// share each weight slice by multicast (a slice read from L2 serves 4
+// tiles: 99 MB of L2 weight reads a conv at B=1,024, against 396 MB
+// unshared; 30 such clusters fit on an H100, 120 blocks); two consumer
+// warpgroups in ping-pong, so that one's epilogue runs under the other's
+// wgmmas; conv_b's residual prefetched into L2 a tile ahead.  On an H100
+// its main loop alone runs at about the int8 peak; what is left is the
+// epilogue, which slows the other warpgroup's wgmmas while it runs.
+//
+// The tiled design (conv_tc.cuh, which K4 shares) for smaller batches and
+// for C = 64 or 128: board-aligned tiles with each board's zero-padded
 // halo plane staged once per 64-channel chunk by cp.async, a chunk ahead;
 // the nine taps as row offsets of ldmatrix, whose fragments are wgmma's A
 // in registers; the weight's (chunk, kernel row) slices through a 4-stage
-// cp.async ring into wgmma's K-major 64B-swizzled layout.  wgmma s8 takes
-// K-major operands only (no transpose for 8-bit data), so the weight comes
-// packed at fold time as [3, 3, Cout, Cin] (fast_infer.pack_trunk_wq).  One
-// wgmma group per (tap, 32 channels), its A fragments in one of two
-// register sets, so the next group's ldmatrix runs while it multiplies.  64
-// output channels per block; 3 boards on 2 warpgroups for small batches, 6
-// boards on 2 warpgroups of two tiles (twice the products per weight byte
-// read from L2, two blocks per SM) for large ones (the launcher chooses
-// from the SM count).  The int32 sums are exact (|acc| <= 127*127*9*C <
-// 2^31) in any order.  The epilogue runs on the accumulators in registers,
-// in the order of `_trunk_xla_int8`, compiled without FMA contraction
-// (--fmad=false) so that it rounds like the plain PyTorch version; the
-// int32 tensor never reaches device memory unless asked for.
+// cp.async ring into wgmma's K-major 64B-swizzled layout.  One wgmma group
+// per (tap, 32 channels), its A fragments in one of two register sets, so
+// the next group's ldmatrix runs while it multiplies.  64 output channels
+// per block; 3 boards on 2 warpgroups for small batches, 6 boards on 2
+// warpgroups of two tiles (twice the products per weight byte read from
+// L2, two blocks per SM) for large ones (the launcher chooses from the SM
+// count).
+//
+// Both: wgmma s8 takes K-major operands only (no transpose for 8-bit
+// data), so the weight comes packed at fold time as [3, 3, Cout, Cin]
+// (fast_infer.pack_trunk_wq).  The int32 sums are exact (|acc| <=
+// 127*127*9*C < 2^31) in any order.  The epilogue runs on the accumulators
+// in registers, in the order of `_trunk_xla_int8`, compiled without FMA
+// contraction (--fmad=false) so that it rounds like the plain PyTorch
+// version; the int32 tensor never reaches device memory unless asked for.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "conv_tc.cuh"
+#include "conv_i8_wide.cuh"
 
 namespace {
 
@@ -180,9 +202,11 @@ int launch(const void* q, const void* wk, const void* ws, const void* bias,
 // on the device).  residual [M, C] f32 or null; inv_next_ptr -> 1/s_next or
 // null (required with out_q).  Any of out_h [M, C] f32, out_q [M, C] int8,
 // out_acc [M, C] int32 may be null.  C a multiple of 64; every pointer
-// 16-byte aligned.  Launches ceil(B / boards) x C/64 blocks of
-// az_conv3x3_i8_boards(B, C) boards each on `stream` and returns
-// cudaGetLastError() (cudaErrorInvalidValue for a shape it does not take).
+// 16-byte aligned.  Launches the wide design where az_conv3x3_i8_wide(B,
+// C) (min(tiles, SMs) blocks over ceil(B / 3) tiles), else ceil(B /
+// boards) x C/64 blocks of az_conv3x3_i8_boards(B, C) boards each, on
+// `stream`, and returns cudaGetLastError() (cudaErrorInvalidValue for a
+// shape it does not take).
 extern "C" int az_conv3x3_i8(const void* q, const void* wk, const void* ws,
                              const void* bias, const void* s_ptr,
                              const void* residual, const void* inv_next_ptr,
@@ -191,6 +215,9 @@ extern "C" int az_conv3x3_i8(const void* q, const void* wk, const void* ws,
   const int B = M / kCells;
   if (M % kCells || C % kBN) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wide::takes(B, C))
+    return wide::launch(q, wk, ws, bias, s_ptr, residual, inv_next_ptr,
+                        out_h, out_q, out_acc, B, s);
   return conv_boards(B, C) == Large::kBoards
              ? launch<Large>(q, wk, ws, bias, s_ptr, residual, inv_next_ptr,
                              out_h, out_q, out_acc, B, C, s)
@@ -199,7 +226,21 @@ extern "C" int az_conv3x3_i8(const void* q, const void* wk, const void* ws,
 }
 
 // Boards per block of a launch over B boards and C output channels on the
-// current card (3 or 12).
+// current card (3 or 6; 0 in the wide design, whose tiles are 64 rows).
 extern "C" int az_conv3x3_i8_boards(int B, int C) {
-  return conv_boards(B, C);
+  return wide::takes(B, C) ? 0 : conv_boards(B, C);
+}
+
+// 1 where a launch over B boards and C output channels on the current card
+// takes the wide design, else 0.
+extern "C" int az_conv3x3_i8_wide(int B, int C) {
+  return wide::takes(B, C) ? 1 : 0;
+}
+
+// The blocks such a launch runs: the wide design's persistent blocks, or
+// the tiled design's one block a tile.
+extern "C" int az_conv3x3_i8_blocks(int B, int C) {
+  if (wide::takes(B, C)) return wide::blocks(B);
+  const int per = conv_boards(B, C);
+  return (B + per - 1) / per * (C / kBN);
 }

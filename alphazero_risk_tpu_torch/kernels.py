@@ -137,10 +137,11 @@ class Kernel:
 # The tensor-core convs K1 and K4 share csrc/conv_tc.cuh.
 CONV_TC = ("conv_tc.cuh",)
 
-# q, packed w, ws, bias, s, residual, 1/s_next, h, q_next, acc, M, C
+# q, packed w, ws, bias, s, residual, 1/s_next, h, q_next, acc, M, C; its
+# wide design for batches that fill the card has a header of its own
 CONV3X3_I8 = Kernel(
     "conv3x3_i8", "conv_i8.cu", "az_conv3x3_i8",
-    [P] * 10 + [I, I], headers=CONV_TC)
+    [P] * 10 + [I, I], headers=CONV_TC + ("conv_i8_wide.cuh",))
 
 # root, 10 tree and node-state arrays, gumbel, logp, nrank (int8);
 # c_keep, c_add, cpuct, B, N, D; the paths and ends output buffers

@@ -32,7 +32,8 @@ with its elementwise epilogue; ``_heads`` and ``torch.softmax``).
 Under the profiler (``utils.profiling``) each evaluation of the eval
 functions is a ``net.eval`` span, each trunk pass's conv launches a
 ``net.trunk`` span, and the counter ``net.boards`` adds the rows of every
-trunk pass.
+trunk pass; ``net.boards_wide`` adds those of the int8 trunk passes whose
+K1 launches take its wide design (``k1_wide``).
 """
 
 from __future__ import annotations
@@ -206,11 +207,29 @@ def trunk_convs(folded: Dict[str, Any]) -> tuple:
 
 def conv_tile(kernel: kernels.Kernel, boards: int, cout: int
               ) -> tuple[int, int]:
-    """(boards per block, blocks) of a K1 or K4 launch (``kernel``) over
+    """(boards per tile, tiles) of a K1 or K4 launch (``kernel``) over
     ``boards`` boards and ``cout`` output channels on the current card, as
-    the kernel's library chooses them (``csrc/conv_tc.cuh``)."""
+    the kernel's library chooses them.  A tile is ``per`` boards x 64
+    output channels, one block each (``csrc/conv_tc.cuh``), or in K1's wide
+    design (``k1_wide``; ``per`` 0) 64 rows x all 256 channels, walked by
+    persistent blocks (``csrc/conv_i8_wide.cuh``)."""
     per = kernel.query(kernel.symbol + "_boards", boards, cout)
+    if per == 0:
+        return 0, -(-boards * BOARD // 64)
     return per, -(-boards // per) * (cout // 64)
+
+
+def k1_wide(boards: int, cout: int, device: torch.device) -> bool:
+    """Whether K1 runs a launch over ``boards`` boards and ``cout``
+    channels on ``device`` in its wide design (whole-Cout tiles on
+    persistent blocks: C=256 and a tile of 64 rows for every SM of the
+    card), as its library chooses.  False off the card, where the plain
+    version runs."""
+    if device.type != "cuda":
+        return False
+    with torch.cuda.device(device):
+        return bool(kernels.CONV3X3_I8.query("az_conv3x3_i8_wide", boards,
+                                             cout))
 
 
 def _conv_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -385,7 +404,11 @@ def _trunk_xla_int8(folded, h):
     convs = folded["trunk_convs"]
     n = len(convs)
     h = h.contiguous()
-    profiling.count("net.boards", h.shape[0])
+    boards = h.shape[0]
+    profiling.count("net.boards", boards)
+    if profiling.recording():
+        wide = k1_wide(boards, h.shape[-1], h.device)
+        profiling.count("net.boards_wide", boards if wide else 0)
     if convs[0][3] is None:
         with profiling.span("net.trunk"):
             for k in range(0, n, 2):

@@ -146,6 +146,12 @@ class _Span:
         return False
 
 
+def recording() -> bool:
+    """Whether spans and counters record now (the profiler runs): a caller
+    skips work that only feeds a counter when it does not."""
+    return _recording()
+
+
 def span(name: str):
     """A context manager marking one stretch of a layer's host code under
     ``name``: a ``record_function`` range and an entry of the record while

@@ -30,8 +30,9 @@ when all of them pass):
    than 3 boards.  K2/K3 also at 1 and 33 games and on the main-path tree
    rewritten into ties (``tie_tree``: every legal action tied, rows with
    no legal action, attack sources with equal armies or none).  Then at
-   larger shapes: K1 and K4 at B=1024; K4 at the
-   512 calibration features every int8 fold launches it on, in
+   larger shapes: K1 and K4 at B=1024, K1 also at 4,096 (self-play's
+   batch; K1 prints its design and tiles per SM); K4 at the 512
+   calibration features every int8 fold launches it on, in
    ``check_k4``'s three forms and in each conv of ``calibrate_trunk``
    (held against the plain conv on that conv's own inputs), and the
    activation scales that ``calibrate_trunk`` sets on K4 against those of
@@ -437,10 +438,18 @@ def check_k1(folded, feats, timed=True):
              int((qb.int() - ref_qb.int()).abs().max()))
     if dq > 1:
         fail(f"K1 requantized output differs by {dq} at B={B}")
-    per, blocks = FI.conv_tile(kernels.CONV3X3_I8, B, C)
+    per, tiles = FI.conv_tile(kernels.CONV3X3_I8, B, C)
+    blocks = kernels.CONV3X3_I8.query("az_conv3x3_i8_blocks", B, C)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    if per == 0:
+        design = (f"wide design: {tiles} tiles of 64 rows x {C} channels "
+                  f"on {blocks} persistent blocks ({sms} SMs), "
+                  f"{tiles / sms:.2f} tiles per SM")
+    else:
+        design = (f"tiled design: {tiles} blocks of {tile_name(per)}, "
+                  f"{tiles / sms:.2f} per SM")
     log(f"K1 conv3x3_i8 B={B} C={C}: acc exact, h max abs err {err:.3g}, "
-        f"q max diff {dq}, |acc| max {int(acc_b.abs().max())}; {blocks} "
-        f"blocks of {tile_name(per)}")
+        f"q max diff {dq}, |acc| max {int(acc_b.abs().max())}; {design}")
     if not timed:
         return None
 
@@ -491,8 +500,8 @@ def check_k1(folded, feats, timed=True):
     return {"max_abs_err": err, "ms": ms_b, "device_ms": dev_b,
             "plain_ms": plain, "bound_ms": bms, "bound_by": by,
             "library_ms": lib_int, "library": "torch._int_mm (im2col)",
-            "bf16_conv2d_ms": lib, "blocks": blocks,
-            "tile": tile_name(per),
+            "bf16_conv2d_ms": lib, "blocks": blocks, "tiles": tiles,
+            "design": design, "tiles_per_sm": tiles / sms,
             "conv_a": {"ms": ms_a, "device_ms": dev_a, "bound_ms": bms_a,
                        "bound_by": by_a},
             "shape": f"B={B} C={C}"}
@@ -1654,9 +1663,12 @@ def phase_kernels(cfg, dev):
         for case in TIE_CASES:
             check_k2_k3(tie_tree(mtree, case), mgum, cfg, dev, timed=False,
                         what=f" {case}")
-        # the larger shapes: K1 and K4 at B=1024, K2/K3 over 256 games
+        # the larger shapes: K1 and K4 at B=1024, K1 at self-play's 4,096
+        # (the played states four times), K2/K3 over 256 games
         feats1024 = featurize(states, cfg)
         k1["b1024"] = check_k1(folded, feats1024)
+        k1["b4096"] = check_k1(folded,
+                               feats1024.repeat(4, 1, 1, 1).contiguous())
         k4["b1024"] = check_k4(folded, feats1024)
         # K5 at the data phase's batch (128), the calibration batch (512)
         # and 1,024, on the trunk output of played states

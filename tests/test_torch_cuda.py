@@ -68,29 +68,60 @@ def _to(tree, dev):
 
 # every batch the paths launch: lockstep games, and 512 calibration features
 CONV_BATCHES = [2, 4, 16, 32, 64, 512, 1024]
+# K1 also at self-play's batches, ragged ones, and either side of the
+# batch from which its wide design takes the launch (resolved on the card)
+CONV_I8_BATCHES = CONV_BATCHES + [1021, 2048, 4093, 4096, "switch",
+                                  "switch-1"]
+
+
+def _sms(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _k1_wide(boards, cout, sms):
+    """K1's wide design: C=256 and a tile of 64 rows for every SM."""
+    return cout == 256 and -(-boards * 42 // 64) >= sms
+
+
+def _batch(batch, sms):
+    """A batch of CONV_I8_BATCHES on a card of ``sms`` SMs: "switch" is
+    the least batch the wide design takes."""
+    switch = (sms - 1) * 64 // 42 + 1
+    return {"switch": switch, "switch-1": switch - 1}.get(batch, batch)
 
 
 @pytest.mark.parametrize("boards,cout", [(1024, 256), (512, 256),
                                          (256, 256), (64, 256), (2, 256),
-                                         (1024, 64)])
+                                         (1024, 64), (1024, 128),
+                                         (4096, 256), ("switch", 256),
+                                         ("switch-1", 256)])
 def test_conv_tile_choice(cuda, boards, cout):
-    """K1's and K4's block shape, as their libraries choose it: 6 boards
-    per block where that still gives every SM of the card a block, else 3;
-    64 output channels per block either way."""
-    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    """K1's and K4's tiles, as their libraries choose them.  K4 and K1's
+    tiled design: 6 boards per block where that still gives every SM of
+    the card a block, else 3; 64 output channels per block either way.
+    K1 takes its wide design instead where C=256 and tiles of 64 rows x
+    all 256 channels give every SM one: then ceil(42 B / 64) tiles, and no
+    boards per tile."""
+    sms = _sms(cuda)
+    boards = _batch(boards, sms)
     per = 6 if -(-boards // 6) * (cout // 64) >= sms else 3
-    for k in (kernels.CONV3X3_I8, kernels.CONV3X3_BF16):
-        assert FI.conv_tile(k, boards, cout) == (
-            per, -(-boards // per) * (cout // 64))
+    tiled = (per, -(-boards // per) * (cout // 64))
+    assert FI.conv_tile(kernels.CONV3X3_BF16, boards, cout) == tiled
+    wide = _k1_wide(boards, cout, sms)
+    assert FI.k1_wide(boards, cout, cuda) == wide
+    assert FI.conv_tile(kernels.CONV3X3_I8, boards, cout) == (
+        (0, -(-boards * 42 // 64)) if wide else tiled)
 
 
 @pytest.mark.parametrize("channels", [64, 128, 256])
-@pytest.mark.parametrize("batch", CONV_BATCHES)
+@pytest.mark.parametrize("batch", CONV_I8_BATCHES)
 def test_conv3x3_i8_matches_plain(cuda, batch, channels):
     """K1 against its plain version, with and without the residual, on
     every output combination: int32 accumulators equal, h within 1e-6
     relative (the same float operations in the same order, no FMA), the
-    requantized int8 within 1 (a rint tie)."""
+    requantized int8 within 1 (a rint tie).  Either design, as the batch
+    and the channels choose it."""
+    batch = _batch(batch, _sms(cuda))
     g = torch.Generator(device=cuda).manual_seed(batch * channels)
     c = channels
     q = torch.randint(-127, 128, (batch, 7, 6, c), generator=g, device=cuda,
@@ -1268,6 +1299,8 @@ def test_spans_time_the_play_path_on_the_card(cuda):
     assert spans["net.trunk"]["device_s"] > 0
     assert all(v["device_s"] >= 0 for v in spans.values())
     assert rep["counters"]["net.boards"] == 4 * spans["net.trunk"]["count"]
+    # four boards of 64 channels: K1's tiled design, never the wide one
+    assert rep["counters"]["net.boards_wide"] == 0
     # nested spans on one stream: a child's events lie between its
     # parent's
     dev = {k: v["device_s"] for k, v in spans.items()}

@@ -147,7 +147,8 @@ def test_kernel_library_names_follow_their_headers(tmp_path, monkeypatch):
     """A rules kernel's library name hashes the shared headers too, so an
     edit of ``rules_dev.cuh`` or ``rules_warp.cuh`` rebuilds the five warp
     kernels (K7, K8, K9, K10 and their multi-step entry); the two convs
-    share ``conv_tc.cuh`` the same way."""
+    share ``conv_tc.cuh`` the same way, and K1 also hashes its wide
+    design's ``conv_i8_wide.cuh``."""
     from alphazero_risk_tpu_torch import kernels
     warp = ["rules_dev.cuh", "rules_warp.cuh"]
     for k, shared in ((kernels.RULES_STEP, warp),
@@ -155,7 +156,8 @@ def test_kernel_library_names_follow_their_headers(tmp_path, monkeypatch):
                       (kernels.SCRIPT_STEP, warp),
                       (kernels.RANDOM_STEP, warp),
                       (kernels.AGENT_STEPS, warp),
-                      (kernels.CONV3X3_I8, ["conv_tc.cuh"]),
+                      (kernels.CONV3X3_I8, ["conv_tc.cuh",
+                                            "conv_i8_wide.cuh"]),
                       (kernels.CONV3X3_BF16, ["conv_tc.cuh"])):
         assert [h.name for h in k.headers] == shared
         for i, name in enumerate(shared):

@@ -12,6 +12,9 @@
   records one ``actor.step`` a micro-step, ``sims + 1`` ``net.eval`` a
   search, one ``net.trunk`` and its boards an evaluation, and a
   ``host.sync`` for each fast-forward block.
+- ``net.boards_wide`` adds the boards of each int8 trunk pass whose K1
+  launches take the wide design, once a pass, and only under the
+  profiler: without it the design is not even asked for.
 """
 
 import dataclasses
@@ -200,7 +203,9 @@ def test_run_episodes_spans_change_nothing_and_count(mode, monkeypatch):
     assert s["net.eval"]["parents"] == ["search.run"]
     assert s["net.trunk"]["count"] == evals
     assert s["net.trunk"]["parents"] == ["net.eval"]
-    assert rep["counters"] == {"net.boards": evals * GAMES}
+    # off the card no board takes K1's wide design
+    assert rep["counters"] == {"net.boards": evals * GAMES,
+                               "net.boards_wide": 0}
     if mode == "arena":
         assert len(ff_blocks) == STEPS and sum(ff_iters) > 0
         assert s["actor.ff"]["count"] == STEPS
@@ -212,3 +217,32 @@ def test_run_episodes_spans_change_nothing_and_count(mode, monkeypatch):
     for v in s.values():
         assert v["device_s"] is None
         assert 0.0 <= v["host_self_s"] <= v["host_s"]
+
+
+def test_wide_boards_counted_once_a_trunk_pass_under_the_profiler(
+        monkeypatch):
+    """The wide design's answer stands in for the card's (off the card
+    none is wide): every other trunk pass takes it.  The count is asked
+    once a pass (not once a conv: two blocks, four convs), only while the
+    profiler runs, and the episodes stay bit-equal."""
+    cfg = Config(blocks=2, filters=16, value_hidden=8,
+                 mcts_simulations=SIMS, max_depth=12)
+    efn = _eval_fn(cfg)
+    asked = []
+
+    def wide(boards, cout, device):
+        asked.append((boards, cout, device.type))
+        return len(asked) % 2 == 1
+
+    monkeypatch.setattr(TF, "k1_wide", wide)
+    off = _episodes(cfg, efn, "selfplay")
+    assert asked == []
+    with _cpu_profile():
+        on = _episodes(cfg, efn, "selfplay")
+    rep = P.report()
+    for a, b in zip(_flat(off), _flat(on), strict=True):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    evals = STEPS * (SIMS + 1)
+    assert asked == [(GAMES, cfg.filters, "cpu")] * evals
+    assert rep["counters"] == {"net.boards": evals * GAMES,
+                               "net.boards_wide": (evals + 1) // 2 * GAMES}
