@@ -109,8 +109,8 @@ def main() -> None:
             # them: at B=64 the wrapper's call would set the pace
             f4 = builds[(v, "conv3x3_bf16")]._load()
             f1 = builds[(v, "conv3x3_i8")]._load()
-            t4 = _us(lambda: f4(P(x), P(w), P(bias), None, None, P(xo),
-                                b * 42, c, c, 1, stream))
+            t4 = _us(lambda: f4(P(x), P(w), P(bias), None, None, None,
+                                P(xo), None, b * 42, c, c, 1, stream))
             t1 = _us(lambda: f1(P(q), P(wk), P(ws), P(bias), P(s), None,
                                 P(inv), None, P(qo), None, b * 42, c,
                                 stream))

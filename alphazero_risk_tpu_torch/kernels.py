@@ -155,10 +155,11 @@ MCTS_BACKUP = Kernel(
     "mcts_backup", "mcts_backup.cu", "az_mcts_backup",
     [P] * 5 + [I, I, I])
 
-# x, w, bias, residual, out f32, out bf16, M, Cin, Cout, x is bf16
+# x, w, bias, residual, 1/s of the int8 output, out f32, out bf16, out
+# int8, M, Cin, Cout, x is bf16
 CONV3X3_BF16 = Kernel(
     "conv3x3_bf16", "conv_bf16.cu", "az_conv3x3_bf16",
-    [P] * 6 + [I] * 4, fmad=True, headers=CONV_TC)
+    [P] * 8 + [I] * 4, fmad=True, headers=CONV_TC)
 
 # h, the packed head weights, legal, probs, value, logits, B, C, V
 HEADS_EVAL = Kernel(

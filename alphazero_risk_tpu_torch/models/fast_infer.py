@@ -21,19 +21,27 @@ The bf16 stem and trunk convs run on kernel K4 (``csrc/conv_bf16.cu``,
 weights, float32 accumulation (what JAX computes with
 ``preferred_element_type=float32``), with the bias, the residual add and the
 ReLU fused.  K4 writes its output as f32, as bf16 (the next conv's input,
-which JAX rounds to bf16), or both, so the bf16 trunk hands bf16 from conv
-to conv.  The heads and the legal-masked softmax run on kernel K5
+which JAX rounds to bf16), as int8 codes at a given scale, or several of
+them, so the bf16 trunk hands bf16 from conv to conv, and the stem hands
+the int8 trunk its first input as K1 hands each conv the next one's.  The
+heads and the legal-masked softmax run on kernel K5
 (``csrc/heads_softmax.cu``, ``heads_eval``), in float32, on the ten head
 tensors packed once at fold time into one buffer (``pack_heads``,
 ``heads_pack`` of the folded dict).  On CPU tensors
 the wrappers compute the same functions in plain PyTorch (``_conv_bf16``
 with its elementwise epilogue; ``_heads`` and ``torch.softmax``).
 
+On the card the int8 trunk with calibrated scales runs as one replay of a
+CUDA graph of its 2 x blocks K1 launches, captured once per batch size and
+kept in the folded dict (``trunk_graphs``, beside ``trunk_convs``): the
+stem writes straight into the graph's inputs, and the host launches one
+graph where it launched 2 x blocks kernels (``_trunk_out``).
+
 Under the profiler (``utils.profiling``) each evaluation of the eval
-functions is a ``net.eval`` span, each trunk pass's conv launches a
-``net.trunk`` span, and the counter ``net.boards`` adds the rows of every
-trunk pass; ``net.boards_wide`` adds those of the int8 trunk passes whose
-K1 launches take its wide design (``k1_wide``).
+functions is a ``net.eval`` span, each trunk pass's conv launches (or its
+graph's replay) a ``net.trunk`` span, and the counter ``net.boards`` adds
+the rows of every trunk pass; ``net.boards_wide`` adds those of the int8
+trunk passes whose K1 launches take its wide design (``k1_wide``).
 """
 
 from __future__ import annotations
@@ -249,25 +257,50 @@ def _conv3x3_bf16_plain(x, w, bias, residual=None):
 
 def conv3x3_bf16(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                  residual: torch.Tensor | None = None, want_f32: bool = True,
-                 want_bf16: bool = False):
+                 want_bf16: bool = False,
+                 inv_s_next: torch.Tensor | None = None,
+                 out: torch.Tensor | None = None,
+                 out_q: torch.Tensor | None = None):
     """One bf16 conv with its fused epilogue (kernel K4).
 
     x [B,7,6,Cin] NHWC, f32 (rounded to bf16 inside) or bf16 (Cin % 8 == 0
     on the card), w [3,3,Cin,Cout] bf16 HWIO, bias [Cout] f32, residual
     [B,7,6,Cout] f32 or None.  Computes
     ``v = relu(conv(x, w) + bias [+ residual])`` and returns
-    ``(v as f32 or None, v.to(bfloat16) or None)`` as ``want_f32`` and
-    ``want_bf16`` ask.
+    ``(v as f32 or None, v.to(bfloat16) or None, q or None)``: the f32 and
+    bf16 outputs as ``want_f32`` and ``want_bf16`` ask, and, given
+    ``inv_s_next`` (0-d f32), the int8 trunk's first input
+    ``q = clip(rint(v * inv_s_next), -127, 127)`` (``_quantize``; what K1
+    writes for the conv after it).  ``out`` (f32) and ``out_q`` (int8),
+    contiguous [B,7,6,Cout], receive the f32 output (asked for by giving
+    ``out``) and q in place of new tensors.
 
     CPU tensors take the plain PyTorch version; CUDA tensors launch the
     kernel (no fallback).
     """
-    if not (want_f32 or want_bf16):
+    want_f32 = want_f32 or out is not None
+    if not (want_f32 or want_bf16 or inv_s_next is not None):
         raise ValueError("conv3x3_bf16: ask for at least one output")
+    if out_q is not None and inv_s_next is None:
+        raise ValueError("conv3x3_bf16: out_q needs inv_s_next")
+    shape = (x.shape[0], 7, 6, w.shape[-1])
+    for t, dt in ((out, F32), (out_q, I8)):
+        if t is not None and (t.dtype != dt or tuple(t.shape) != shape
+                              or t.device != x.device
+                              or not t.is_contiguous()):
+            raise ValueError(f"conv3x3_bf16: out and out_q must be "
+                             f"contiguous {shape} f32 and int8 on x's "
+                             f"device")
     if x.device.type == "cpu":
         v = _conv3x3_bf16_plain(x, w, bias, residual)
-        return (v if want_f32 else None, v.to(BF16) if want_bf16 else None)
-    extra = [] if residual is None else [residual]
+        q = None if inv_s_next is None else _quantize(v, inv_s_next)
+        if out is not None:
+            v = out.copy_(v)
+        if out_q is not None:
+            q = out_q.copy_(q)
+        return (v if want_f32 else None, v.to(BF16) if want_bf16 else None,
+                q)
+    extra = [t for t in (residual, inv_s_next) if t is not None]
     kernels.require_cuda(x, w, bias, *extra)
     b, cin, cout = x.shape[0], x.shape[-1], w.shape[-1]
     if x.dtype not in (F32, BF16) or w.dtype != BF16 or bias.dtype != F32 \
@@ -279,25 +312,34 @@ def conv3x3_bf16(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                                                       and cin % 8):
         raise ValueError("conv3x3_bf16 takes a 7x6 board, Cout % 64 == 0 "
                          "and, for bf16 x, Cin % 8 == 0")
-    shape = (b, 7, 6, cout)
     if residual is not None and (residual.dtype != F32
                                  or tuple(residual.shape) != shape):
         raise ValueError("conv3x3_bf16 residual must be f32 [B,7,6,Cout]")
-    out = torch.empty(shape, dtype=F32, device=x.device) if want_f32 else None
+    if inv_s_next is not None and (inv_s_next.dtype != F32
+                                   or inv_s_next.dim() != 0):
+        raise ValueError("conv3x3_bf16 inv_s_next must be 0-d f32")
+    if want_f32 and out is None:
+        out = torch.empty(shape, dtype=F32, device=x.device)
     outb = (torch.empty(shape, dtype=BF16, device=x.device) if want_bf16
             else None)
-    kernels.require_aligned(x, w)
+    if inv_s_next is not None and out_q is None:
+        out_q = torch.empty(shape, dtype=I8, device=x.device)
+    kernels.require_aligned(x, w, *(t for t in (out, out_q)
+                                    if t is not None))
     P = kernels.ptr
-    kernels.CONV3X3_BF16.launch(P(x), P(w), P(bias), P(residual), P(out),
-                                P(outb), b * BOARD, cin, cout,
-                                int(x.dtype == BF16))
-    return out, outb
+    kernels.CONV3X3_BF16.launch(P(x), P(w), P(bias), P(residual),
+                                P(inv_s_next), P(out), P(outb), P(out_q),
+                                b * BOARD, cin, cout, int(x.dtype == BF16))
+    return out, outb, out_q
 
 
-def _stem(folded, x, want_bf16=False):
-    """x [B,7,6,F] -> ([B,7,6,C] f32 post-ReLU, its bf16 copy or None)."""
+def _stem(folded, x, want_bf16=False, inv_s=None, out=None, out_q=None):
+    """x [B,7,6,F] -> ([B,7,6,C] f32 post-ReLU, its bf16 copy or None, its
+    int8 codes at the inverse scale ``inv_s`` or None); ``out`` and
+    ``out_q`` as ``conv3x3_bf16`` takes them."""
     return conv3x3_bf16(x.contiguous(), folded["stem_w"], folded["stem_b"],
-                        want_bf16=want_bf16)
+                        want_bf16=want_bf16, inv_s_next=inv_s, out=out,
+                        out_q=out_q)
 
 
 def _conv_i8_plain(q: torch.Tensor, wk: torch.Tensor) -> torch.Tensor:
@@ -385,30 +427,54 @@ def _trunk_xla_bf16(folded, h, hb):
     with profiling.span("net.trunk"):
         for k in range(0, n, 2):
             x = h
-            _, y = conv3x3_bf16(hb, w[k], b[k], want_f32=False,
-                                want_bf16=True)
-            h, hb = conv3x3_bf16(y, w[k + 1], b[k + 1], residual=x,
-                                 want_bf16=k + 2 < n)
+            _, y, _ = conv3x3_bf16(hb, w[k], b[k], want_f32=False,
+                                   want_bf16=True)
+            h, hb, _ = conv3x3_bf16(y, w[k + 1], b[k + 1], residual=x,
+                                    want_bf16=k + 2 < n)
     return h
 
 
-def _trunk_xla_int8(folded, h):
-    """int8 residual trunk on K1.  h [B,7,6,C] f32 -> same.
-
-    Static per-conv activation scales when ``act_s`` was calibrated into
-    the folded dict: each conv then also emits the next conv's int8 input,
-    and the ``net.trunk`` span holds the conv launches alone (the first
-    input's quantization lies before it).  Dynamic per-tensor scales
-    otherwise, quantized between the convs inside the span.  The convs'
-    operands are the fold's ``trunk_convs``."""
-    convs = folded["trunk_convs"]
-    n = len(convs)
-    h = h.contiguous()
+def _count_int8_trunk(h: torch.Tensor) -> None:
+    """The counters of one int8 trunk pass over h [B,7,6,C]."""
     boards = h.shape[0]
     profiling.count("net.boards", boards)
     if profiling.recording():
         wide = k1_wide(boards, h.shape[-1], h.device)
         profiling.count("net.boards_wide", boards if wide else 0)
+
+
+def _trunk_launches(convs: tuple, h: torch.Tensor,
+                    q: torch.Tensor) -> torch.Tensor:
+    """The static-scale int8 trunk's 2 x blocks K1 launches on h [B,7,6,C]
+    f32 and its int8 codes q at the first conv's scale, each conv writing
+    the next one's int8 input: what a captured trunk replays."""
+    n = len(convs)
+    for k in range(0, n, 2):
+        (wa, wsa, ba, sa, _), (wb, wsb, bb, sb, invb) = convs[k:k + 2]
+        nxt = convs[k + 2][4] if k + 2 < n else None
+        x = h
+        _, q2, _ = conv3x3_i8(q, wa, wsa, ba, sa, inv_s_next=invb,
+                              want_h=False)
+        h, q, _ = conv3x3_i8(q2, wb, wsb, bb, sb, residual=x, inv_s_next=nxt)
+    return h
+
+
+def _trunk_xla_int8(folded, h, q=None):
+    """int8 residual trunk on K1, launched conv by conv.  h [B,7,6,C] f32
+    -> same.
+
+    Static per-conv activation scales when ``act_s`` was calibrated into
+    the folded dict: q is h's int8 codes at the first conv's scale (the
+    stem's int8 output; quantized here when None), each conv also emits
+    the next conv's int8 input, and the ``net.trunk`` span holds the conv
+    launches alone.  Dynamic per-tensor scales otherwise, quantized between
+    the convs inside the span.  The convs' operands are the fold's
+    ``trunk_convs``.  On the card ``_trunk_out`` replays the static-scale
+    trunk as one graph instead (``_trunk_replay``)."""
+    convs = folded["trunk_convs"]
+    n = len(convs)
+    h = h.contiguous()
+    _count_int8_trunk(h)
     if convs[0][3] is None:
         with profiling.span("net.trunk"):
             for k in range(0, n, 2):
@@ -419,16 +485,89 @@ def _trunk_xla_int8(folded, h):
                 q2, s2 = _quant_dyn(y)
                 h, _, _ = conv3x3_i8(q2, wb, wsb, bb, s2, residual=x)
         return h
-    q = _quantize(h, convs[0][4])
+    if q is None:
+        q = _quantize(h, convs[0][4])
     with profiling.span("net.trunk"):
-        for k in range(0, n, 2):
-            (wa, wsa, ba, sa, _), (wb, wsb, bb, sb, invb) = convs[k:k + 2]
-            nxt = convs[k + 2][4] if k + 2 < n else None
-            x = h
-            _, q2, _ = conv3x3_i8(q, wa, wsa, ba, sa, inv_s_next=invb,
-                                  want_h=False)
-            h, q, _ = conv3x3_i8(q2, wb, wsb, bb, sb, residual=x,
-                                 inv_s_next=nxt)
+        return _trunk_launches(convs, h, q)
+
+
+class _TrunkGraphs:
+    """The captured int8 trunks of one fold (the folded dict's
+    ``trunk_graphs``), by batch size, on one memory pool.  Made for the
+    fold's ``trunk_convs``, whose tensors the graphs read and which it
+    keeps alive."""
+
+    __slots__ = ("convs", "pool", "by_boards")
+
+    def __init__(self, convs: tuple):
+        self.convs, self.pool, self.by_boards = convs, None, {}
+
+
+class _TrunkGraph:
+    """The int8 trunk of one fold at one batch size as a CUDA graph: the
+    static inputs ``h0`` (f32, block 0's residual) and ``q0`` (its int8
+    codes), which the stem writes, and the output ``out``, which every
+    replay overwrites.  ``graph`` is None until a first pass has run
+    eagerly: K1's launcher sets its function attributes and asks the
+    card's cluster occupancy once, at its first launch of a shape, which a
+    capture must not be."""
+
+    __slots__ = ("graphs", "h0", "q0", "graph", "out")
+
+    def __init__(self, graphs: _TrunkGraphs, h0: torch.Tensor,
+                 q0: torch.Tensor):
+        self.graphs, self.h0, self.q0 = graphs, h0, q0
+        self.graph = self.out = None
+
+    def capture(self) -> None:
+        graphs = self.graphs
+        with torch.cuda.device(self.h0.device):
+            if graphs.pool is None:
+                graphs.pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            launches = kernels.CONV3X3_I8.launches
+            try:
+                with torch.cuda.graph(graph, pool=graphs.pool,
+                                      capture_error_mode="thread_local"):
+                    out = _trunk_launches(graphs.convs, self.h0, self.q0)
+            finally:
+                # a capture runs nothing: only replays count
+                kernels.CONV3X3_I8.launches = launches
+        self.graph, self.out = graph, out
+
+
+def _trunk_graph(folded, boards: int, device: torch.device) -> _TrunkGraph:
+    """The fold's captured trunk at ``boards`` boards, made (not yet
+    captured) at its first use.  The graphs belong to the fold's
+    ``trunk_convs``: a fold whose operands were made anew (a re-fold, or
+    ``trunk_convs`` remade by hand) drops the graphs it was copied with
+    and gets new ones."""
+    convs = folded["trunk_convs"]
+    graphs = folded.get("trunk_graphs")
+    if graphs is None or graphs.convs is not convs:
+        graphs = folded["trunk_graphs"] = _TrunkGraphs(convs)
+    g = graphs.by_boards.get(boards)
+    if g is None:
+        shape = (boards, 7, 6, convs[0][2].shape[0])
+        g = graphs.by_boards[boards] = _TrunkGraph(
+            graphs, torch.empty(shape, dtype=F32, device=device),
+            torch.empty(shape, dtype=I8, device=device))
+    return g
+
+
+def _trunk_replay(g: _TrunkGraph) -> torch.Tensor:
+    """The trunk on ``g``'s inputs as written: one replay of its graph,
+    whose launches count as K1's; the first time, the launches run eagerly
+    and the graph is captured after them.  The ``net.trunk`` span holds
+    the replay (or the eager launches) alone."""
+    _count_int8_trunk(g.h0)
+    with profiling.span("net.trunk"):
+        if g.graph is not None:
+            g.graph.replay()
+            kernels.CONV3X3_I8.launches += len(g.graphs.convs)
+            return g.out
+        h = _trunk_launches(g.graphs.convs, g.h0, g.q0)
+    g.capture()
     return h
 
 
@@ -439,16 +578,16 @@ def calibrate_trunk(folded: Dict[str, Any], feats: torch.Tensor,
     representative [B,7,6,F] feature batch, times ``margin``) into the
     folded dict."""
     w, b = folded["trunk_w"], folded["trunk_b"]
-    h, hb = _stem(folded, feats, want_bf16=True)
+    h, hb, _ = _stem(folded, feats, want_bf16=True)
     scales = []
     for l in range(w.shape[0]):
         x = h
         scales.append(x.abs().amax())
         # conv_a's f32 output sets its scale; its bf16 copy feeds conv_b
-        y, yb = conv3x3_bf16(hb, w[l, 0], b[l, 0], want_bf16=True)
+        y, yb, _ = conv3x3_bf16(hb, w[l, 0], b[l, 0], want_bf16=True)
         scales.append(y.abs().amax())
-        h, hb = conv3x3_bf16(yb, w[l, 1], b[l, 1], residual=x,
-                             want_bf16=True)
+        h, hb, _ = conv3x3_bf16(yb, w[l, 1], b[l, 1], residual=x,
+                                want_bf16=True)
     act_max = torch.stack(scales).reshape(-1, 2)
     act_s = torch.clamp(act_max * margin, min=1e-6) / 127.0
     out = {**folded, "act_s": act_s.to(F32)}
@@ -523,10 +662,26 @@ def heads_eval(folded: Dict[str, Any], h: torch.Tensor,
 
 
 def _trunk_out(folded, x, int8):
-    """Stem and trunk: x [B,7,6,F] -> [B,42,C] f32."""
-    h, hb = _stem(folded, x, want_bf16=not int8)
-    h = _trunk_xla_int8(folded, h) if int8 else _trunk_xla_bf16(folded, h,
-                                                                 hb)
+    """Stem and trunk: x [B,7,6,F] -> [B,42,C] f32.
+
+    The int8 trunk with calibrated scales takes its first input from the
+    stem's int8 output.  On the card it runs as one replay of the fold's
+    graph for this batch size (``_trunk_graph``), into whose inputs the
+    stem writes: the result is then a view of the graph's output buffer,
+    which the fold's next evaluation at this batch size overwrites.
+    Callers consume it (K5) before that, or clone it."""
+    if not int8:
+        h, hb, _ = _stem(folded, x, want_bf16=True)
+        h = _trunk_xla_bf16(folded, h, hb)
+        return h.reshape(h.shape[0], BOARD, -1)
+    inv = folded["trunk_convs"][0][4]
+    if x.is_cuda and inv is not None:
+        g = _trunk_graph(folded, x.shape[0], x.device)
+        _stem(folded, x, inv_s=inv, out=g.h0, out_q=g.q0)
+        h = _trunk_replay(g)
+    else:
+        h, _, q = _stem(folded, x, inv_s=inv)
+        h = _trunk_xla_int8(folded, h, q)
     return h.reshape(h.shape[0], BOARD, -1)
 
 

@@ -653,10 +653,21 @@ def check_k4(folded, feats, timed=True):
         "conv_a": ((hb, w[0, 0], b[0, 0], None), (False, True)),
         "conv_b": ((yb, w[0, 1], b[0, 1], h), (True, True)),
     }
+    # the stem also writes the int8 trunk's first input: code for code
+    # what _quantize makes of its f32 output (the same f32 product, rounded
+    # half to even)
+    inv = (1.0 / folded["act_s"][0, 0]) if "act_s" in folded else None
     out = {}
     for name, (args, (want_f32, want_bf16)) in variants.items():
         x, wt, bias, res = args
-        full, got_bf = FI.conv3x3_bf16(*args, want_bf16=True)
+        full, got_bf, _ = FI.conv3x3_bf16(*args, want_bf16=True)
+        if name == "stem" and inv is not None:
+            _, _, got_q = FI.conv3x3_bf16(*args, want_f32=False,
+                                          inv_s_next=inv)
+            differ = int((got_q != FI._quantize(full, inv)).sum())
+            if differ:
+                fail(f"K4 stem: the int8 output differs from _quantize of "
+                     f"the f32 one in {differ} codes")
         with full_float32():
             ref = FI._conv3x3_bf16_plain(*args)
         torch.cuda.synchronize()
@@ -718,6 +729,17 @@ def check_k4(folded, feats, timed=True):
                      "library_ms": lib, "library_max_abs_err": lib_err,
                      "blocks": blocks, "tile": tile_name(per),
                      "shape": f"B={B} Cin={cin} Cout={cout}"}
+        if name == "stem" and inv is not None:
+            def run_q():
+                FI.conv3x3_bf16(*args, inv_s_next=inv)
+
+            ms_q = time_ms(run_q, 50)
+            dev_q = device_ms(run_q, "conv3x3_bf16_kernel")
+            bms_q, _ = bound_ms(nbytes + m * cout, ops, BF16_OPS_PER_S)
+            log(f"K4 stem B={B} with the int8 output: {ms_q:.4f} ms, kernel "
+                f"alone {fmt_ms(dev_q)} (bound {bms_q:.5f} ms)")
+            out[name].update(ms_i8=ms_q, device_ms_i8=dev_q,
+                             bound_ms_i8=bms_q)
     if not timed:
         return None
     return {**out["stem"], "conv_a": out["conv_a"], "conv_b": out["conv_b"]}
@@ -732,18 +754,21 @@ def check_calibration(folded, calib):
     import torch
     from alphazero_risk_tpu_torch.models import fast_infer as FI
 
-    def plain(x, w, bias, residual=None, want_f32=True, want_bf16=False):
+    def plain(x, w, bias, residual=None, want_f32=True, want_bf16=False,
+              inv_s_next=None, out=None, out_q=None):
+        # calibrate_trunk asks for neither the int8 output nor destinations
         v = FI._conv3x3_bf16_plain(x, w, bias, residual)
         return (v if want_f32 else None,
-                v.to(torch.bfloat16) if want_bf16 else None)
+                v.to(torch.bfloat16) if want_bf16 else None, None)
 
     kernel = FI.conv3x3_bf16
     worst = [0.0]
 
-    def held(x, w, bias, residual=None, want_f32=True, want_bf16=False):
+    def held(x, w, bias, residual=None, want_f32=True, want_bf16=False,
+             inv_s_next=None, out=None, out_q=None):
         # Tolerance: as in check_k4, 1e-5 of the largest output
-        got, got_bf = kernel(x, w, bias, residual, want_f32=True,
-                             want_bf16=want_bf16)
+        got, got_bf, _ = kernel(x, w, bias, residual, want_f32=True,
+                                want_bf16=want_bf16)
         with full_float32():
             ref = FI._conv3x3_bf16_plain(x, w, bias, residual)
         err, top = float((got - ref).abs().max()), float(ref.abs().max())
@@ -752,7 +777,7 @@ def check_calibration(folded, calib):
                  f"B={x.shape[0]} Cin={x.shape[-1]}: max abs err {err} "
                  f"against max |out| {top}")
         worst[0] = max(worst[0], err / top)
-        return (got if want_f32 else None), got_bf
+        return (got if want_f32 else None), got_bf, None
 
     try:
         FI.conv3x3_bf16 = held

@@ -356,15 +356,112 @@ def test_conv3x3_bf16_matches_plain(cuda, batch, cin, cout):
         for xin in inputs:
             for want_f32, want_bf16 in [(True, False), (False, True),
                                         (True, True)]:
-                out, outb = FI.conv3x3_bf16(xin, w, b, r, want_f32=want_f32,
-                                            want_bf16=want_bf16)
+                out, outb, _ = FI.conv3x3_bf16(xin, w, b, r,
+                                               want_f32=want_f32,
+                                               want_bf16=want_bf16)
                 assert (out is not None, outb is not None) == (want_f32,
                                                                want_bf16)
                 if out is not None:
                     assert float((out - ref).abs().max()) <= tol
                 if outb is not None:
-                    full, _ = FI.conv3x3_bf16(xin, w, b, r)
+                    full, _, _ = FI.conv3x3_bf16(xin, w, b, r)
                     assert torch.equal(outb, full.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("cin", [13, 256])
+@pytest.mark.parametrize("batch", [64, 1024, 4096])
+def test_conv3x3_bf16_int8_output_matches_quantize(cuda, batch, cin):
+    """K4's int8 output (the int8 trunk's first input, from the stem's
+    epilogue) against ``_quantize`` of its own f32 output, code for code:
+    both round the same f32 product half to even, so any difference is a
+    defect.  Either template (3 or 6 boards a block, as the batch
+    chooses), f32 and bf16 inputs, with and without the residual, alone or
+    beside the f32 and bf16 outputs, into destination tensors or new
+    ones."""
+    g = torch.Generator(device=cuda).manual_seed(batch + cin)
+    cout = 256
+    x = torch.randn((batch, 7, 6, cin), generator=g, device=cuda)
+    w = (torch.randn((3, 3, cin, cout), generator=g, device=cuda)
+         / (9 * cin) ** 0.5).to(torch.bfloat16)
+    b = torch.randn(cout, generator=g, device=cuda)
+    res = torch.randn((batch, 7, 6, cout), generator=g, device=cuda)
+    inputs = [x] + ([x.to(torch.bfloat16)] if cin % 8 == 0 else [])
+    for r in (None, res):
+        for xin in inputs:
+            full, _, none = FI.conv3x3_bf16(xin, w, b, r)
+            assert none is None
+            # a scale that clips the largest outputs to 127
+            inv = (150.0 / full.max()).reshape(())
+            want = FI._quantize(full, inv)
+            assert int(want.max()) == 127 and int(want.min()) == 0
+            _, _, q = FI.conv3x3_bf16(xin, w, b, r, want_f32=False,
+                                      inv_s_next=inv)
+            assert torch.equal(q, want)
+            out = torch.full_like(full, float("nan"))
+            out_q = torch.zeros_like(want)
+            h, hb, q2 = FI.conv3x3_bf16(xin, w, b, r, want_bf16=True,
+                                        inv_s_next=inv, out=out,
+                                        out_q=out_q)
+            torch.cuda.synchronize()
+            assert h is out and q2 is out_q
+            assert torch.equal(out, full) and torch.equal(out_q, want)
+            assert torch.equal(hb, full.to(torch.bfloat16))
+
+
+def _int8_fold(dev, blocks=2, seed=0):
+    """A calibrated int8 fold of a random ``blocks`` x 256 net."""
+    from alphazero_risk_tpu_torch.models.resnet import build_network
+    cfg = Config(blocks=blocks)
+    net = build_network(cfg, device=dev, seed=seed).eval()
+    calib = FI.default_calib_feats(
+        cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    return FI.fold_for_inference(net, cfg, int8=True, calib_feats=calib)
+
+
+def _eager_trunk_out(folded, x):
+    """Stem and int8 trunk launched conv by conv (no graph)."""
+    h, _, q = FI._stem(folded, x, inv_s=folded["trunk_convs"][0][4])
+    h = FI._trunk_xla_int8(folded, h, q)
+    return h.reshape(h.shape[0], 42, -1)
+
+
+@pytest.mark.parametrize("batch", [64, 1024])
+def test_trunk_replay_matches_eager(cuda, batch):
+    """The int8 trunk as one graph replay against the trunk launched conv
+    by conv, bit for bit, at a batch of K1's tiled design (64) and of its
+    wide design (1,024): the first evaluation (eager, then the capture),
+    two successive inputs replayed, the first again, and after a re-fold
+    (new scales: new graphs) while the old fold's graph still replays.
+    Each evaluation counts 2 x blocks K1 launches and one K4 launch; the
+    stem's int8 output in the graph's input is ``_quantize`` of its f32
+    one."""
+    blocks = 2
+    folded = _int8_fold(cuda, blocks)
+    gen = torch.Generator(device=cuda).manual_seed(batch)
+    xs = [torch.rand((batch, 7, 6, 13), generator=gen, device=cuda)
+          for _ in range(2)]
+    refs = [_eager_trunk_out(folded, x) for x in xs]
+
+    def evaluate(f, x):
+        k1, k4 = kernels.CONV3X3_I8.launches, kernels.CONV3X3_BF16.launches
+        out = FI._trunk_out(f, x, True).clone()
+        assert kernels.CONV3X3_I8.launches - k1 == 2 * blocks
+        assert kernels.CONV3X3_BF16.launches - k4 == 1
+        return out
+
+    for i in (0, 1, 0, 1):
+        assert torch.equal(evaluate(folded, xs[i]), refs[i])
+    graphs = folded["trunk_graphs"]
+    g = graphs.by_boards[batch]
+    assert g.graph is not None and set(graphs.by_boards) == {batch}
+    assert torch.equal(g.q0, FI._quantize(g.h0, folded["trunk_convs"][0][4]))
+    refold = FI.calibrate_trunk(folded, xs[1])
+    assert not torch.equal(refold["act_s"], folded["act_s"])
+    ref2 = _eager_trunk_out(refold, xs[0])
+    for _ in range(2):
+        assert torch.equal(evaluate(refold, xs[0]), ref2)
+    assert refold["trunk_graphs"] is not graphs
+    assert torch.equal(evaluate(folded, xs[1]), refs[1])
 
 
 def test_heads_eval_matches_plain(cuda):

@@ -309,7 +309,7 @@ def test_conv3x3_bf16_plain_matches_jax_stem_and_block():
     jfold, tfold = _bf16_folded()
     jx, tx = _inputs(CFG, 16, seed=11)
     ref = np.asarray(JF._stem(jfold, jx))
-    h, _ = TF.conv3x3_bf16(tx, tfold["stem_w"], tfold["stem_b"])
+    h, _, _ = TF.conv3x3_bf16(tx, tfold["stem_w"], tfold["stem_b"])
     assert h.dtype == torch.float32 and tuple(h.shape) == (16, 7, 6, 32)
     np.testing.assert_allclose(h.numpy(), ref, rtol=0,
                                atol=1e-5 * np.abs(ref).max())
@@ -319,8 +319,8 @@ def test_conv3x3_bf16_plain_matches_jax_stem_and_block():
     ref_blk = np.asarray(JF._trunk_xla_bf16(one, jh))
     th = torch.from_numpy(ref.copy())
     w, b = tfold["trunk_w"], tfold["trunk_b"]
-    y, _ = TF.conv3x3_bf16(th, w[0, 0], b[0, 0])
-    blk, _ = TF.conv3x3_bf16(y, w[0, 1], b[0, 1], residual=th)
+    y, _, _ = TF.conv3x3_bf16(th, w[0, 0], b[0, 0])
+    blk, _, _ = TF.conv3x3_bf16(y, w[0, 1], b[0, 1], residual=th)
     np.testing.assert_allclose(blk.numpy(), ref_blk, rtol=0,
                                atol=2e-3 * np.abs(ref_blk).max())
     assert (blk >= 0).all() and (blk > 0).any()
@@ -330,31 +330,55 @@ def test_conv3x3_bf16_plain_matches_jax_stem_and_block():
         blk.numpy())
 
 
-@pytest.mark.parametrize("variant", ["stem", "bf16_in", "residual"])
+@pytest.mark.parametrize("variant", ["stem", "bf16_in", "residual",
+                                     "f32_residual"])
 def test_conv3x3_bf16_outputs_agree(variant):
     """K4's outputs: the bf16 one is ``.to(bfloat16)`` of the f32 one
     (round to nearest even), whichever is asked for alone or both; a bf16
     input gives what its f32 value gives (the conv rounds its input to
-    bf16 either way)."""
+    bf16 either way); the int8 one is ``_quantize`` of the f32 one at the
+    given inverse scale, alone or beside the others, and the destinations
+    ``out`` and ``out_q`` receive the same values."""
     _, tfold = _bf16_folded()
     _, tx = _inputs(CFG, 8, seed=13)
-    h, hb = TF._stem(tfold, tx, want_bf16=True)
+    h, hb, none = TF._stem(tfold, tx, want_bf16=True)
+    assert none is None
     w, b = tfold["trunk_w"], tfold["trunk_b"]
     args = {"stem": (tx, tfold["stem_w"], tfold["stem_b"], None),
             "bf16_in": (hb, w[0, 0], b[0, 0], None),
-            "residual": (hb, w[0, 1], b[0, 1], h)}[variant]
-    f32, bf = TF.conv3x3_bf16(*args, want_bf16=True)
+            "residual": (hb, w[0, 1], b[0, 1], h),
+            "f32_residual": (h, w[0, 1], b[0, 1], h)}[variant]
+    f32, bf, q = TF.conv3x3_bf16(*args, want_bf16=True)
     assert f32.dtype == torch.float32 and bf.dtype == torch.bfloat16
+    assert q is None
     assert torch.equal(bf, f32.to(torch.bfloat16))
     assert TF.conv3x3_bf16(*args)[1] is None
-    only_f32, _ = TF.conv3x3_bf16(*args)
-    _, only_bf = TF.conv3x3_bf16(*args, want_f32=False, want_bf16=True)
+    only_f32, _, _ = TF.conv3x3_bf16(*args)
+    _, only_bf, _ = TF.conv3x3_bf16(*args, want_f32=False, want_bf16=True)
     assert torch.equal(only_f32, f32) and torch.equal(only_bf, bf)
-    if variant != "stem":
-        from_f32, _ = TF.conv3x3_bf16(h, *args[1:])
+    if variant in ("bf16_in", "residual"):
+        from_f32, _, _ = TF.conv3x3_bf16(h, *args[1:])
         assert torch.equal(from_f32, f32)
     with pytest.raises(ValueError):
         TF.conv3x3_bf16(*args, want_f32=False)
+    # a scale that clips the largest outputs and leaves ties to round
+    inv = torch.tensor(150.0 / float(f32.max()))
+    want = TF._quantize(f32, inv)
+    assert want.dtype == torch.int8 and int(want.max()) == 127
+    _, _, only_q = TF.conv3x3_bf16(*args, want_f32=False, inv_s_next=inv)
+    assert torch.equal(only_q, want)
+    out = torch.full_like(f32, float("nan"))
+    out_q = torch.zeros_like(want)
+    got, got_bf, got_q = TF.conv3x3_bf16(*args, want_f32=False,
+                                         want_bf16=True, inv_s_next=inv,
+                                         out=out, out_q=out_q)
+    assert got is out and got_q is out_q
+    assert torch.equal(out, f32) and torch.equal(out_q, want)
+    assert torch.equal(got_bf, bf)
+    with pytest.raises(ValueError):
+        TF.conv3x3_bf16(*args, out_q=out_q)
+    with pytest.raises(ValueError):
+        TF.conv3x3_bf16(*args, out=out[:1])
 
 
 def test_bf16_trunk_hand_off_matches_jax():
@@ -366,7 +390,7 @@ def test_bf16_trunk_hand_off_matches_jax():
     jx, tx = _inputs(CFG, 16, seed=14)
     jh = JF._stem(jfold, jx)
     ref = np.asarray(JF._trunk_xla_bf16(jfold, jh))
-    h, hb = TF._stem(tfold, tx, want_bf16=True)
+    h, hb, _ = TF._stem(tfold, tx, want_bf16=True)
     got = TF._trunk_xla_bf16(tfold, h, hb)
     np.testing.assert_allclose(got.numpy(), ref, rtol=0,
                                atol=2e-3 * np.abs(ref).max())
@@ -639,7 +663,8 @@ def test_trunk_convs_are_made_once_a_fold(calibrated):
     operands, ``trunk_convs``: views of the fold's own stacks (conv k =
     2l + i) and of ``act_s`` and its inverse (None without ``act_s``); the
     int8 trunk on them equals the trunk that indexes the stacks conv by
-    conv."""
+    conv; and ``_trunk_out``, whose stem hands the trunk its int8 codes,
+    equals that trunk after the stem and ``_quantize``, exactly."""
     _, variables = _randomized_variables(CFG, seed=21)
     jx, tx = _inputs(CFG, 8, seed=21)
     jq = JF.quantize_trunk(JF.fold_params(
@@ -665,5 +690,8 @@ def test_trunk_convs_are_made_once_a_fold(calibrated):
                 assert torch.equal(inv, (1.0 / f["act_s"])[l, i])
             else:
                 assert s is None and inv is None
-        h, _ = TF._stem(f, tx)
-        assert torch.equal(TF._trunk_xla_int8(f, h), _trunk_by_index(f, h))
+        h, _, _ = TF._stem(f, tx)
+        old = _trunk_by_index(f, h)
+        assert torch.equal(TF._trunk_xla_int8(f, h), old)
+        assert torch.equal(TF._trunk_out(f, tx, True),
+                           old.reshape(old.shape[0], 42, -1))

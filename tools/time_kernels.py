@@ -36,6 +36,14 @@ and appends it to FILE when given.  Needs one card.
                   the end from seed 24, as the checkout runs it (see
                   ``sr_match``)
     slice         chip_smoke's play slice three times (see ``play_slice``)
+    k4            K4 as the stem (13 -> 256 channels) at B = 1,024 and 4,096
+                  on features of played states: alone (f32 out), followed
+                  by the int8 trunk input's ``_quantize`` (four ATen
+                  kernels), and with the int8 output from its own epilogue
+                  where the checkout's K4 has one (see ``k4``)
+    net           the network's stem and int8 trunk (``_trunk_out``) of a
+                  random calibrated 20x256 net at B = 1,024 and 5x256 at
+                  4,096, as the checkout runs it (see ``net``)
     cards         K7's step, K9, K10 and the multi-step entry (64
                   iterations, Script vs Script and Script vs Random) on
                   chip_smoke's 1,024 full-cards states and their first 64,
@@ -52,7 +60,7 @@ import sys
 import time
 
 PARTS = ("k5", "k7", "k9", "k10", "k6", "k3", "ff_blocks", "match_blocks",
-         "sr_match", "slice", "cards")
+         "sr_match", "slice", "cards", "k4", "net")
 
 
 def keep(e):
@@ -138,6 +146,100 @@ def k5(ctx):
     return {f"k5_b{b}": keep(CS.check_k5(folded, h[:b].contiguous(),
                                          legal[:b].contiguous()))
             for b in (64, 128, 512, 1024)}
+
+
+def _device_total_ms(fn, reps=20, name=""):
+    """Device ms a call of ``fn``: the time of every kernel it launched
+    whose name contains ``name``, from a profiler trace over ``reps``
+    calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and name in e.key
+               ) / reps / 1e3
+
+
+def _int8_fold(cfg, dev):
+    """A calibrated int8 fold of a random net at ``cfg``'s widths."""
+    import torch
+    from alphazero_risk_tpu_torch.models import fast_infer as FI
+    from alphazero_risk_tpu_torch.models.resnet import build_network
+    net = build_network(cfg, device=dev).eval()
+    calib = FI.default_calib_feats(
+        cfg, torch.Generator(device=dev).manual_seed(17), device=dev)
+    return FI.fold_for_inference(net, cfg, int8=True, calib_feats=calib)
+
+
+def _played_feats(ctx, b):
+    """Features of ``b`` states 100 random steps into their games (the
+    first 1,024 repeated)."""
+    import torch
+    from alphazero_risk_tpu_torch.env.featurize import featurize
+    gen = torch.Generator(device=ctx.dev).manual_seed(1)
+    states = ctx.CS.random_play_states(1024, 100, gen, ctx.cfg, ctx.dev)
+    f = featurize(states, ctx.cfg)
+    return f.repeat(b // 1024, 1, 1, 1).contiguous()
+
+
+def k4(ctx):
+    import inspect
+    from alphazero_risk_tpu_torch.models import fast_infer as FI
+    CS = ctx.CS
+    folded = _int8_fold(ctx.cfg.replace(blocks=1), ctx.dev)
+    inv = (1.0 / folded["act_s"]).flatten()[0]
+    fused = "inv_s_next" in inspect.signature(FI.conv3x3_bf16).parameters
+    out = {}
+    for b in (1024, 4096):
+        x = _played_feats(ctx, b)
+        forms = {"stem": lambda: FI._stem(folded, x),
+                 "stem_quantize": lambda: FI._quantize(
+                     FI._stem(folded, x)[0], inv)}
+        if fused:
+            forms["stem_i8"] = lambda: FI._stem(folded, x, inv_s=inv)
+        e = {}
+        for name, fn in forms.items():
+            e[f"{name}_ms"] = CS.time_ms(fn, 50)
+            e[f"{name}_device_ms"] = _device_total_ms(fn)
+            e[f"{name}_k4_device_ms"] = _device_total_ms(
+                fn, name="conv3x3_bf16_kernel")
+        e["quantize_device_ms"] = _device_total_ms(
+            forms["stem_quantize"], name="elementwise")
+        out[f"k4_b{b}"] = e
+    return out
+
+
+def net(ctx):
+    """Per evaluation: the call time back to back (CUDA events), the
+    host's time to enqueue it, and the device time of its kernels."""
+    import torch
+    from alphazero_risk_tpu_torch.models import fast_infer as FI
+    out = {}
+    for blocks, b in ((20, 1024), (5, 4096)):
+        folded = _int8_fold(ctx.cfg.replace(blocks=blocks), ctx.dev)
+        x = _played_feats(ctx, b)
+
+        def fn():
+            return FI._trunk_out(folded, x, True)
+
+        call = ctx.CS.time_ms(fn, 20)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fn()
+        host = (time.perf_counter() - t0) / 10 * 1e3
+        torch.cuda.synchronize()
+        out[f"net_{blocks}x256_b{b}"] = {
+            "ms": call, "host_ms": host, "device_ms": _device_total_ms(fn),
+            "k1_device_ms": _device_total_ms(fn, name="conv3x3_i8_kernel")}
+    return out
 
 
 def k7(ctx):
