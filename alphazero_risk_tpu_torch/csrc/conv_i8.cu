@@ -27,9 +27,9 @@
 // tiles: 99 MB of L2 weight reads a conv at B=1,024, against 396 MB
 // unshared; 30 such clusters fit on an H100, 120 blocks); two consumer
 // warpgroups in ping-pong, so that one's epilogue runs under the other's
-// wgmmas; conv_b's residual prefetched into L2 a tile ahead.  On an H100
-// its main loop alone runs at about the int8 peak; what is left is the
-// epilogue, which slows the other warpgroup's wgmmas while it runs.
+// wgmmas; the epilogue's residual in, and its h and q_next out, by TMA
+// through shared memory.  On an H100 what is left is the epilogue's own
+// work, which slows the other warpgroup's wgmmas while it runs.
 //
 // The tiled design (conv_tc.cuh, which K4 shares) for smaller batches and
 // for C = 64 or 128: board-aligned tiles with each board's zero-padded

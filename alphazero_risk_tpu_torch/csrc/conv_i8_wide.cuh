@@ -2,6 +2,11 @@
 // card: C = 256, persistent blocks of one producer warpgroup and two
 // consumer warpgroups, in clusters that share the weight.
 //
+// Bound.  The conv_b form (the residual in, h and q_next out) moves 10
+// bytes a row and channel and is bound by bytes (B=4,096: 440 MB, 131.6 us
+// at 3.35 TB/s); the conv_a form (q_next out) by its int8 operations
+// (B=4,096: 203 GOP, 102.6 us at 1,979 TOP/s).
+//
 // Tiles.  A tile is 64 rows (board cells, M = B * 42 in all) x all 256
 // output channels, multiplied by one consumer warpgroup as m64n256k32 (128
 // int32 accumulators a thread), so every A fragment that ldmatrix brings
@@ -19,9 +24,8 @@
 // chunks of three halo planes: a 4-D tensor map over q [B, 7, 6, C] whose
 // box of 7 x 9 positions from (x, y) = (-1, -1) lands each board as
 // pos(y, x) = 8 + 7y + x, the zero column and rows filled by the TMA's
-// out-of-bounds zeros).  With a residual it also prefetches each tile's
-// residual rows into L2.  setmaxnreg gives its warpgroup's registers to
-// the consumers (40 against 232 a thread).
+// out-of-bounds zeros).  setmaxnreg gives its warpgroup's registers to the
+// consumers (40 against 232 a thread).
 //
 // Clusters of kCluster blocks.  Every tile reads the whole weight (590 KB)
 // in the same order, so the blocks of a cluster step through the weight
@@ -37,12 +41,27 @@
 // the next tap's ldmatrix runs while a group multiplies), and releases a
 // weight slice once the group that read it has retired and a plane once
 // its last ldmatrix is done.  No __syncthreads runs after the set-up.  The
-// two warpgroups' main loops take turns (ping-pong, named barriers), so
-// one's epilogue runs under the other's wgmmas.
+// two warpgroups' main loops take turns (ping-pong, mbarriers), so one's
+// epilogue runs under the other's wgmmas.
 //
-// The epilogue is K1's (conv_i8.cu) in the same order, on the scale
+// Epilogue.  K1's arithmetic (conv_i8.cu) in the same order, on the scale
 // products s * ws and the bias staged once in shared memory, specialised
-// for the outputs that exist; the int8 output leaves in 8-byte stores.
+// for the outputs that exist, in eight parts of 32 channels.  Its traffic
+// to device memory goes by TMA through shared memory, off the consumers'
+// path.  Each consumer warpgroup owns kSlots epilogue slots: a part's f32
+// box (64 rows x 32 channels, 8 KB of 128-byte rows in the 128B swizzle),
+// its int8 box (64 rows x 32 bytes) and a full mbarrier.  One elected
+// thread of the warpgroup loads the residual of parts 0 .. kSlots - 1 into
+// the slots as the tile's main loop starts, and that of part p + kSlots
+// once part p's stores have read its slot, each load counted on the
+// slot's barrier.  Each thread reads the residual at its accumulators'
+// positions, writes h over it in place (the same positions, the same
+// thread) and q_next into the int8 box; after the proxy fence and the
+// warpgroup's named barrier the elected thread stores both boxes by TMA,
+// one bulk group a part.  The tensor maps clip rows past M (their loads
+// fill zeros), so the epilogue has no row predicates but those of the
+// int32 output, which tests and calibration ask for and which leaves by
+// direct stores.
 #pragma once
 
 #include <cstdint>
@@ -70,19 +89,35 @@ constexpr int kTaps = 9;
 constexpr int kSliceBytes = kC * kRowBytes;  // one tap of one chunk: 16 KB
 constexpr int kBoxBytes = 9 * 7 * kRowBytes; // a board's TMA box: 63 positions
 constexpr int kPlaneBytes = kTileBoards * kPlane * kRowBytes;   // 12 KB
-constexpr int kWStages = 11;
+constexpr int kWStages = 9;
 constexpr int kPStages = 3;
 constexpr int kEpiCols = 4;                  // epilogue column groups a part
+constexpr int kPartCols = 8 * kEpiCols;      // channels a part: 32
+constexpr int kParts = kC / kPartCols;
+// Epilogue slots a consumer warpgroup, each a part's f32 box (h over the
+// residual) and int8 box (q_next); at least two, so that the barrier that
+// ends a part orders the slot's next writes after its stores' reads
+constexpr int kSlots = 2;
+static_assert(kSlots >= 2 && kSlots <= kParts, "epilogue slots");
+constexpr int kHBox = kTileRows * kPartCols * 4;   // 8 KB
+constexpr int kQBox = kTileRows * kPartCols;       // 2 KB
 // Blocks a cluster: each block's producer loads 1/kCluster of every weight
 // slice and multicasts it to all blocks of its cluster, so a slice read
 // from L2 serves kCluster tiles.
 constexpr int kCluster = 4;
-// Shared memory from the 1024-aligned base: the weight ring, the plane
-// ring, s * ws and the bias (f32 [256] each), the barriers.
+// Shared memory from the 1024-aligned base: the weight ring (9 x 16 KB),
+// the plane ring (3 x 12 KB), the slots' f32 boxes (4 x 8 KB, 1024-aligned
+// for the 128B swizzle) and int8 boxes (4 x 2 KB), warpgroup 0's slots
+// first, s * ws and the bias (f32 [256] each), the barriers: 228,592 bytes
+// with the alignment's slack, of the 232,448 a block may have.
 constexpr int kPOff = kWStages * kSliceBytes;
-constexpr int kEpiOff = kPOff + kPStages * kPlaneBytes;
+constexpr int kHOff = kPOff + kPStages * kPlaneBytes;
+constexpr int kQOff = kHOff + 2 * kSlots * kHBox;
+constexpr int kEpiOff = kQOff + 2 * kSlots * kQBox;
 constexpr int kBarOff = kEpiOff + 2 * kC * 4;
-constexpr int kSmem = kBarOff + 2 * (kWStages + kPStages + 1) * 8 + 1024;
+constexpr int kBars = 2 * (kWStages + kPStages + 1) + 2 * kSlots;
+constexpr int kSmem = kBarOff + 8 * kBars + 1024;
+static_assert(kSmem <= 232448, "more shared memory than a block may have");
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
@@ -159,9 +194,46 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       : "memory");
 }
 
-__device__ __forceinline__ void prefetch_l2(const void* p, int bytes) {
-  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n"
-               :: "l"(p), "r"(bytes) : "memory");
+// A TMA load of a 2-D box to this block, its barrier counting the bytes.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1)
+      : "memory");
+}
+
+// A TMA store of a 2-D box from this block, in the thread's open bulk
+// group.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until the thread's bulk groups have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Wait until the thread's bulk groups are complete.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// The named barrier of consumer warpgroup wg (barrier 0 is __syncthreads).
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
 }
 
 // D (64 x 256 int32, the warpgroup's accumulators) (+)= A (64 x 32 s8, the
@@ -227,24 +299,72 @@ __device__ __forceinline__ void take_part(int (&av)[4 * kEpiCols],
   for (int i = 0; i < 4 * kEpiCols; ++i) av[i] = acc[P * 4 * kEpiCols + i];
 }
 
-// The epilogue of a tile, in the order of _trunk_xla_int8 (conv_i8.cu):
+// What a consumer warpgroup's epilogue works with: the outputs that exist
+// (the raw pointers, which pick the body), the tensor maps of the residual,
+// h and q_next, the staged scale products and bias, and the warpgroup's
+// slots: its first f32 and int8 boxes and the first slot's barrier, the
+// next slot's 8 bytes on.
+struct Epi {
+  const float* residual;
+  const float* out_h;
+  const int8_t* out_q;
+  int32_t* out_acc;
+  const CUtensorMap* r_map;
+  const CUtensorMap* h_map;
+  const CUtensorMap* q_map;
+  const float* s_sw;
+  const float* s_bias;
+  float inv_next;
+  char* hbox;
+  char* qbox;
+  uint32_t rfull;
+  int M, wg, lane;
+  int rl;          // this thread's rows of a tile: rl and rl + 8
+  bool elected;    // the thread that issues the warpgroup's TMA copies
+};
+
+// The residual of part `part` of the tile from row r0 into its slot.
+__device__ __forceinline__ void load_residual(const Epi& e, int part,
+                                              int r0) {
+  const int j = part % kSlots;
+  mbar_expect_tx(e.rfull + 8 * j, kHBox);
+  tma_load_2d(smem_u32(e.hbox + j * kHBox), e.r_map, e.rfull + 8 * j,
+              part * kPartCols, r0);
+}
+
+// The epilogue of the tile from row r0, in the order of _trunk_xla_int8
+// (conv_i8.cu):
 //   v = acc * (s * ws) + b; [v = v + x;] v = max(v, 0)
 //   q_next = clip(rint(v * (1 / s_next)), -127, 127)
-// on this thread's rows re and re + 8 (those below M).  Which of the
-// residual and the three outputs exist is a template argument (RES, H, Q,
-// ACC), so that the body has no branch but the rows' store predicates.  It
-// runs as a loop over eight parts of four column groups, each part's
-// accumulators copied out by constant indices (registers), its loads
-// issued together, then its arithmetic, then its stores.
+// on this thread's rows r0 + rl and r0 + rl + 8.  Which of the residual and
+// the three outputs exist is a template argument (RES, H, Q, ACC), so that
+// the body has no branch on them.  It runs as a loop over the eight parts,
+// each part's accumulators copied out by constant indices (registers), in
+// slot part % kSlots: wait for the part's residual (bit j of `rphase` is
+// the parity of slot j's barrier), read it, compute, write h over it and
+// q_next into the int8 box; then the elected thread stores the boxes and,
+// once they are read, loads the residual of part + kSlots into the slot.
 template <bool RES, bool H, bool Q, bool ACC>
-__device__ __forceinline__ void epilogue_body(
-    const float* __restrict__ residual, float* __restrict__ out_h,
-    int8_t* __restrict__ out_q, int32_t* __restrict__ out_acc,
-    const int (&acc)[128], const float* s_sw, const float* s_bias,
-    float inv_next, int re, int M, int lane) {
-  const bool ok[2] = {re < M, re + 8 < M};
+__device__ __forceinline__ void epilogue_body(const Epi& e,
+                                              const int (&acc)[128], int r0,
+                                              uint32_t& rphase) {
+  const int lane = e.lane;
+  const int re = r0 + e.rl;
+  const bool ok[2] = {re < e.M, re + 8 < e.M};
+  if (!RES && (H || Q)) {
+    // the slots are written with no load to wait on: the stores of the
+    // warpgroup's last tile have read them
+    if (e.elected) bulk_wait_read();
+    wg_sync(e.wg);
+  }
+  // this thread's f32 pairs in a box: rows rl and rl + 8, whose 128B
+  // swizzle phase is lane >> 2; 16-byte chunk 2 jj + ((lane & 3) >> 1) of
+  // column group jj, at byte 8 (lane & 1)
+  const int cq = (lane & 3) >> 1;
+  const int b8 = (lane & 1) * 8;
 #pragma unroll 1
-  for (int part = 0; part < kC / 8 / kEpiCols; ++part) {
+  for (int part = 0; part < kParts; ++part) {
+    const int j = part % kSlots;
     int av[4 * kEpiCols];
     switch (part) {
 #define AZ_TAKE(P) case P: take_part<P>(av, acc); break;
@@ -252,22 +372,24 @@ __device__ __forceinline__ void epilogue_body(
       AZ_TAKE(4) AZ_TAKE(5) AZ_TAKE(6) default: take_part<7>(av, acc);
 #undef AZ_TAKE
     }
-    const int n0 = part * kEpiCols * 8 + 2 * (lane & 3);
-    // every load of the part before any store: the compiler may not move
-    // a load past a store it cannot prove apart
+    const int n0 = part * kPartCols + 2 * (lane & 3);
+    char* hb = e.hbox + j * kHBox;
+    auto at = [&](int jj, int h) {
+      return reinterpret_cast<float2*>(hb + sw128(e.rl + 8 * h, 2 * jj + cq)
+                                       + b8);
+    };
+    if (RES) {
+      mbar_wait(e.rfull + 8 * j, (rphase >> j) & 1);
+      rphase ^= 1u << j;
+    }
     float2 sw[kEpiCols], bb[kEpiCols], rv[kEpiCols][2];
 #pragma unroll
     for (int jj = 0; jj < kEpiCols; ++jj) {
-      sw[jj] = *reinterpret_cast<const float2*>(s_sw + n0 + jj * 8);
-      bb[jj] = *reinterpret_cast<const float2*>(s_bias + n0 + jj * 8);
+      sw[jj] = *reinterpret_cast<const float2*>(e.s_sw + n0 + jj * 8);
+      bb[jj] = *reinterpret_cast<const float2*>(e.s_bias + n0 + jj * 8);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        rv[jj][h] = make_float2(0.0f, 0.0f);
-        if (RES && ok[h])
-          rv[jj][h] = *reinterpret_cast<const float2*>(
-              residual + static_cast<int64_t>(re + 8 * h) * kC + n0 +
-              jj * 8);
-      }
+      for (int h = 0; h < 2; ++h)
+        rv[jj][h] = RES ? *at(jj, h) : make_float2(0.0f, 0.0f);
     }
     float2 v[kEpiCols][2];
     char2 qq[kEpiCols][2];
@@ -287,28 +409,26 @@ __device__ __forceinline__ void epilogue_body(
         // clip, then round to nearest even: the same as rint, then clip
         // (the bounds are integers), in one conversion
         qq[jj][h].x = static_cast<signed char>(__float2int_rn(
-            fminf(fmaxf(v[jj][h].x * inv_next, -127.0f), 127.0f)));
+            fminf(fmaxf(v[jj][h].x * e.inv_next, -127.0f), 127.0f)));
         qq[jj][h].y = static_cast<signed char>(__float2int_rn(
-            fminf(fmaxf(v[jj][h].y * inv_next, -127.0f), 127.0f)));
+            fminf(fmaxf(v[jj][h].y * e.inv_next, -127.0f), 127.0f)));
       }
 #pragma unroll
     for (int jj = 0; jj < kEpiCols; ++jj)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        if (!ok[h]) continue;
-        const int64_t o = static_cast<int64_t>(re + 8 * h) * kC + n0 +
-                          jj * 8;
-        if (ACC)
-          *reinterpret_cast<int2*>(out_acc + o) =
-              make_int2(av[4 * jj + 2 * h], av[4 * jj + 2 * h + 1]);
-        if (H) *reinterpret_cast<float2*>(out_h + o) = v[jj][h];
+        if (ACC && ok[h])
+          *reinterpret_cast<int2*>(
+              e.out_acc + static_cast<int64_t>(re + 8 * h) * kC + n0 +
+              jj * 8) = make_int2(av[4 * jj + 2 * h], av[4 * jj + 2 * h + 1]);
+        if (H) *at(jj, h) = v[jj][h];
       }
+    char* qb = e.qbox + j * kQBox;
     if (Q) {
       // the four lanes of a row hold 2 bytes of each of the part's four
       // column groups: two exchanges give lane p the 8 bytes of group p,
-      // one 8-byte store in place of four 2-byte ones
+      // one 8-byte write in place of four 2-byte ones
       const int p = lane & 3;
-      const int g0 = part * kEpiCols;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         uint32_t b[kEpiCols];
@@ -329,12 +449,22 @@ __device__ __forceinline__ void epilogue_body(
         const uint32_t mine = p < 2 ? ca : cb;
         const uint32_t other = __shfl_xor_sync(0xffffffffu, p < 2 ? cb : ca,
                                                2);
-        const uint2 row8 = p < 2 ? make_uint2(mine, other)
-                                 : make_uint2(other, mine);
-        if (ok[h])
-          *reinterpret_cast<uint2*>(
-              out_q + static_cast<int64_t>(re + 8 * h) * kC +
-              (g0 + p) * 8) = row8;
+        *reinterpret_cast<uint2*>(qb + (e.rl + 8 * h) * kPartCols + p * 8) =
+            p < 2 ? make_uint2(mine, other) : make_uint2(other, mine);
+      }
+    }
+    if (RES || H || Q) {
+      // the boxes are written (and the residual read) by every thread
+      if (H || Q) fence_proxy_async();
+      wg_sync(e.wg);
+      if (e.elected) {
+        if (H) tma_store_2d(e.h_map, smem_u32(hb), part * kPartCols, r0);
+        if (Q) tma_store_2d(e.q_map, smem_u32(qb), part * kPartCols, r0);
+        if (H || Q) bulk_commit();
+        if (part + kSlots < kParts) {
+          if (H || Q) bulk_wait_read();
+          if (RES) load_residual(e, part + kSlots, r0);
+        }
       }
     }
   }
@@ -343,30 +473,28 @@ __device__ __forceinline__ void epilogue_body(
 // The body for the outputs that exist: the flags become template arguments
 // one at a time.
 template <bool... F>
-__device__ __forceinline__ void epilogue(
-    const float* residual, float* out_h, int8_t* out_q, int32_t* out_acc,
-    const int (&acc)[128], const float* s_sw, const float* s_bias,
-    float inv_next, int re, int M, int lane) {
+__device__ __forceinline__ void epilogue(const Epi& e, const int (&acc)[128],
+                                         int r0, uint32_t& rphase) {
   constexpr int n = sizeof...(F);
   if constexpr (n == 4) {
-    epilogue_body<F...>(residual, out_h, out_q, out_acc, acc, s_sw, s_bias,
-                        inv_next, re, M, lane);
+    epilogue_body<F...>(e, acc, r0, rphase);
   } else {
-    const bool f = n == 0 ? residual != nullptr
-                 : n == 1 ? out_h != nullptr
-                 : n == 2 ? out_q != nullptr : out_acc != nullptr;
+    const bool f = n == 0 ? e.residual != nullptr
+                 : n == 1 ? e.out_h != nullptr
+                 : n == 2 ? e.out_q != nullptr : e.out_acc != nullptr;
     if (f)
-      epilogue<F..., true>(residual, out_h, out_q, out_acc, acc, s_sw,
-                           s_bias, inv_next, re, M, lane);
+      epilogue<F..., true>(e, acc, r0, rphase);
     else
-      epilogue<F..., false>(residual, out_h, out_q, out_acc, acc, s_sw,
-                            s_bias, inv_next, re, M, lane);
+      epilogue<F..., false>(e, acc, r0, rphase);
   }
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
 conv3x3_i8_kernel_wide(__grid_constant__ const CUtensorMap q_map,
                        __grid_constant__ const CUtensorMap w_map,
+                       __grid_constant__ const CUtensorMap r_map,
+                       __grid_constant__ const CUtensorMap h_map,
+                       __grid_constant__ const CUtensorMap qn_map,
                        const float* __restrict__ ws,
                        const float* __restrict__ bias,
                        const float* __restrict__ s_ptr,
@@ -395,6 +523,8 @@ conv3x3_i8_kernel_wide(__grid_constant__ const CUtensorMap q_map,
   const uint32_t pempty = pfull + 8 * kPStages;
   // turn[wg]: the other consumer warpgroup's main loop is issued
   const uint32_t turn = pempty + 8 * kPStages;
+  // rfull[wg * kSlots + j]: the residual has arrived in the slot
+  const uint32_t rfull = turn + 16;
   auto wslot = [&](int i) { return base + i * kSliceBytes; };
   auto pslot = [&](int i) { return base + kPOff + i * kPlaneBytes; };
 
@@ -418,6 +548,7 @@ conv3x3_i8_kernel_wide(__grid_constant__ const CUtensorMap q_map,
     }
     mbar_init(turn, 4);
     mbar_init(turn + 8, 4);
+    for (int i = 0; i < 2 * kSlots; ++i) mbar_init(rfull + 8 * i, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -435,9 +566,6 @@ conv3x3_i8_kernel_wide(__grid_constant__ const CUtensorMap q_map,
       const int rows = max(0, min(kTileRows, M - r0));
       const int b0 = r0 / kCells;
       const int boards = rows ? (r0 + rows - 1) / kCells - b0 + 1 : 0;
-      if (residual && rows)
-        prefetch_l2(residual + static_cast<int64_t>(r0) * kC,
-                    rows * kC * 4);
       for (int c = 0; c < kChunks; ++c) {
         mbar_wait(pempty + 8 * ps_i, pph ^ 1);
         mbar_expect_tx(pfull + 8 * ps_i, boards * kBoxBytes);
@@ -475,7 +603,13 @@ conv3x3_i8_kernel_wide(__grid_constant__ const CUtensorMap q_map,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int wg = warp >> 2;
-  const float inv_next = inv_next_ptr ? *inv_next_ptr : 0.0f;
+  const int slot0 = wg * kSlots;
+  const Epi e = {residual, out_h, out_q, out_acc, &r_map, &h_map, &qn_map,
+                 s_sw, s_bias, inv_next_ptr ? *inv_next_ptr : 0.0f,
+                 gbase + kHOff + slot0 * kHBox, gbase + kQOff + slot0 * kQBox,
+                 rfull + 8 * slot0, M, wg, lane,
+                 (warp & 3) * 16 + (lane >> 2), (tid & 127) == 0};
+  uint32_t rphase = 0;
   int acc[128];
 #pragma unroll
   for (int i = 0; i < 128; ++i) acc[i] = 0;
@@ -496,6 +630,12 @@ conv3x3_i8_kernel_wide(__grid_constant__ const CUtensorMap q_map,
     int ws_i = g % kWStages, wph = (g / kWStages) & 1;
     int ps_i = (k * kChunks) % kPStages, pph = (k * kChunks / kPStages) & 1;
     int prev = 0;
+    if (residual && r0 < M && e.elected) {
+      // the first parts' residual, once the warpgroup's last stores have
+      // read the slots
+      bulk_wait_read();
+      for (int j = 0; j < kSlots; ++j) load_residual(e, j, r0);
+    }
     if (k > 0) {
       mbar_wait(turn + 8 * wg, turns & 1);
       ++turns;
@@ -547,9 +687,10 @@ conv3x3_i8_kernel_wide(__grid_constant__ const CUtensorMap q_map,
     pin(acc);
     if (lane == 0) mbar_arrive_cluster(wempty + 8 * prev);
 
-    epilogue<>(residual, out_h, out_q, out_acc, acc, s_sw, s_bias, inv_next,
-               r0 + (warp & 3) * 16 + (lane >> 2), M, lane);
+    if (r0 < M) epilogue<>(e, acc, r0, rphase);
   }
+  // the last stores are complete before the block's shared memory goes
+  if (e.elected) bulk_wait();
 }
 
 // The driver's tensor-map encoder, through the runtime (no link to
@@ -579,16 +720,37 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// An int8 tensor map with the 64B swizzle (wgmma's, and the halo planes').
+// A tensor map whose out-of-bounds elements load as zeros; int8 with the
+// 64B swizzle (wgmma's, and the halo planes') unless told otherwise.
 inline bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr,
                    int rank, const cuuint64_t* dims,
-                   const cuuint64_t* strides, const cuuint32_t* box) {
+                   const cuuint64_t* strides, const cuuint32_t* box,
+                   CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                   CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_64B) {
   const cuuint32_t one[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, rank,
-            const_cast<void*>(ptr), dims, strides, box, one,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+  return fn(map, type, rank, const_cast<void*>(ptr), dims, strides, box, one,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// An epilogue tensor map over [M, 256] f32 (the residual, h) or int8
+// (q_next): a box is one part of a tile, 32 channels x 64 rows, the f32
+// one in the 128B swizzle of the slots' f32 boxes.  Rows past M load as
+// zeros and are not stored.  True for an absent tensor (its map is never
+// read).
+inline bool encode_rows(EncodeTiled fn, CUtensorMap* map, const void* ptr,
+                        int M, bool f32) {
+  if (!ptr) return true;
+  const cuuint64_t dims[2] = {kC, static_cast<cuuint64_t>(M)};
+  const cuuint64_t strides[1] = {kC * (f32 ? 4u : 1u)};
+  const cuuint32_t box[2] = {kPartCols, kTileRows};
+  return f32 ? encode(fn, map, ptr, 2, dims, strides, box,
+                      CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                      CU_TENSOR_MAP_SWIZZLE_128B)
+             : encode(fn, map, ptr, 2, dims, strides, box,
+                      CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                      CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 // Tiles of a launch over B boards.
@@ -674,11 +836,17 @@ inline int launch(const void* q, const void* wk, const void* ws,
   const cuuint64_t w_dims[2] = {kC, 9 * kC};
   const cuuint64_t w_strides[1] = {kC};
   const cuuint32_t w_box[2] = {kRowBytes, kC / kCluster};
+  // the epilogue's residual, h and q_next [M, 256]
+  const int M = B * kCells;
+  CUtensorMap r_map = {}, h_map = {}, qn_map = {};
   if (!encode(fn, &q_map, q, 4, q_dims, q_strides, q_box) ||
-      !encode(fn, &w_map, wk, 2, w_dims, w_strides, w_box))
+      !encode(fn, &w_map, wk, 2, w_dims, w_strides, w_box) ||
+      !encode_rows(fn, &r_map, residual, M, true) ||
+      !encode_rows(fn, &h_map, out_h, M, true) ||
+      !encode_rows(fn, &qn_map, out_q, M, false))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, conv3x3_i8_kernel_wide, q_map, w_map,
+      &cfg, conv3x3_i8_kernel_wide, q_map, w_map, r_map, h_map, qn_map,
       static_cast<const float*>(ws), static_cast<const float*>(bias),
       static_cast<const float*>(s_ptr), static_cast<const float*>(residual),
       static_cast<const float*>(inv_next_ptr), static_cast<float*>(out_h),

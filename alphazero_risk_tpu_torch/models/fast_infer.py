@@ -402,7 +402,10 @@ def conv3x3_i8(q: torch.Tensor, w: torch.Tensor, ws: torch.Tensor,
           if inv_s_next is not None else None)
     acc = (torch.empty(q.shape, dtype=I32, device=q.device)
            if want_acc else None)
-    kernels.require_aligned(q, w)
+    # the wide design reads the residual and writes h and q_next by TMA,
+    # from 16-byte bases
+    kernels.require_aligned(q, w, *(t for t in (residual, h, qn, acc)
+                                    if t is not None))
     P = kernels.ptr
     kernels.CONV3X3_I8.launch(P(q), P(w), P(ws), P(bias), P(s), P(residual),
                               P(inv_s_next), P(h), P(qn), P(acc), m, c)

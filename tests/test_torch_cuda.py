@@ -117,11 +117,13 @@ def test_conv_tile_choice(cuda, boards, cout):
 @pytest.mark.parametrize("batch", CONV_I8_BATCHES)
 def test_conv3x3_i8_matches_plain(cuda, batch, channels):
     """K1 against its plain version, with and without the residual, on
-    every output combination: int32 accumulators equal, h within 1e-6
-    relative (the same float operations in the same order, no FMA), the
-    requantized int8 within 1 (a rint tie).  Either design, as the batch
-    and the channels choose it."""
+    every output combination: int32 accumulators equal; in the wide design
+    h and the requantized int8 bit for bit (the same float operations in
+    the same order, no FMA, rint's ties to even), in the tiled design h
+    within 1e-6 relative and the int8 within 1.  Either design, as the
+    batch and the channels choose it."""
     batch = _batch(batch, _sms(cuda))
+    wide = FI.k1_wide(batch, channels, cuda)
     g = torch.Generator(device=cuda).manual_seed(batch * channels)
     c = channels
     q = torch.randint(-127, 128, (batch, 7, 6, c), generator=g, device=cuda,
@@ -149,9 +151,63 @@ def test_conv3x3_i8_matches_plain(cuda, batch, channels):
             if acc is not None:
                 assert torch.equal(acc, ref_acc)
             if h is not None:
-                torch.testing.assert_close(h, ref_h, rtol=1e-6, atol=1e-6)
+                if wide:
+                    assert torch.equal(h, ref_h)
+                else:
+                    torch.testing.assert_close(h, ref_h, rtol=1e-6,
+                                               atol=1e-6)
             if qn is not None:
-                assert int((qn.int() - ref_q.int()).abs().max()) <= 1
+                if wide:
+                    assert torch.equal(qn, ref_q)
+                else:
+                    assert int((qn.int() - ref_q.int()).abs().max()) <= 1
+
+
+@pytest.mark.parametrize("batch", [1021, 4093])
+def test_conv3x3_i8_wide_writes_rows_below_m_alone(cuda, batch):
+    """K1's wide design at a ragged batch (its last tile part past M),
+    launched on views one board into buffers two boards longer, filled
+    with values no output takes: every output combination writes its rows
+    below M, equal to the plain version, and nothing before or past
+    them (the tensor maps clip the last tile's stores)."""
+    c, pad = 256, 42
+    assert FI.k1_wide(batch, c, cuda)
+    m = batch * 42
+    g = torch.Generator(device=cuda).manual_seed(batch)
+    q = torch.randint(-127, 128, (batch, 7, 6, c), generator=g, device=cuda,
+                      dtype=torch.int8)
+    w = FI.pack_trunk_wq(torch.randint(-127, 128, (3, 3, c, c), generator=g,
+                                       device=cuda, dtype=torch.int8))
+    ws = torch.rand(c, generator=g, device=cuda) / 127
+    b = torch.randn(c, generator=g, device=cuda)
+    s = torch.tensor(0.01, device=cuda)
+    inv = torch.tensor(1 / 3.0, device=cuda)
+    ref_acc = FI._conv_i8_plain(q, w).reshape(m, c)
+    # h >= 0, q_next >= -127 and |acc| < 2^31 - 1: never the sentinels
+    fills = {torch.float32: -1.0, torch.int8: -128, torch.int32: -2 ** 31}
+    res = torch.full((m + 2 * pad, c), float("nan"), device=cuda)
+    res[pad:pad + m] = torch.randn((m, c), generator=g, device=cuda)
+    for r in (None, res[pad:pad + m]):
+        ref_h, ref_q = FI._epilogue_plain(ref_acc, ws, b, s, r, inv)
+        for want in [(True, True, True), (True, True, False),
+                     (False, True, False), (True, False, False),
+                     (False, False, True)]:
+            bufs = [torch.full((m + 2 * pad, c), fill, dtype=dt, device=cuda)
+                    if on else None
+                    for on, (dt, fill) in zip(want, fills.items())]
+            out = [None if t is None else t[pad:pad + m] for t in bufs]
+            kernels.CONV3X3_I8.launch(
+                *(kernels.ptr(t) for t in (q, w, ws, b, s, r,
+                                           inv if want[1] else None, *out)),
+                m, c)
+            torch.cuda.synchronize()
+            for buf, o, ref, fill in zip(bufs, out, (ref_h, ref_q, ref_acc),
+                                         fills.values()):
+                if buf is None:
+                    continue
+                assert torch.equal(o, ref)
+                assert bool((buf[:pad] == fill).all())
+                assert bool((buf[pad + m:] == fill).all())
 
 
 def test_descend_and_backup_match_plain(cuda):

@@ -41,6 +41,12 @@ and appends it to FILE when given.  Needs one card.
                   by the int8 trunk input's ``_quantize`` (four ATen
                   kernels), and with the int8 output from its own epilogue
                   where the checkout's K4 has one (see ``k4``)
+    k1            K1 alone at C=256 on random int8 inputs, in its conv_a
+                  form (q_next out) and its conv_b form (the residual in,
+                  h and q_next out), at B = 202, 256, 394, 512, 1,024 and
+                  4,096 (either side of the wide design's switch-over and
+                  the cells' batches), with the design each launch takes
+                  (see ``k1``)
     net           the network's stem and int8 trunk (``_trunk_out``) of a
                   random calibrated 20x256 net at B = 1,024 and 5x256 at
                   4,096, as the checkout runs it (see ``net``)
@@ -60,7 +66,7 @@ import sys
 import time
 
 PARTS = ("k5", "k7", "k9", "k10", "k6", "k3", "ff_blocks", "match_blocks",
-         "sr_match", "slice", "cards", "k4", "net")
+         "sr_match", "slice", "cards", "k4", "k1", "net")
 
 
 def keep(e):
@@ -213,6 +219,39 @@ def k4(ctx):
         e["quantize_device_ms"] = _device_total_ms(
             forms["stem_quantize"], name="elementwise")
         out[f"k4_b{b}"] = e
+    return out
+
+
+def k1(ctx):
+    """Per form and batch: the call back to back (CUDA events) and the
+    kernel alone (profiler), and whether the launch took the wide
+    design."""
+    import torch
+    from alphazero_risk_tpu_torch.models import fast_infer as FI
+    CS, dev, c = ctx.CS, ctx.dev, 256
+    g = torch.Generator(device=dev).manual_seed(18)
+    w = FI.pack_trunk_wq(torch.randint(-127, 128, (3, 3, c, c), generator=g,
+                                       device=dev, dtype=torch.int8))
+    ws = torch.rand(c, generator=g, device=dev) / 127
+    bias = torch.randn(c, generator=g, device=dev)
+    s = torch.tensor(0.01, device=dev)
+    inv = torch.tensor(1 / 3.0, device=dev)
+    out = {}
+    for b in (202, 256, 394, 512, 1024, 4096):
+        q = torch.randint(-127, 128, (b, 7, 6, c), generator=g, device=dev,
+                          dtype=torch.int8)
+        res = torch.randn((b, 7, 6, c), generator=g, device=dev)
+        forms = {"conv_a": lambda: FI.conv3x3_i8(q, w, ws, bias, s,
+                                                 inv_s_next=inv,
+                                                 want_h=False),
+                 "conv_b": lambda: FI.conv3x3_i8(q, w, ws, bias, s,
+                                                 residual=res,
+                                                 inv_s_next=inv)}
+        e = {"wide": FI.k1_wide(b, c, dev)}
+        for name, fn in forms.items():
+            e[f"{name}_ms"] = CS.time_ms(fn, 50)
+            e[f"{name}_device_ms"] = CS.device_ms(fn, "conv3x3_i8_kernel")
+        out[f"k1_b{b}"] = e
     return out
 
 
