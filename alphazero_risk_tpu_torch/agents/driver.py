@@ -54,8 +54,7 @@ def mirrored_initial_states(batch: int, *,
 # The match's blocks of draws, MATCH_BLOCK steps each.  Data (b)'s 1,024
 # Script-vs-Script games end in 1,118 steps: three blocks (a launch and a
 # sync each), the unused draws of the last put back.  Blocks of 64 or 128
-# doubling to 512 timed within the runs' spread on an H100
-# (``tools/time_kernels.py --parts match_blocks``).
+# doubling to 512 timed within the runs' spread on an H100.
 MATCH_BLOCK = 512
 
 

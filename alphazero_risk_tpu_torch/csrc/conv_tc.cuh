@@ -11,10 +11,10 @@
 // channels once from L2, so the rows it owns set the products per weight
 // byte: the large shape does twice as many.  Its buffers (99 KB) let two
 // blocks share an SM, so that one block's barrier and copies overlap the
-// other's wgmmas (conv_ablation times the 512-row shape, one block per SM,
-// slower).  The launcher picks the shape from the batch and the card's SM
-// count (conv_boards).  K advances in chunks of 64 bytes of input channels
-// (32 bf16 or 64 int8 values).
+// other's wgmmas (a 512-row shape, one block per SM, measured slower).  The
+// launcher picks the shape from the batch and the card's SM count
+// (conv_boards).  K advances in chunks of 64 bytes of input channels (32
+// bf16 or 64 int8 values).
 //
 // A through a halo plane, from registers.  For each chunk, each board's
 // activations are staged once into a zero-padded plane of 64 positions x 64
@@ -80,14 +80,8 @@ struct Tile {
   // 1024 bytes (the 128B swizzle's atom)
   static constexpr int kSmem = 2 * kABuf + kStages * kStage + 1024;
 };
-// The large shape's warpgroups and tiles per warpgroup; conv_ablation
-// builds others.
-#ifndef AZ_CONV_LARGE_WG
-#define AZ_CONV_LARGE_WG 2
-#define AZ_CONV_LARGE_MT 2
-#endif
 using Small = Tile<2, 1>;       // 128 rows, 3 boards, 256 threads
-using Large = Tile<AZ_CONV_LARGE_WG, AZ_CONV_LARGE_MT>;  // 256 rows, 6 boards
+using Large = Tile<2, 2>;       // 256 rows, 6 boards
 
 // Boards per block of a launch over B boards and Cout output channels: the
 // large shape where it still gives every SM of the current card a block,
@@ -99,21 +93,6 @@ inline int conv_boards(int B, int Cout) {
   const int large_blocks = (B + Large::kBoards - 1) / Large::kBoards *
                            (Cout / kBN);
   return large_blocks >= sms ? Large::kBoards : Small::kBoards;
-}
-
-// Parts of the main loop that a build with -DAZ_CONV_ABLATE=<mask> leaves
-// out, to time what each costs (python -m alphazero_risk_tpu_torch.
-// conv_ablation).  Such a build computes wrong results; the default, 0,
-// runs every part.
-#ifndef AZ_CONV_ABLATE
-#define AZ_CONV_ABLATE 0
-#endif
-enum Part : int {
-  kWeightCopy = 1, kPlaneCopy = 2, kLdmatrix = 4, kWgmma = 8, kBarrier = 16,
-  kFence = 32
-};
-__host__ __device__ constexpr bool runs(Part p) {
-  return !(AZ_CONV_ABLATE & p);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -341,24 +320,22 @@ __device__ __forceinline__ void pipeline(uint32_t base, int tid, int n_chunks,
   // two sets of A fragments: set ks feeds the groups of K bytes 32*ks..
   uint32_t a[2][MT][4] = {};
 
-  if (runs(kPlaneCopy)) load_a(0, plane(0));
+  load_a(0, plane(0));
 #pragma unroll
   for (int s = 0; s < kAhead; ++s) {
-    if (s < n_steps && runs(kWeightCopy)) load_b(s, stage(s));
+    if (s < n_steps) load_b(s, stage(s));
     cp_async_commit();
   }
   for (int i = 0; i < n_steps; ++i) {
     cp_async_wait<kAhead - 1>();
-    if (runs(kFence)) fence_proxy_async();
-    if (runs(kBarrier)) __syncthreads();
+    fence_proxy_async();
+    __syncthreads();
     const int c = i / kSteps;
     const int row = i - c * kSteps;
     // chunk c - 1's planes are no longer read (A is in registers): fill
     // them with chunk c + 1
-    if (row == 0 && c + 1 < n_chunks && runs(kPlaneCopy))
-      load_a(c + 1, plane(c + 1));
-    if (i + kAhead < n_steps && runs(kWeightCopy))
-      load_b(i + kAhead, stage(i + kAhead));
+    if (row == 0 && c + 1 < n_chunks) load_a(c + 1, plane(c + 1));
+    if (i + kAhead < n_steps) load_b(i + kAhead, stage(i + kAhead));
     cp_async_commit();
     const uint32_t sA = plane(c), sB = stage(i);
 #pragma unroll
@@ -367,20 +344,16 @@ __device__ __forceinline__ void pipeline(uint32_t base, int tid, int n_chunks,
       for (int ks = 0; ks < 2; ++ks) {
         // the group that read set ks has retired (the wait below, one group
         // ago)
-        if (runs(kLdmatrix)) {
 #pragma unroll
-          for (int mt = 0; mt < MT; ++mt)
-            ldsm_x4(sA + sw64(arow[mt] + tap_shift(row - 1, tt - 1),
-                              2 * ks + (lane >> 4)),
-                    a[ks][mt]);
-        }
+        for (int mt = 0; mt < MT; ++mt)
+          ldsm_x4(sA + sw64(arow[mt] + tap_shift(row - 1, tt - 1),
+                            2 * ks + (lane >> 4)),
+                  a[ks][mt]);
         pin(acc);
         wgmma_fence();
-        if (runs(kWgmma)) {
 #pragma unroll
-          for (int mt = 0; mt < MT; ++mt)
-            mma(acc[mt], a[ks][mt], sB + tt * kSlice, ks);
-        }
+        for (int mt = 0; mt < MT; ++mt)
+          mma(acc[mt], a[ks][mt], sB + tt * kSlice, ks);
         wgmma_commit();
         // retire the group before this one: set ks ^ 1 is free again
         wgmma_wait<1>();

@@ -56,7 +56,7 @@ from ..utils import profiling
 # 32-game play slice 156 of 256 fast-forwards run no iteration, the rest
 # 2 to 90 (median 27), so most take one block, 38 of them two.  A first
 # block sized from the previous fast-forward was not faster beyond the
-# runs' spread on an H100 (``tools/time_kernels.py --parts ff_blocks``).
+# runs' spread on an H100.
 FF_BLOCK, FF_BLOCK_MAX = 32, 64
 
 I8, I16, I32 = torch.int8, torch.int16, torch.int32

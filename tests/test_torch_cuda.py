@@ -6,8 +6,11 @@ where JAX is not installed (skipping the repo's conftest, which is):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import copy
 import dataclasses
+from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -28,21 +31,17 @@ from alphazero_risk_tpu_torch.mcts import search as S
 from alphazero_risk_tpu_torch.training import actor as A
 from alphazero_risk_tpu_torch.training.trainer import Trainer
 
-from chip_smoke import TIE_CASES, card_states, mixed_states, tie_tree
+from torch_cases import (MIXED, TIE_CASES, card_states, clone_tree, first,
+                         heuristic_eval, match_by_iteration, mixed_states,
+                         plain_versions, random_play_states, tie_tree,
+                         watch_launches)
 
 pytestmark = pytest.mark.cuda
 
 
 def played_roots(batch, steps, seed):
-    cfg = Config()
-    gen = torch.Generator().manual_seed(seed)
-    st = new_game(batch, generator=gen, device="cpu")
-    for _ in range(steps):
-        legal = rules.legal_actions(st, cfg)
-        g = torch.rand(legal.shape, generator=gen)
-        st = rules.step_key(st, torch.argmax(torch.where(legal, g, -1.0), -1)
-                            .to(torch.int32), gen, cfg)
-    return st
+    return random_play_states(batch, steps, torch.Generator().manual_seed(
+        seed), Config(), "cpu")
 
 
 def uniform_eval(state, legal):
@@ -246,14 +245,8 @@ def grown_trees():
     8 and 32 simulations (N = 10 and 34), by N."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
-    cfg = Config()
     gen = torch.Generator(device="cuda").manual_seed(4)
-    st = new_game(1024, generator=gen, device="cuda")
-    for _ in range(120):
-        legal = rules.legal_actions(st, cfg)
-        g = torch.rand(legal.shape, generator=gen, device="cuda")
-        st = rules.step_key(st, torch.argmax(torch.where(legal, g, -1.0), -1)
-                            .to(torch.int32), gen, cfg)
+    st = random_play_states(1024, 120, gen, Config(), "cuda")
     trees = {}
     for sims in (8, 32):
         c = Config(mcts_simulations=sims)
@@ -268,6 +261,32 @@ def _assert_descent_matches_plain(tree, gum, cfg):
                           S._descend_plain(tree, gum, cfg)):
         assert torch.equal(a, r), name
     return path
+
+
+def _assert_backup_matches_plain(tree, path):
+    """K3 on ``path`` through ``tree`` against ``_backup_plain``, visit and
+    wsum bit for bit, with the leaf from the caller's tensors and (the
+    search's call) from the tree's own leaf buffers.  Leaves ``tree``'s
+    visit and wsum as they were."""
+    b, dev = tree.player.shape[0], tree.player.device
+    leaf_v = torch.rand(b, generator=torch.Generator(device=dev).manual_seed(
+        7), device=dev) * 2 - 1
+    leaf_p = tree.player[torch.arange(b, device=dev), path.cur.long()]
+    buffers = S._k6_pack(tree)[2]
+    buffers[0].copy_(leaf_v)
+    buffers[1].copy_(leaf_p)
+    visit, wsum = tree.visit.clone(), tree.wsum.clone()
+    got = []
+    for lv, lp in ((leaf_v, leaf_p), buffers):
+        S.backup(tree, path, lv, lp)
+        got.append((tree.visit.clone(), tree.wsum.clone()))
+        tree.visit.copy_(visit)
+        tree.wsum.copy_(wsum)
+    S._backup_plain(tree, path, leaf_v, leaf_p)
+    for kv, kw in got:
+        assert torch.equal(kv, tree.visit) and torch.equal(kw, tree.wsum)
+    tree.visit.copy_(visit)
+    tree.wsum.copy_(wsum)
 
 
 @pytest.mark.parametrize("n_nodes", [10, 34])
@@ -289,9 +308,10 @@ def test_descend_batches_match_plain(cuda, grown_trees, batch, n_nodes):
 @pytest.mark.parametrize("case", TIE_CASES)
 def test_descend_tie_trees_match_plain(cuda, grown_trees, case):
     """K2 against ``_descend_plain`` on the grown trees rewritten into
-    ties (``chip_smoke.tie_tree``: every legal action tied, rows with no
+    ties (``torch_cases.tie_tree``: every legal action tied, rows with no
     legal action, attack sources with equal armies or none), at 33 and
-    1,024 games."""
+    1,024 games; and K3 on each descent's paths through the tied tree
+    against ``_backup_plain``."""
     cfg = Config(mcts_simulations=2)
     for tree in grown_trees.values():
         tied = tie_tree(tree, case)
@@ -299,7 +319,8 @@ def test_descend_tie_trees_match_plain(cuda, grown_trees, case):
             t = _games(tied, batch)
             gen = torch.Generator(device="cuda").manual_seed(batch)
             for gum in S.draw_gumbel(gen, cfg, batch, cuda):
-                _assert_descent_matches_plain(t, gum, cfg)
+                path = _assert_descent_matches_plain(t, gum, cfg)
+                _assert_backup_matches_plain(t, path)
 
 
 def _synthetic_paths(tree, d_cap, gen):
@@ -333,7 +354,8 @@ def _as_descent_buffers(path):
 
 
 @pytest.mark.parametrize("n_nodes", [10, 34])
-@pytest.mark.parametrize("batch", [1, 3, 5, 33, 64, 1023, 1024])
+@pytest.mark.parametrize("batch", [1, 2, 3, 4, 5, 16, 32, 33, 64, 1023,
+                                   1024])
 def test_backup_batches_match_plain(cuda, grown_trees, batch, n_nodes):
     """K3 (one warp per game, a path's edges over the lanes) against
     ``_backup_plain``, visit and wsum bit for bit: on the first ``batch``
@@ -367,6 +389,30 @@ def test_backup_batches_match_plain(cuda, grown_trees, batch, n_nodes):
         syn = _synthetic_paths(tree, d_cap, gen)
         held(*syn)
         held(_as_descent_buffers(syn[0]), *syn[1:])
+
+
+def test_descend_and_backup_on_heuristic_trees_match_plain(cuda):
+    """K2 and K3 against their plain versions on trees of the stand-in
+    network (``torch_cases.heuristic_eval``) over 1,024 played states:
+    256 games grown by 8 simulations of the plain versions on the CPU,
+    and all 1,024 grown by 8 on the card."""
+    grow = Config(mcts_simulations=8)
+    cfg = Config(mcts_simulations=32)
+    states = random_play_states(1024, 100, torch.Generator(
+        device=cuda).manual_seed(1), grow, cuda)
+    root = tree_map(lambda x: x[:256].cpu(), states)
+    on_cpu = S.search(root, S.draw_gumbel(torch.Generator().manual_seed(5),
+                                          grow, 256, "cpu"),
+                      grow, heuristic_eval).tree
+    on_card = S.search(states, S.draw_gumbel(torch.Generator(
+        device=cuda).manual_seed(5), grow, 1024, cuda), grow,
+        heuristic_eval).tree
+    for tree in (_to(on_cpu, cuda), on_card):
+        b = tree.player.shape[0]
+        gum = S.draw_gumbel(torch.Generator(device=cuda).manual_seed(6),
+                            cfg, b, cuda)[0]
+        path = _assert_descent_matches_plain(tree, gum, cfg)
+        _assert_backup_matches_plain(tree, path)
 
 
 def test_play_launches_every_kernel(cuda):
@@ -570,7 +616,8 @@ def _assert_heads_match(got, ref, legal):
 
 @pytest.mark.parametrize("c,v", [(32, 16), (64, 48), (128, 256),
                                  (256, 256), (256, 16), (32, 256), (96, 10)])
-@pytest.mark.parametrize("batch", [1, 3, 64, 65, 128, 512, 1024])
+@pytest.mark.parametrize("batch", [1, 2, 3, 4, 16, 32, 64, 65, 128, 512,
+                                   1024])
 def test_heads_eval_shapes_match_plain(cuda, batch, c, v):
     """K5 (one block per game, one per SM looping over games past 132)
     against ``_heads_eval_plain`` at batches the paths launch it with and
@@ -611,14 +658,6 @@ def test_heads_pack_is_rebuilt_by_each_fold(cuda):
     assert float((got[2] - old[2]).abs().max()) > 1e-3
 
 
-def _clone_tree(tree):
-    return type(tree)(**{
-        f.name: (tree_map(torch.clone, getattr(tree, f.name))
-                 if isinstance(getattr(tree, f.name), GameState)
-                 else getattr(tree, f.name).clone())
-        for f in dataclasses.fields(tree)})
-
-
 def _assert_trees_equal(a, b):
     for f in dataclasses.fields(a):
         x, y = getattr(a, f.name), getattr(b, f.name)
@@ -642,7 +681,7 @@ def test_write_nodes_matches_plain(cuda):
     # expansion write on a grown tree
     tree = _to(cpu_tree, cuda)
     path = S.descend(tree, gum[1].to(cuda), cfg)
-    ref_tree = _clone_tree(tree)
+    ref_tree = clone_tree(tree)
     args = (*S.expansion_inputs(tree, path, cfg, uniform_eval), path)
     lv, lp = S.write_nodes(tree, *args)
     rv, rp = S._write_nodes_plain(ref_tree, *args)
@@ -652,7 +691,8 @@ def test_write_nodes_matches_plain(cuda):
 
 
 @pytest.mark.parametrize("n_nodes", [10, 34])
-@pytest.mark.parametrize("batch", [1, 3, 4, 5, 31, 33, 64, 512, 1024])
+@pytest.mark.parametrize("batch", [1, 2, 3, 4, 5, 16, 31, 32, 33, 64, 512,
+                                   1024])
 def test_write_nodes_batches_match_plain(cuda, grown_trees, batch, n_nodes):
     """K6 (one warp per game, four per block) on the first ``batch`` games
     of the trees grown with 8 and 32 simulations (full: next_free at the
@@ -673,7 +713,7 @@ def test_write_nodes_batches_match_plain(cuda, grown_trees, batch, n_nodes):
     status = torch.tensor([-1, -2, 0, 1], dtype=torch.int32, device=cuda)[
         torch.randint(0, 4, (batch,), generator=gen, device=cuda)]
     args = (child, status, value, legal, probs, path)
-    kt, pt = _clone_tree(tree), _clone_tree(tree)
+    kt, pt = clone_tree(tree), clone_tree(tree)
     lv, lp = S.write_nodes(kt, *args)
     rv, rp = S._write_nodes_plain(pt, *args)
     assert torch.equal(lv, rv) and torch.equal(lp, rp)
@@ -788,13 +828,15 @@ def test_rules_expand_matches_plain(cuda):
 def mixed_mix():
     """1,024 states of mixed play on the card in a shuffled order whose
     prefixes mix every phase, fortify ties under the random action, full
-    lands and terminal games (``chip_smoke.mixed_states``), on the card."""
+    lands and terminal games (``torch_cases.mixed_states``), on the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     return mixed_states(Config(), torch.device("cuda"))
 
 
-RULES_BATCHES = [1, 3, 4, 5, 31, 33, 64, 512, 1024]
+# ragged against a block of four games, and every batch the paths launch:
+# lockstep games, the scripted generation's 128, the learner's 512
+RULES_BATCHES = [1, 2, 3, 4, 5, 16, 31, 32, 33, 64, 128, 512, 1024]
 
 
 @pytest.mark.parametrize("exact", [True, False])
@@ -871,7 +913,8 @@ def test_state_views_match_plain(cuda, mixed_play, version):
 
 
 @pytest.mark.parametrize("version", [1, 2, 3])
-@pytest.mark.parametrize("batch", [1, 31, 33, 64, 512, 1024])
+@pytest.mark.parametrize("batch", [1, 2, 4, 16, 31, 32, 33, 64, 128, 512,
+                                   1024])
 def test_state_views_batches_match_plain(cuda, mixed_play, batch, version):
     """K8 (one warp per game, four per block) at ragged and large batches:
     each output alone, legality with status, and all three, bit for bit
@@ -893,6 +936,29 @@ def test_state_views_batches_match_plain(cuda, mixed_play, batch, version):
             torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0,
                                        equal_nan=True)
     assert bool(torch.isnan(want[2][0]).any()) == (version >= 2)
+
+
+def _assert_views_match_plain(st, cfg):
+    """K8 on ``st`` in the forms the paths launch: each output alone, all
+    three from one launch, legality with status; bit for bit against the
+    plain versions (NaN where a share is 0/0)."""
+    want = (rules._legal_actions_plain(st, cfg),
+            rules._game_status_plain(st, cfg), _featurize_plain(st, cfg))
+    for views in ((rules.legal_actions(st, cfg), rules.game_status(st, cfg),
+                   featurize(st, cfg)),
+                  rules.state_views(st, cfg, legal=True, status=True,
+                                    features=True),
+                  rules.state_views(st, cfg, legal=True, status=True)):
+        for g, w in zip(views, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("batch", RULES_BATCHES)
+def test_state_views_on_mixed_states_match_plain(cuda, mixed_mix, batch):
+    """K8 on the first ``batch`` of the 1,024 mixed states
+    (``torch_cases.mixed_states``: every phase, terminal games, full
+    lands) against its plain versions."""
+    _assert_views_match_plain(first(mixed_mix, batch).state, Config())
 
 
 @pytest.mark.parametrize("cfg", [Config(),
@@ -922,35 +988,49 @@ def test_script_and_random_steps_match_plain(cuda, mixed_play, cfg):
         (1, 1)
 
 
-@pytest.mark.parametrize("batch", [1, 3, 31, 33, 64, 512, 1024])
+def _assert_script_step_matches_plain(*args):
+    """K9's single step on ``args`` against the plain version: state,
+    carry, action and record bit for bit."""
+    got = SA.script_step_recorded(*args)
+    ref = SA._script_step_recorded_plain(*args)
+    _assert_states_equal(got[0], ref[0])
+    for f in dataclasses.fields(SA.ScriptCarry):
+        assert torch.equal(getattr(got[1], f.name),
+                           getattr(ref[1], f.name)), f.name
+    assert all(torch.equal(x, y) for x, y in zip(got[2], ref[2]))
+    return ref
+
+
+def _assert_random_step_matches_plain(*args):
+    """K10's single step on ``args`` against the plain version: state,
+    action and record bit for bit."""
+    got = RA.random_step_recorded(*args)
+    ref = RA._random_step_recorded_plain(*args)
+    _assert_states_equal(got[0], ref[0])
+    assert all(torch.equal(x, y) for x, y in zip(got[1], ref[1]))
+    return ref
+
+
+@pytest.mark.parametrize("batch", [1, 2, 3, 4, 16, 31, 32, 33, 64, 128,
+                                   512, 1024])
 def test_script_step_batches_match_plain(cuda, mixed_mix, batch):
     """K9's single step (one warp per game, four per block) at batches
     ragged against the block, on the first ``batch`` mixed states with
     their carries, resets and draws: state, carry, action and record bit
     for bit against the plain version."""
     mx = mixed_mix.apply(lambda x: x[:batch].contiguous())
-    cfg = Config()
-    args = (mx.state, mx.carry, mx.reset, mx.u, mx.dice, cfg)
-    s9, c9, r9 = SA.script_step_recorded(*args)
-    p9, pc9, pr9 = SA._script_step_recorded_plain(*args)
-    _assert_states_equal(s9, p9)
-    for f in dataclasses.fields(SA.ScriptCarry):
-        assert torch.equal(getattr(c9, f.name), getattr(pc9, f.name)), f.name
-    assert all(torch.equal(x, y) for x, y in zip(r9, pr9))
+    _assert_script_step_matches_plain(mx.state, mx.carry, mx.reset, mx.u,
+                                      mx.dice, Config())
 
 
-@pytest.mark.parametrize("batch", [1, 3, 64, 1024])
+@pytest.mark.parametrize("batch", [1, 2, 3, 4, 16, 32, 64, 128, 1024])
 def test_random_step_batches_match_plain(cuda, mixed_mix, batch):
     """K10 (one warp per game, four per block) at batches ragged against
     the block, on the first ``batch`` mixed states (every phase, fortify
     choices, finished games) with their draws: state, action and record
     bit for bit against the plain version."""
     mx = mixed_mix.apply(lambda x: x[:batch].contiguous())
-    cfg = Config()
-    s10, r10 = RA.random_step_recorded(mx.state, mx.u, mx.dice, cfg)
-    p10, pr10 = RA._random_step_recorded_plain(mx.state, mx.u, mx.dice, cfg)
-    _assert_states_equal(s10, p10)
-    assert all(torch.equal(x, y) for x, y in zip(r10, pr10))
+    _assert_random_step_matches_plain(mx.state, mx.u, mx.dice, Config())
 
 
 AZ, SCRIPT, RANDOM = AB.OPP_AZ, AB.OPP_SCRIPT, AB.OPP_RANDOM
@@ -1050,6 +1130,7 @@ def test_train_on_data_launches_every_kernel(cuda, tmp_path):
         return run
 
     trainer._scripted_call = counted
+    s0 = dict(trainer.play_stats)
     kernels.reset_counts()
     trainer.train_on_data(loops=1)
     counts = kernels.counts()
@@ -1060,6 +1141,13 @@ def test_train_on_data_launches_every_kernel(cuda, tmp_path):
         # that fast-forwards the opponents (the multi-step entry)
         trainer.benchmark()
         assert kernels.counts()["agent_steps"] > 0
+    # the searches' launches: the trainer counts the scripted chunks'
+    # lockstep steps too, which search nothing
+    st = {k: trainer.play_stats[k] - s0[k]
+          for k in ("steps", "paired_steps", "folds")}
+    st["steps"] -= len(gen_counts) * cfg.actor_chunk_steps
+    want = expected_launches(st, cfg.mcts_simulations, cfg.blocks)
+    assert {k: kernels.counts()[k] for k in want} == want
     for kinds, c in gen_counts:
         assert c["script_step"] == cfg.actor_chunk_steps
         assert c["random_step"] == (cfg.actor_chunk_steps
@@ -1069,6 +1157,7 @@ def test_train_on_data_launches_every_kernel(cuda, tmp_path):
     assert kernels.counts()["random_step"] == sum(
         c["random_step"] for _, c in gen_counts)
     assert trainer.ckpt.exists("temp") and trainer.ckpt.exists("latest")
+    assert all(np.isfinite(e["pi_loss"]) for e in trainer.epoch_log)
 
 
 FULL_CARDS = Config(simple_cards=False)
@@ -1076,7 +1165,7 @@ FULL_CARDS = Config(simple_cards=False)
 
 @pytest.fixture(scope="module")
 def card_mix():
-    """1,024 full-cards states on the card (``chip_smoke.card_states``):
+    """1,024 full-cards states on the card (``torch_cases.card_states``):
     mixed play under full cards, three games in eight with their hands and
     piles dealt anew (large hands, empty and nearly empty piles, bonus
     lands at the army cap)."""
@@ -1113,18 +1202,10 @@ def test_full_cards_agent_steps_match_plain(cuda, card_mix, batch):
     trade, the turn end's draw with u[:, 3]) against their plain versions:
     state, carry, action and record bit for bit."""
     mx = card_mix.apply(lambda x: x[:batch].contiguous())
-    args9 = (mx.state, mx.carry, mx.reset, mx.u, mx.dice, FULL_CARDS)
-    got9, ref9 = (SA.script_step_recorded(*args9),
-                  SA._script_step_recorded_plain(*args9))
-    _assert_states_equal(got9[0], ref9[0])
-    for f in dataclasses.fields(SA.ScriptCarry):
-        assert torch.equal(getattr(got9[1], f.name), getattr(ref9[1], f.name))
-    assert all(torch.equal(x, y) for x, y in zip(got9[2], ref9[2]))
-    args10 = (mx.state, mx.u, mx.dice, FULL_CARDS)
-    got10, ref10 = (RA.random_step_recorded(*args10),
-                    RA._random_step_recorded_plain(*args10))
-    _assert_states_equal(got10[0], ref10[0])
-    assert all(torch.equal(x, y) for x, y in zip(got10[1], ref10[1]))
+    ref9 = _assert_script_step_matches_plain(mx.state, mx.carry, mx.reset,
+                                             mx.u, mx.dice, FULL_CARDS)
+    ref10 = _assert_random_step_matches_plain(mx.state, mx.u, mx.dice,
+                                              FULL_CARDS)
     if batch == 1024:
         for ref in (ref9[0], ref10[0]):
             assert bool((ref.card_sets_played
@@ -1158,7 +1239,6 @@ def test_full_cards_play_match_in_blocks_matches_plain(cuda, agents):
     entry, against the per-iteration loop on the plain versions from the
     same seed: tallies, steps and final rounds."""
     from alphazero_risk_tpu_torch.agents import driver as D
-    from chip_smoke import match_by_iteration
 
     def start():
         gen = torch.Generator(device=cuda).manual_seed(50 + agents[1])
@@ -1173,6 +1253,48 @@ def test_full_cards_play_match_in_blocks_matches_plain(cuda, agents):
     assert torch.equal(res.rounds, ref.round)
     assert bool((res.status != -1).all())
     assert bool((ref.card_sets_played > 0).any())
+
+
+@pytest.mark.parametrize("kinds", [(SCRIPT, SCRIPT), (SCRIPT, RANDOM)])
+@pytest.mark.parametrize("batch", [64, 1024])
+@pytest.mark.parametrize("cards", [False, True])
+def test_agent_steps_mid_match_match_plain(cuda, cards, batch, kinds):
+    """The multi-step entry's launch of 64 iterations on ``batch``
+    mirrored games 100 steps (under full cards 300) into a match of the
+    seat kinds, as ``play_match`` launches it mid-match, against the plain
+    multi-step function: state, carry, prev and step counts bit for
+    bit."""
+    from alphazero_risk_tpu_torch.agents import driver as D
+    cfg = FULL_CARDS if cards else Config()
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    st = D.mirrored_initial_states(batch, generator=gen, device=cuda)
+    carry = SA.init_carry(batch, cuda)
+    prev = torch.full((batch,), -1, dtype=torch.int32, device=cuda)
+    draws = BlockDraws(gen, batch, cuda)
+    u, dice = draws.block(300 if cards else 100)
+    st, carry, prev, _ = AB.agent_steps(st, carry, prev, u, dice, cfg, kinds)
+    u, dice = draws.block(64)
+    args = (st, carry, prev, u, dice, cfg, kinds)
+    _hold_agent_steps([(args, {}, AB.agent_steps(*args))])
+
+
+@pytest.mark.parametrize("batch", [64, 1024])
+@pytest.mark.parametrize("cards", [False, True])
+def test_agent_steps_at_k16_for_every_seat_pair_match_plain(
+        cuda, request, cards, batch):
+    """The multi-step entry at k=16 on the first ``batch`` mixed (or
+    full-cards) states with their carries and previous movers, for every
+    pair of seat kinds, against the plain multi-step function."""
+    mx = first(request.getfixturevalue("card_mix" if cards else "mixed_mix"),
+               batch)
+    cfg = FULL_CARDS if cards else Config()
+    u, dice = BlockDraws(torch.Generator(device=cuda).manual_seed(33), batch,
+                         cuda).block(16)
+    calls = []
+    for kinds in KINDS:
+        args = (mx.state, mx.carry, mx.prev, u, dice, cfg, kinds)
+        calls.append((args, {}, AB.agent_steps(*args)))
+    _hold_agent_steps(calls)
 
 
 # ------------------------------------------------ tree reuse on the card
@@ -1207,13 +1329,14 @@ def test_reroot_matches_cpu(cuda, batch, sims):
         assert bool(want_reused.any()) and int(want.next_free.max()) > 1
 
 
+@pytest.mark.parametrize("sims", [8, 32])
 @pytest.mark.parametrize("batch", [1, 3, 64])
-def test_search_kernels_on_rerooted_trees_match_plain(cuda, batch):
+def test_search_kernels_on_rerooted_trees_match_plain(cuda, batch, sims):
     """On the tree ``search_with_reuse`` starts from (carried subtrees
-    where the played child was expanded, fresh roots elsewhere): K2, K7's
-    expand, K6 and K3 against their plain versions; then the whole
-    reusing search on the card equal to the CPU's."""
-    cfg = Config(mcts_simulations=8, max_depth=16, tree_reuse=True)
+    where the played child was expanded, fresh roots elsewhere; N = 18
+    and 66): K2, K7's expand, K6 and K3 against their plain versions;
+    then the whole reusing search on the card equal to the CPU's."""
+    cfg = Config(mcts_simulations=sims, max_depth=16, tree_reuse=True)
     root = played_roots(batch, 120, seed=40 + batch)
     tree, action, dice, outcome = _played_move(cfg, root, batch)
     nxt = rules.step(root, action, dice, cfg)
@@ -1230,7 +1353,7 @@ def test_search_kernels_on_rerooted_trees_match_plain(cuda, batch):
     got, ref = rules.expand(*args), rules._expand_plain(*args)
     _assert_states_equal(got[0], ref[0])
     assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
-    kt, pt = _clone_tree(start), _clone_tree(start)
+    kt, pt = clone_tree(start), clone_tree(start)
     ins = S.expansion_inputs(kt, path, cfg, uniform_eval)
     lv, lp = S.write_nodes(kt, *ins, path)
     rv, rp = S._write_nodes_plain(pt, *ins, path)
@@ -1361,14 +1484,13 @@ def test_watch_steps_at_one_game_match_plain(cuda, p2):
     """The AlphaZero viewer's step loop (``utils.watch.az_steps``) at
     B=1 on the card: the kernels (K2, K3, K6, K7's step and expand, K8,
     and K9 or K10 for the opponent) against every one of them swapped for
-    its plain version (``chip_smoke.plain_versions``) from the same seed,
+    its plain version (``torch_cases.plain_versions``) from the same seed,
     through the setup into the battle phases: every state and ``pi``
     equal, the launch counts those the step count implies."""
     import itertools
 
     from alphazero_risk_tpu_torch.models.resnet import build_network
     from alphazero_risk_tpu_torch.utils import watch as W
-    from chip_smoke import plain_versions, watch_launches
 
     cfg = Config(blocks=1, filters=32, value_hidden=16, mcts_simulations=8,
                  max_depth=16)
@@ -1459,3 +1581,906 @@ def test_spans_time_the_play_path_on_the_card(cuda):
     dev = {k: v["device_s"] for k, v in spans.items()}
     assert dev["net.trunk"] <= dev["net.eval"] <= dev["search.run"] \
         <= dev["actor.step"]
+
+
+# ------------------------------------------------ shared by the path tests
+
+def expected_launches(st, sims, blocks):
+    """Launches of the search kernels, the network kernels and K7 implied
+    by a run's lockstep searches (``steps``, of which ``paired_steps`` ran
+    two nets) and folds: each search evaluates its root and one node per
+    simulation, expands (K7) once per simulation, and its move is one more
+    K7 launch; each int8 fold calibrates on K4 (the stem and every conv).
+    K8 and the opponents' K9/K10 depend on the run."""
+    evals = (st["steps"] + st["paired_steps"]) * (sims + 1)
+    return {"conv3x3_bf16": evals + st["folds"] * (1 + 2 * blocks),
+            "heads_eval": evals, "conv3x3_i8": evals * 2 * blocks,
+            "write_nodes": st["steps"] * (sims + 1),
+            "mcts_descend": st["steps"] * sims,
+            "mcts_backup": st["steps"] * sims,
+            "rules_step": st["steps"] * (sims + 1)}
+
+
+def _watch_blocks(monkeypatch, keep=0, every=1):
+    """From here on every call of the multi-step entry and of the block
+    loop around it is counted: the loops' iterations and blocks, the
+    entry's step counts summed on the card (the live micro-steps), and
+    every ``every``-th call of the entry, up to ``keep``, with its inputs
+    and outputs (for ``_hold_agent_steps``)."""
+    w = {"iterations": 0, "blocks": 0, "steps": 0, "calls": [], "n": 0}
+    steps_fn, run_fn = AB.agent_steps, AB.run_agent_blocks
+
+    def steps(*a, **kw):
+        out = steps_fn(*a, **kw)
+        w["steps"] = out[3].sum() + w["steps"]
+        if w["n"] % every == 0 and len(w["calls"]) < keep:
+            w["calls"].append((a, kw, out))
+        w["n"] += 1
+        return out
+
+    def run(*a, **kw):
+        out = run_fn(*a, **kw)
+        w["iterations"] += out[3]
+        w["blocks"] += out[4]
+        return out
+
+    monkeypatch.setattr(AB, "agent_steps", steps)
+    monkeypatch.setattr(AB, "run_agent_blocks", run)
+    return w
+
+
+def _hold_agent_steps(calls):
+    """The multi-step entry's recorded calls against the plain multi-step
+    function on the same inputs: state, carry, prev and step counts bit
+    for bit."""
+    assert calls
+    for a, kw, out in calls:
+        ref = AB._agent_steps_plain(*a, **kw)
+        _assert_states_equal(out[0], ref[0])
+        for f in dataclasses.fields(SA.ScriptCarry):
+            assert torch.equal(getattr(out[1], f.name),
+                               getattr(ref[1], f.name)), f.name
+        assert torch.equal(out[2], ref[2]) and torch.equal(out[3], ref[3])
+
+
+def _with_dirs(cfg, tmp_path):
+    return cfg.replace(checkpoint_dir=str(tmp_path / "checkpoints"),
+                       data_dir=str(tmp_path / "data"),
+                       log_dir=str(tmp_path / "log"))
+
+
+# ------------------------------------------- the scripted paths, 1,024 games
+
+@pytest.mark.parametrize("cards", [False, True])
+def test_scripted_chunk_matches_plain_versions(cuda, request, cards):
+    """One chunk of 128 steps of ``run_scripted_episodes``, Script vs
+    Random, at the 1,024 mixed (or full-cards) states from their carries
+    and previous movers, on the kernels and under ``plain_versions`` from
+    the same draws: states, carries, prev, status and records equal.  On
+    the simple-cards chunk, K8 also on a learner batch of its records
+    read back from a replay buffer (states without cards or
+    mobilization)."""
+    from alphazero_risk_tpu_torch.training.replay import ReplayBuffer
+    mx = request.getfixturevalue("card_mix" if cards else "mixed_mix")
+    cfg = FULL_CARDS if cards else Config(max_game_steps=2048)
+
+    def chunk():
+        draws = A.GeneratorDraws(torch.Generator(device=cuda).manual_seed(21),
+                                 cfg, MIXED, cuda)
+        return A.run_scripted_episodes(mx.state, draws, cfg, 128,
+                                       (A.OPP_SCRIPT, A.OPP_RANDOM),
+                                       carry_in=mx.carry, prev_in=mx.prev)
+
+    kernels.reset_counts()
+    got = chunk()
+    counts = kernels.counts()
+    assert counts["script_step"] == counts["random_step"] == 128
+    with plain_versions():
+        ref = chunk()
+    _assert_states_equal(got.state, ref.state)
+    for f in dataclasses.fields(SA.ScriptCarry):
+        assert torch.equal(getattr(got.carry, f.name),
+                           getattr(ref.carry, f.name)), f.name
+    for f in A.SampleBatch._fields:
+        assert torch.equal(getattr(got.samples, f), getattr(ref.samples, f)), f
+    assert torch.equal(got.prev_player, ref.prev_player)
+    assert torch.equal(got.status, ref.status)
+    assert int(got.samples.valid.sum()) > 0
+    if cards:
+        return
+    rb = ReplayBuffer(cfg)
+    rb.extend_from_actor(got.samples, got.status, final_round=got.state.round)
+    arrays = rb.sample_arrays()
+    pick = np.random.default_rng(0).permutation(len(rb))[:512]
+    _assert_views_match_plain(A.state_of_samples(A.SampleBatch(
+        valid=None, **{k: torch.from_numpy(v[pick]).to(cuda)
+                       for k, v in arrays.items()}), cfg), cfg)
+
+
+@pytest.mark.parametrize("agents", [(0, 0), (0, 1)])
+@pytest.mark.parametrize("cards", [False, True])
+def test_play_match_to_the_end_matches_the_loop_by_iteration(
+        cuda, monkeypatch, cards, agents):
+    """``play_match`` Script vs Script and Script vs Random on 1,024
+    mirrored games to the end in blocks of the multi-step entry (the CLI's
+    ``-m play --p1 sp --p2 sp|rp``; the supervised bootstrap's data), under
+    simple and full cards: every game ends, the entry launches once a
+    block and no single step launches, a sample of the blocks equals the
+    plain multi-step function, and the per-iteration loop on the plain
+    versions from the same seed ends in the same tally, steps, final
+    rounds and live micro-steps (under full cards with trades)."""
+    from alphazero_risk_tpu_torch.agents import driver as D
+    cfg = FULL_CARDS if cards else Config(max_game_steps=2048)
+    seed = {(False, 0): 22, (False, 1): 24, (True, 0): 25,
+            (True, 1): 26}[cards, agents[1]]
+
+    def start():
+        gen = torch.Generator(device=cuda).manual_seed(seed)
+        return gen, D.mirrored_initial_states(MIXED, generator=gen,
+                                              device=cuda)
+
+    gen, st = start()
+    w = _watch_blocks(monkeypatch, keep=16)
+    kernels.reset_counts()
+    res = D.play_match(gen, st, *agents, cfg, cfg.max_game_steps)
+    counts = kernels.counts()
+    monkeypatch.undo()
+    tally = D.summarize(res)
+    assert tally["unfinished"] == 0
+    assert counts["agent_steps"] == w["blocks"]
+    assert w["iterations"] == res.steps
+    assert counts["script_step"] == counts["random_step"] == 0
+    _hold_agent_steps(w["calls"])
+    gen, st = start()
+    ref, steps, live = match_by_iteration(gen, st, agents, cfg,
+                                          cfg.max_game_steps)
+    assert (steps, live) == (res.steps, int(w["steps"]))
+    assert D.summarize(D.MatchResult(
+        status=rules._game_status_plain(ref, cfg), rounds=ref.round,
+        steps=steps, started_by=st.cur_player)) == tally
+    assert torch.equal(ref.round, res.rounds)
+    if cards:
+        assert int(ref.card_sets_played.sum()) > 0
+
+
+def test_full_cards_legal_play_through_step_key_matches_plain(cuda):
+    """400 steps of random legal moves through ``rules.step_key`` (its own
+    dice and card uniforms) on 1,024 fresh full-cards deals: K8's legality
+    and K7's step, one launch each a step, against the plain versions on
+    the same draws, the final states equal."""
+    cfg = FULL_CARDS
+
+    def play(plain):
+        gen = torch.Generator(device=cuda).manual_seed(28)
+        st = new_game(MIXED, generator=gen, device=cuda)
+        for _ in range(400):
+            legal = (rules._legal_actions_plain if plain
+                     else rules.legal_actions)(st, cfg)
+            g = torch.rand(legal.shape, generator=gen, device=cuda)
+            a = torch.argmax(torch.where(legal, g, -1.0), -1).to(torch.int32)
+            if not plain:
+                st = rules.step_key(st, a, gen, cfg)
+                continue
+            dice = rules.roll_dice(gen, MIXED)
+            u_card = torch.rand((MIXED,), generator=gen, device=cuda)
+            st = rules._step_plain(st, a, dice, cfg, u_card)
+        return st
+
+    kernels.reset_counts()
+    got = play(False)
+    counts = kernels.counts()
+    assert counts["rules_step"] == counts["state_views"] == 400
+    ref = play(True)
+    _assert_states_equal(got, ref)
+    assert int(ref.card_sets_played.sum()) > 0
+
+
+# --------------------------------------- the flagship's paths at full width
+
+FLAGSHIP = Path(__file__).resolve().parent.parent / "artifacts" / \
+    "params-20block-r4-best.npz"
+# the training path: depth cut, width kept
+TRAIN = dict(mcts_simulations=8, train_iteration_games=64, epochs=2,
+             batch_size=512, compare_games=16, arena_early_stop_min_games=8,
+             benchmark_games_random=2, benchmark_games_script=4,
+             max_game_steps=640, actor_chunk_steps=64,
+             use_dirichlet_noise=True)
+# the supervised bootstrap: TRAIN's cuts, the reference's train-data mix
+# cut from 5,000 + 5,000 to 128 + 128 games, a step cap every scripted game
+# ends within
+DATA = dict(TRAIN, data_games_ss=128, data_games_sr=128,
+            env_batch_per_device=128, actor_chunk_steps=128,
+            max_game_steps=2048)
+# the lockstep batches of the paths below 64 games: the play slice, the
+# arena and the two benchmark matches
+PATH_BATCHES = [32, 16, 4, 2]
+
+
+@pytest.fixture(scope="module")
+def flagship():
+    """The flagship 20x256 network on the card, and its play config: the
+    int8 fast path, 32 simulations."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from alphazero_risk_tpu_torch.training.checkpoints import load_params_npz
+    cfg = Config(mcts_simulations=32, fast_infer=True, fast_infer_int8=True)
+    return cfg, load_params_npz(str(FLAGSHIP), cfg, device="cuda")
+
+
+def test_flagship_fast_paths_agree_with_the_plain_network(flagship,
+                                                          tmp_path):
+    """The flagship's bf16 and int8 folds against the plain network on 256
+    played states, within the fast path's agreement bounds
+    (``tests/test_fast_infer.py``): top-1 moves, values and logits."""
+    cfg, net = flagship
+    cuda = torch.device("cuda")
+    t = Trainer(_with_dirs(cfg, tmp_path), seed=0, device=cuda)
+    t.net = net
+    states = random_play_states(1024, 100, torch.Generator(
+        device=cuda).manual_seed(1), cfg, cuda)
+    x = featurize(states, cfg)[:256]
+    with torch.no_grad():
+        ref_l, ref_v = t.net(x)
+        l16, v16 = FI.apply_folded(FI.fold_params(t.net, cfg), x)
+        l8, v8 = FI.apply_folded(t.folded(), x, int8=True)
+    for y in (ref_l, ref_v, l16, v16, l8, v8):
+        assert bool(torch.isfinite(y).all())
+    top = ref_l.argmax(-1)
+    assert float((l16.argmax(-1) == top).float().mean()) >= 0.9
+    assert float((l8.argmax(-1) == top).float().mean()) >= 0.85
+    assert float((v8 - ref_v).abs().mean()) < 0.1
+    assert float(np.corrcoef(l8.cpu().numpy().ravel(),
+                             ref_l.cpu().numpy().ravel())[0, 1]) > 0.99
+
+
+def test_calibrate_trunk_on_k4_matches_plain(flagship, tmp_path,
+                                             monkeypatch):
+    """``calibrate_trunk`` of the flagship's fold on K4 at the 512
+    calibration features: every conv within 1e-5 of its largest output of
+    the plain conv on that conv's own inputs, and the activation scales
+    against those of ``calibrate_trunk`` on the plain version from the
+    same features.  Each conv's f32 sums differ from the plain ones in the
+    last bits, so a bf16 input of a later conv can round to the other
+    neighbour (2^-8 relative), which grows with depth (1.7e-3 on the
+    flagship): 1e-2 overall; block 0 reads the stem's output alone: 1e-4
+    there.  A wrong tile moves a largest activation by far more."""
+    cfg, net = flagship
+    cuda = torch.device("cuda")
+    t = Trainer(_with_dirs(cfg, tmp_path), seed=0, device=cuda)
+    t.net = net
+    folded = t.folded()
+    calib = FI.default_calib_feats(
+        cfg, torch.Generator(device=cuda).manual_seed(17), device=cuda)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    kernel, held = FI.conv3x3_bf16, []
+
+    def on_k4(x, w, bias, residual=None, want_f32=True, want_bf16=False,
+              inv_s_next=None, out=None, out_q=None):
+        got, got_bf, _ = kernel(x, w, bias, residual, want_bf16=want_bf16)
+        ref = FI._conv3x3_bf16_plain(x, w, bias, residual)
+        assert float((got - ref).abs().max()) <= 1e-5 * float(
+            ref.abs().max())
+        held.append(x.shape[-1])
+        return (got if want_f32 else None), got_bf, None
+
+    def plain(x, w, bias, residual=None, want_f32=True, want_bf16=False,
+              inv_s_next=None, out=None, out_q=None):
+        v = FI._conv3x3_bf16_plain(x, w, bias, residual)
+        return (v if want_f32 else None,
+                v.to(torch.bfloat16) if want_bf16 else None, None)
+
+    monkeypatch.setattr(FI, "conv3x3_bf16", on_k4)
+    got = FI.calibrate_trunk(folded, calib)["act_s"]
+    monkeypatch.setattr(FI, "conv3x3_bf16", plain)
+    ref = FI.calibrate_trunk(folded, calib)["act_s"]
+    assert len(held) == 1 + 2 * cfg.blocks
+    assert bool(torch.isfinite(got).all())
+    per_block = ((got - ref).abs() / ref).amax(dim=1)
+    assert float(per_block[0]) <= 1e-4
+    assert float(per_block.max()) <= 1e-2
+
+
+@pytest.fixture(scope="module")
+def flagship_path(flagship, tmp_path_factory):
+    """The flagship's main path on the card: its int8 fold and evaluation,
+    1,024 states of random play and their features and legal moves, the
+    trees one search of the first 64 leaves at the play config's 32
+    simulations (N = 34) and at TRAIN's 8 (N = 10), the features and
+    legal moves of the 32-simulation search's last leaves, and the 512
+    calibration features."""
+    import types
+    cfg, net = flagship
+    cuda = torch.device("cuda")
+    t = Trainer(_with_dirs(cfg, tmp_path_factory.mktemp("flagship")),
+                seed=0, device=cuda)
+    t.net = net
+    folded, efn = t.folded(), t._eval_fn()
+    states = random_play_states(1024, 100, torch.Generator(
+        device=cuda).manual_seed(1), cfg, cuda)
+    root = tree_map(lambda x: x[:64].contiguous(), states)
+    trees = {}
+    with torch.no_grad():
+        for sims in (TRAIN["mcts_simulations"], cfg.mcts_simulations):
+            c = cfg.replace(mcts_simulations=sims)
+            gum = S.draw_gumbel(torch.Generator(device=cuda).manual_seed(8),
+                                c, 64, cuda)
+            trees[c.num_nodes] = S.search(root, gum, c, efn).tree
+    tree = trees[cfg.num_nodes]
+    leaves = tree_map(lambda x: x[torch.arange(64, device=cuda),
+                                  (tree.next_free - 1).long()], tree.states)
+    return types.SimpleNamespace(
+        cfg=cfg, folded=folded, eval_fn=efn, states=states, root=root,
+        trees=trees, leaf=(featurize(leaves, cfg),
+                           rules.legal_actions(leaves, cfg)),
+        played=(featurize(states, cfg), rules.legal_actions(states, cfg)),
+        calib=FI.default_calib_feats(cfg, torch.Generator(
+            device=cuda).manual_seed(17), device=cuda))
+
+
+def _assert_k1_matches_plain(folded, feats):
+    """K1 in block 0 of ``folded``'s int8 trunk on the stem's codes of
+    ``feats``: conv_a (int8 out) and conv_b on conv_a's plain codes (the
+    residual; f32 and int8 out), against the plain conv and epilogue:
+    int32 accumulators exact, h within 1e-6, the int8 codes within one (a
+    rint tie)."""
+    h = FI._stem(folded, feats)[0].contiguous()
+    act_s, wq, ws, b = (folded["act_s"], folded["trunk_wqk"],
+                        folded["trunk_ws"], folded["trunk_b"])
+    inv = 1.0 / act_s
+    q = FI._quantize(h, inv[0, 0])
+    _, qa, acc_a = FI.conv3x3_i8(q, wq[0, 0], ws[0, 0], b[0, 0], act_s[0, 0],
+                                 inv_s_next=inv[0, 1], want_h=False,
+                                 want_acc=True)
+    ref_acc_a = FI._conv_i8_plain(q, wq[0, 0])
+    _, ref_qa = FI._epilogue_plain(ref_acc_a, ws[0, 0], b[0, 0], act_s[0, 0],
+                                   None, inv[0, 1])
+    hb, qb, acc_b = FI.conv3x3_i8(ref_qa, wq[0, 1], ws[0, 1], b[0, 1],
+                                  act_s[0, 1], residual=h,
+                                  inv_s_next=inv[1, 0], want_acc=True)
+    ref_acc_b = FI._conv_i8_plain(ref_qa, wq[0, 1])
+    ref_hb, ref_qb = FI._epilogue_plain(ref_acc_b, ws[0, 1], b[0, 1],
+                                        act_s[0, 1], h, inv[1, 0])
+    assert torch.equal(acc_a, ref_acc_a) and torch.equal(acc_b, ref_acc_b)
+    torch.testing.assert_close(hb, ref_hb, rtol=1e-6, atol=1e-6)
+    for got, ref in ((qa, ref_qa), (qb, ref_qb)):
+        assert int((got.int() - ref.int()).abs().max()) <= 1
+
+
+def _assert_k4_matches_plain(folded, feats):
+    """K4 on ``feats`` in the three forms the paths launch: the stem (f32
+    in and out, and its int8 trunk input code for code ``_quantize`` of
+    its f32 output), block 0's conv_a (bf16 in and out) and conv_b (the
+    residual; f32 and bf16 out); f32 within 1e-5 of the largest output of
+    the plain conv in full float32, bf16 the f32 rounded."""
+    w, b = folded["trunk_w"], folded["trunk_b"]
+    h = FI._conv3x3_bf16_plain(feats, folded["stem_w"], folded["stem_b"])
+    y = FI._conv3x3_bf16_plain(h, w[0, 0], b[0, 0])
+    stem = (feats, folded["stem_w"], folded["stem_b"], None)
+    for args in (stem, (h.to(torch.bfloat16), w[0, 0], b[0, 0], None),
+                 (y.to(torch.bfloat16), w[0, 1], b[0, 1], h)):
+        full, got_bf, _ = FI.conv3x3_bf16(*args, want_bf16=True)
+        ref = FI._conv3x3_bf16_plain(*args)
+        assert float((full - ref).abs().max()) <= 1e-5 * float(
+            ref.abs().max())
+        assert torch.equal(got_bf, full.to(torch.bfloat16))
+    inv = 1.0 / folded["act_s"][0, 0]
+    full = FI.conv3x3_bf16(*stem)[0]
+    _, _, q = FI.conv3x3_bf16(*stem, want_f32=False, inv_s_next=inv)
+    assert torch.equal(q, FI._quantize(full, inv))
+
+
+@pytest.mark.parametrize("batch", [2, 4, 16, 32, 64, 128, 512, 1024, 4096])
+def test_flagship_network_kernels_match_plain(flagship_path, monkeypatch,
+                                              batch):
+    """K1, K4 and K5 on the flagship's int8 fold against their plain
+    versions, on what the paths feed them: the last leaves of the
+    32-simulation search (64 games, and the first 32, 16, 4, 2), the
+    played states (the first 128, 512, 1,024, and four times them:
+    self-play's 4,096) and at 512 also the calibration features.  K5 on
+    the int8 trunk's output with the legal moves."""
+    fp = flagship_path
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    if batch <= 64:
+        sets = [tuple(x[:batch].contiguous() for x in fp.leaf)]
+    else:
+        reps = -(-batch // 1024)
+        sets = [tuple(x.repeat(reps, *(1,) * (x.dim() - 1))[:batch]
+                      .contiguous() for x in fp.played)]
+    if batch == 512:
+        sets.append((fp.calib, None))
+    with torch.no_grad():
+        for feats, legal in sets:
+            _assert_k1_matches_plain(fp.folded, feats)
+            _assert_k4_matches_plain(fp.folded, feats)
+            if legal is None:
+                continue
+            h = FI._trunk_out(fp.folded, feats, True).clone()
+            _assert_heads_match(FI.heads_eval(fp.folded, h, legal),
+                                FI._heads_eval_plain(fp.folded, h, legal),
+                                legal)
+
+
+def _hold_search_kernels(tree, gum, root, cfg, eval_fn):
+    """K2, K3, K6 and K7's expand against their plain versions on
+    ``tree`` with one simulation's noise ``gum``: the descent, the backup
+    of its paths, the expansion's child, status and legality, the node
+    write of that simulation (and with its children's status drawn from
+    running, draw and either winner), and the root write of a fresh tree
+    over ``root``.  Leaves ``tree`` as it was."""
+    path = _assert_descent_matches_plain(tree, gum, cfg)
+    _assert_backup_matches_plain(tree, path)
+    args = (tree.states, path.exp_n, path.exp_a, path.exp_o, cfg)
+    got, ref = rules.expand(*args), rules._expand_plain(*args)
+    _assert_states_equal(got[0], ref[0])
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+    ins = S.expansion_inputs(tree, path, cfg, eval_fn)
+    b, dev = tree.player.shape[0], tree.player.device
+    status = torch.tensor([-1, -2, 0, 1], dtype=torch.int32, device=dev)[
+        torch.randint(0, 4, (b,), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(b))]
+    for write in (ins, (ins[0], status, *ins[2:])):
+        kt, pt = clone_tree(tree), clone_tree(tree)
+        lv, lp = S.write_nodes(kt, *write, path)
+        rv, rp = S._write_nodes_plain(pt, *write, path)
+        assert torch.equal(lv, rv) and torch.equal(lp, rp)
+        _assert_trees_equal(kt, pt)
+    rins = S.root_inputs(root, cfg, eval_fn)
+    kt, pt = S._empty_tree(root, cfg), S._empty_tree(root, cfg)
+    S.write_nodes(kt, *rins)
+    S._write_nodes_plain(pt, *rins, None)
+    _assert_trees_equal(kt, pt)
+
+
+def _first_games(st, n):
+    return tree_map(lambda x: x[:n].contiguous(), st)
+
+
+@pytest.mark.parametrize("n_nodes", [10, 34])
+def test_flagship_search_kernels_match_plain(flagship_path, n_nodes):
+    """K2, K3, K6 and K7's expand against their plain versions on the
+    trees one search with the flagship's int8 evaluation leaves over 64
+    played games (N = 34: the play path's 32 simulations; N = 10: the
+    training path's 8), at 64 games, at the batches the paths launch, at
+    one game and at 33; on the 32-simulation tree also K2 and K3 on the
+    tree rewritten into ties."""
+    fp = flagship_path
+    tree = fp.trees[n_nodes]
+    cfg = fp.cfg.replace(mcts_simulations=n_nodes - 2)
+    gum = S.draw_gumbel(torch.Generator(device="cuda").manual_seed(6), cfg,
+                        64, "cuda")[0]
+    with torch.no_grad():
+        for b in [64] + PATH_BATCHES + [1, 33]:
+            _hold_search_kernels(_games(tree, b), gum[:, :b].contiguous(),
+                                 _first_games(fp.root, b), cfg, fp.eval_fn)
+        if n_nodes != fp.cfg.num_nodes:
+            return
+        for case in TIE_CASES:
+            tied = tie_tree(tree, case)
+            _assert_backup_matches_plain(
+                tied, _assert_descent_matches_plain(tied, gum, cfg))
+
+
+@pytest.mark.parametrize("sims", [8, 32])
+def test_flagship_search_kernels_on_rerooted_trees_match_plain(
+        flagship_path, sims):
+    """One search under tree reuse at ``sims`` simulations (N = 2 S + 2)
+    with the flagship's int8 evaluation on 64 played games, the argmax
+    moves played and each tree rerooted through its played edge: K2, K3,
+    K6 and K7's expand against their plain versions on the tree
+    ``search_with_reuse`` starts from (at 64 games and the batches the
+    paths launch) and on the tree it leaves."""
+    fp = flagship_path
+    cuda = torch.device("cuda")
+    cfg = fp.cfg.replace(mcts_simulations=sims, tree_reuse=True)
+    gen = torch.Generator(device=cuda).manual_seed(sims)
+    with torch.no_grad():
+        res = S.search(fp.root, S.draw_gumbel(gen, cfg, 64, cuda), cfg,
+                       fp.eval_fn)
+        action = S.pick_move(res, fp.root, cfg, False)
+        dice = rules.roll_dice(gen, 64)
+        nxt = rules.step(fp.root, action, dice, cfg)
+        tree, reused = S.reroot(res.tree, action,
+                                A.realised_outcome(fp.root, action, dice),
+                                cfg)
+        same = reused & S.carried_roots_match(tree, nxt)
+        assert bool(same.any())
+        start = S._select_tree(same, tree, S.init_tree(nxt, cfg, fp.eval_fn))
+        after = S.search_with_reuse(nxt, S.draw_gumbel(gen, cfg, 64, cuda),
+                                    cfg, fp.eval_fn, tree, reused).tree
+        gum = S.draw_gumbel(torch.Generator(device=cuda).manual_seed(
+            sims + 1), cfg, 64, cuda)[0]
+        for b in [64] + PATH_BATCHES:
+            _hold_search_kernels(_games(start, b), gum[:, :b].contiguous(),
+                                 _first_games(nxt, b), cfg, fp.eval_fn)
+        _hold_search_kernels(after, gum, nxt, cfg, fp.eval_fn)
+
+
+@pytest.mark.parametrize("mode", ["int8", "tree_reuse", "bf16"])
+def test_flagship_plays_the_script_player(flagship, tmp_path, monkeypatch,
+                                          mode):
+    """``Trainer.play`` of 32 mirrored games against the ScriptPlayer with
+    the flagship at 32 simulations: on the int8 fast path and under tree
+    reuse to the end, every game finished and every kernel but the
+    agents' single steps launched (the ScriptPlayer only fast-forwards: the
+    multi-step entry once a block, a sample of its launches equal to the
+    plain multi-step function); under reuse some searches continue a
+    carried tree.  On the bf16 fast path three chunks of 8 steps."""
+    from alphazero_risk_tpu_torch.mcts import search as S
+    cfg, net = flagship
+    over = {"int8": {}, "tree_reuse": {"tree_reuse": True},
+            "bf16": {"fast_infer_int8": False, "actor_chunk_steps": 8,
+                     "max_game_steps": 24}}[mode]
+    t = Trainer(_with_dirs(cfg.replace(**over), tmp_path), seed=0,
+                device="cuda")
+    t.net = net
+    t.folded()
+    carried, select = [], S._select_tree
+
+    def counted(pred, a, b):
+        carried.append(pred.sum())
+        return select(pred, a, b)
+
+    monkeypatch.setattr(S, "_select_tree", counted)
+    w = _watch_blocks(monkeypatch, keep=24, every=12)
+    kernels.reset_counts()
+    res = t.play(A.OPP_SCRIPT, 32)
+    counts = kernels.counts()
+    monkeypatch.undo()
+    assert res["games"] == 32
+    if mode == "bf16":
+        return
+    assert res["unfinished"] == 0
+    for k in kernels.ALL:
+        if k not in (kernels.RANDOM_STEP, kernels.SCRIPT_STEP):
+            assert counts[k.name] > 0, k.name
+    assert counts["agent_steps"] == w["blocks"]
+    _hold_agent_steps(w["calls"])
+    assert (int(sum(carried)) > 0) == (mode == "tree_reuse")
+
+
+@pytest.mark.parametrize("ring", [False, True])
+def test_flagship_train_iteration(flagship, tmp_path, monkeypatch, ring):
+    """One ``Trainer.train`` iteration from the flagship's weights at full
+    width (``TRAIN``'s cuts): self-play of 64 games with records, the
+    learner's epochs at batch 512, the gate and the benchmark; on the host
+    buffer, or on the device ring under tree reuse (the ring after
+    self-play equal to a host buffer fed the same records, then
+    ``cross_validate`` over the replay file).  The replay holds every
+    valid record and nothing else; the losses are finite and the policy
+    loss falls; every conv and running statistic moved; the launches are
+    those the searches and folds imply, and no single step launched;
+    ``latest`` reloaded into a fresh trainer folds to the same int8
+    evaluation with its step count, and the replay file reads back
+    equal."""
+    import json
+    from alphazero_risk_tpu_torch.training.analysis import cross_validate
+    from alphazero_risk_tpu_torch.training.device_replay import DeviceReplay
+    from alphazero_risk_tpu_torch.training.replay import FIELDS, ReplayBuffer
+    fcfg, net = flagship
+    cuda = torch.device("cuda")
+    cfg = _with_dirs(fcfg.replace(**TRAIN, device_replay=ring,
+                                  tree_reuse=ring), tmp_path)
+    t = Trainer(cfg, seed=3, device=cuda)
+    t.load_weights(net)
+    t.folded()
+    assert isinstance(t.replay, DeviceReplay) == ring
+    stats0 = {k: v.clone() for k, v in t.train_state.net.state_dict().items()}
+    mirror = ReplayBuffer(cfg)
+    seen = {"valid": 0, "added": 0}
+    trained, verdicts = {}, []
+    extend, selfplay = t.replay.extend_from_actor, t.generate_selfplay
+    epochs, gate = t.train_epochs, t.gate
+
+    def counted(samples, status, final_round=None):
+        n = extend(samples, status, final_round=final_round)
+        assert mirror.extend_from_actor(samples, status,
+                                        final_round=final_round) == n
+        seen["valid"] += int(samples.valid.sum())
+        seen["added"] += n
+        return n
+
+    def watched_selfplay(*a, **kw):
+        n = selfplay(*a, **kw)
+        got = t.replay.sample_arrays()
+        assert len(t.replay) == len(mirror) == n > 0
+        for k in FIELDS:
+            assert np.array_equal(got[k], mirror.data[k]), k
+            assert got[k].dtype == mirror.data[k].dtype, k
+        seen["selfplay"] = n
+        return n
+
+    def watched_epochs(*a, **kw):
+        out = epochs(*a, **kw)
+        trained.update({k: v.clone() for k, v in
+                        t.train_state.net.state_dict().items()})
+        return out
+
+    def watched_gate(*a, **kw):
+        verdicts.append(bool(gate(*a, **kw)))
+        return verdicts[-1]
+
+    monkeypatch.setattr(t.replay, "extend_from_actor", counted)
+    monkeypatch.setattr(t, "generate_selfplay", watched_selfplay)
+    monkeypatch.setattr(t, "train_epochs", watched_epochs)
+    monkeypatch.setattr(t, "gate", watched_gate)
+    s0 = dict(t.play_stats)
+    kernels.reset_counts()
+    t.train(iterations=1, resume=False)
+    accepted = verdicts == [True]
+    if not accepted:
+        # a rejected gate skips the benchmark: run it on the reverted
+        # weights
+        t.benchmark()
+    counts = kernels.counts()
+
+    with open(Path(cfg.log_dir) / "events.jsonl") as f:
+        events = [json.loads(line) for line in f]
+    sp = next(e for e in events if e["kind"] == "selfplay")
+    assert sp["games"] == cfg.train_iteration_games
+    assert 2 * sp["finished"] >= sp["games"]
+    arrays = t.replay.sample_arrays()
+    n = len(t.replay)
+    assert n == seen["added"] == seen["valid"] >= sp["samples"] > 0
+    assert bool((arrays["value"] > 0).any() and (arrays["value"] < 0).any())
+
+    ep = t.epoch_log
+    assert len(ep) == cfg.epochs
+    assert all(np.isfinite(e["pi_loss"]) and np.isfinite(e["v_loss"])
+               for e in ep)
+    assert ep[-1]["pi_loss"] < ep[0]["first_pi_loss"]
+    assert t.train_state.step == cfg.epochs * (seen["selfplay"]
+                                               // cfg.batch_size)
+    assert all(bool(torch.isfinite(v).all()) for v in trained.values())
+    moved = [k for k, v in trained.items() if "running" in k
+             and not torch.equal(v, stats0[k])]
+    assert len(moved) == 2 * (3 + 2 * cfg.blocks)
+    assert not any(torch.equal(v, stats0[k]) for k, v in trained.items()
+                   if k.endswith("conv.weight") or "conv_" in k)
+
+    st = {k: t.play_stats[k] - s0[k]
+          for k in ("steps", "paired_steps", "folds")}
+    want = expected_launches(st, cfg.mcts_simulations, cfg.blocks)
+    assert {k: counts[k] for k in want} == want
+    assert counts["script_step"] == counts["random_step"] == 0
+    assert all(counts[k.name] > 0 for k in kernels.ALL
+               if k not in (kernels.SCRIPT_STEP, kernels.RANDOM_STEP))
+
+    meta = t.ckpt.load_meta()
+    assert t.ckpt.exists("latest") and meta and meta["iteration"] == 1
+    assert t.ckpt.exists("best") == accepted
+    fresh = Trainer(cfg.replace(device_replay=False), seed=4, device=cuda)
+    fresh.train_state = fresh.ckpt.restore("latest", fresh.train_state)
+    assert fresh.train_state.step == t.train_state.step
+    x = featurize(new_game(64, generator=torch.Generator(device=cuda)
+                           .manual_seed(9), device=cuda), cfg)
+    la, va = FI.apply_folded(t._fold(t.train_state.net), x, int8=True)
+    lb, vb = FI.apply_folded(fresh._fold(fresh.train_state.net), x,
+                             int8=True)
+    assert torch.equal(la, lb) and torch.equal(va, vb)
+    assert bool(torch.isfinite(la).all())
+    back = ReplayBuffer(cfg)
+    assert back.load(t._replay_path()) and len(back) == n
+    for k in FIELDS:
+        assert np.array_equal(back.data[k], arrays[k]), k
+        assert back.data[k].dtype == arrays[k].dtype, k
+    if not ring:
+        return
+    report = cross_validate(cfg, t._replay_path(), folds=2, max_epochs=2,
+                            seed=0, device=cuda)
+    folds = report.get("folds", [])
+    assert len(folds) == 2
+    assert all(1 <= f["epochs"] <= 2 and np.isfinite(f["best_val"])
+               for f in folds)
+
+
+def test_flagship_train_on_data_iteration(flagship, tmp_path):
+    """One loop of ``Trainer.train_on_data`` from the flagship's weights at
+    full width (``DATA``'s cuts): every scripted game ends; the fresh
+    replay holds exactly the generation's valid records and the learner
+    takes three epochs of its batches; the gate reverts nothing; ``temp``,
+    ``latest`` and the meta are written; the losses are finite.  The
+    generation launches K9 once per lockstep step and K10 once per
+    Script-vs-Random step, K10's single step launches nowhere else, and
+    the searches launch what their steps and folds imply."""
+    fcfg, net = flagship
+    cfg = _with_dirs(fcfg.replace(**DATA), tmp_path)
+    t = Trainer(cfg, seed=5, device=torch.device("cuda"))
+    t.load_weights(net)
+    t.folded()
+    waves, seen, reverts = [], {}, []
+    gen_launches = {"script_step": 0, "random_step": 0}
+    real_call, real_epochs = t._scripted_call, t.train_epochs
+
+    def scripted_call(kinds):
+        call = real_call(kinds)
+
+        def run(state, carry, prev):
+            c0 = kernels.counts()
+            out = call(state, carry, prev)
+            for k in gen_launches:
+                gen_launches[k] += kernels.counts()[k] - c0[k]
+            if carry is None:
+                waves.append({"kinds": tuple(kinds), "steps": 0,
+                              "records": 0})
+            waves[-1]["steps"] += cfg.actor_chunk_steps
+            waves[-1]["records"] += int(out.samples.valid.sum())
+            waves[-1]["status"] = out.status
+            return out
+        return run
+
+    def epochs(*a, **kw):
+        seen["n"], seen["step0"] = len(t.replay), t.train_state.step
+        return real_epochs(*a, **kw)
+
+    t._scripted_call = scripted_call
+    t.train_epochs = epochs
+    t._revert = lambda: reverts.append(1)
+    s0 = dict(t.play_stats)
+    kernels.reset_counts()
+    t.train_on_data(loops=1)
+    counts = kernels.counts()
+
+    games = sum(int(w["status"].numel()) for w in waves)
+    assert games == cfg.data_games_ss + cfg.data_games_sr
+    assert all(bool((w["status"] != -1).all()) for w in waves)
+    records = sum(w["records"] for w in waves)
+    assert seen["n"] == records > 0
+    assert t.train_state.step - seen["step0"] == 3 * (records
+                                                      // cfg.batch_size)
+    steps = sum(w["steps"] for w in waves)
+    sr_steps = sum(w["steps"] for w in waves
+                   if w["kinds"][1] == A.OPP_RANDOM)
+    assert gen_launches == {"script_step": steps, "random_step": sr_steps}
+    assert counts["random_step"] == sr_steps
+    # the trainer counts the scripted chunks' lockstep steps too, which
+    # search nothing
+    st = {k: t.play_stats[k] - s0[k]
+          for k in ("steps", "paired_steps", "folds")}
+    st["steps"] -= steps
+    want = expected_launches(st, cfg.mcts_simulations, cfg.blocks)
+    assert {k: counts[k] for k in want} == want
+    assert not reverts
+    assert t.ckpt.exists("temp") and t.ckpt.exists("latest")
+    assert t.ckpt.load_meta()["iteration"] == 1
+    assert all(np.isfinite(e["pi_loss"]) and np.isfinite(e["v_loss"])
+               for e in t.epoch_log)
+
+
+def test_flagship_watch_az_against_the_script_player_matches_plain(
+        flagship, tmp_path, capsys, monkeypatch):
+    """The viewer (``watch_game_az``), AlphaZero with the plain 20x256
+    flagship restored from ``latest`` against the ScriptPlayer, at B=1 on
+    the card, 8 simulations, 90 micro-steps (through the setup into the
+    attack phase), once on the kernels and once under ``plain_versions``
+    from the same seed: the printed boards and ``pi`` lines equal line for
+    line, the launches those micro-steps imply (none under the plain
+    versions).  Every 30th search of the kernel run, with its root and the
+    ScriptPlayer's inputs of that step, then holds K2, K3, K6, K7 (step
+    and expand), K8, K9 and K10 against their plain versions at B=1."""
+    from alphazero_risk_tpu_torch.training.checkpoints import (
+        CheckpointManager)
+    from alphazero_risk_tpu_torch.training.learner import train_state_of
+    from alphazero_risk_tpu_torch.utils.watch import watch_game_az
+    cfg = flagship[0].replace(mcts_simulations=8)
+    CheckpointManager(cfg, str(tmp_path)).save(
+        "latest", train_state_of(copy.deepcopy(flagship[1]), cfg))
+    search, script = S.search, SA.script_step_recorded
+    captured, n = [], [0, 0]
+
+    def captured_search(root, gumbel, c, eval_fn, noise_u=None):
+        res = search(root, gumbel, c, eval_fn, noise_u=noise_u)
+        if n[0] % 30 == 0:
+            captured.append({"root": root, "gum": gumbel,
+                             "eval_fn": eval_fn, "tree": res.tree})
+        n[0] += 1
+        return res
+
+    def captured_script(st, carry, reset, u, dice, c):
+        if n[1] % 30 == 0:
+            captured[-1]["k9"] = (st, carry, reset, u, dice)
+        n[1] += 1
+        return script(st, carry, reset, u, dice, c)
+
+    def watch():
+        capsys.readouterr()
+        kernels.reset_counts()
+        watch_game_az("az", "sp", seed=0, cfg=cfg, ckpt_dir=str(tmp_path),
+                      roles=("latest", "best"), micro=True, pause=False,
+                      max_steps=90, device="cuda")
+        return capsys.readouterr().out, kernels.counts()
+
+    monkeypatch.setattr(S, "search", captured_search)
+    monkeypatch.setattr(SA, "script_step_recorded", captured_script)
+    text, counts = watch()
+    monkeypatch.undo()
+    with plain_versions():
+        plain, plain_counts = watch()
+    steps = text.count("[micro-step")
+    assert steps == 90 and "  ATTACK  " in text
+    assert text.splitlines() == plain.splitlines()
+    assert counts == watch_launches(steps, cfg.mcts_simulations, "sp")
+    assert not any(plain_counts.values())
+    assert len(captured) == 3
+    with torch.no_grad():
+        for i, c in enumerate(captured):
+            root, tree, gum = c["root"], c["tree"], c["gum"]
+            assert tree.player.shape[0] == 1
+            _hold_search_kernels(tree, gum[0], root, cfg, c["eval_fn"])
+            _assert_views_match_plain(root, cfg)
+            legal = rules._legal_actions_plain(root, cfg)
+            pick = torch.rand(legal.shape, device=legal.device,
+                              generator=torch.Generator(
+                                  device=legal.device).manual_seed(i))
+            action = torch.argmax(torch.where(legal, pick, -1.0), -1).to(
+                torch.int32)
+            st, carry, reset, u, dice = c["k9"]
+            outcome = dice[:, 0] % 3
+            _assert_states_equal(rules.step(root, action, dice, cfg),
+                                 rules._step_plain(root, action, dice, cfg))
+            _assert_states_equal(
+                rules.step_with_outcome(root, action, outcome, cfg),
+                rules._step_with_outcome_plain(root, action, outcome, cfg))
+            _assert_script_step_matches_plain(st, carry, reset, u, dice, cfg)
+            _assert_random_step_matches_plain(st, u, dice, cfg)
+
+
+def test_watch_game_az_against_az_launches_what_its_steps_imply(
+        flagship, tmp_path, capsys):
+    """The viewer with two AlphaZero seats (``watch_game_az``, ``latest``
+    against ``best`` through the paired eval, the plain 20x256 network at
+    B=1, 8 simulations) for 10 micro-steps on the card: each printed with
+    its ``pi`` line, and the launches those steps imply."""
+    from alphazero_risk_tpu_torch.training.checkpoints import (
+        CheckpointManager)
+    from alphazero_risk_tpu_torch.training.learner import train_state_of
+    from alphazero_risk_tpu_torch.utils.watch import watch_game_az
+    cfg, net = flagship
+    cfg = cfg.replace(mcts_simulations=8)
+    mgr = CheckpointManager(cfg, str(tmp_path))
+    for role in ("latest", "best"):
+        mgr.save(role, train_state_of(copy.deepcopy(net), cfg))
+    capsys.readouterr()
+    kernels.reset_counts()
+    watch_game_az("az", "az", seed=0, cfg=cfg, ckpt_dir=str(tmp_path),
+                  roles=("latest", "best"), micro=True, pause=False,
+                  max_steps=10, device="cuda")
+    counts = kernels.counts()
+    text = capsys.readouterr().out
+    steps = text.count("[micro-step")
+    assert steps == 10 and "pi: " in text
+    assert counts == watch_launches(steps, cfg.mcts_simulations, "az")
+
+
+def test_world_of_two_ranks_on_one_card_plays_and_trains_the_flagship(
+        flagship, tmp_path):
+    """A 2-rank gloo world, both ranks on ``cuda:0``, from the flagship's
+    weights: (a) ``play(OPP_SCRIPT)`` of 32 games at 32 simulations, each
+    rank's games its rows of one process's games from the same seed, bit
+    for bit, and the one-process tally on both ranks; (b) one
+    ``train`` iteration at ``TRAIN``'s cuts (then the benchmark, which a
+    rejected gate skips): the same losses every epoch and the same gate
+    verdict on both ranks, each rank's replay file written, the
+    checkpoints written by rank 0 alone."""
+    import torch_world as W
+    cfg = _with_dirs(flagship[0], tmp_path)
+    tcfg = cfg.replace(**TRAIN)
+    one = W.flagship_runs(0, _with_dirs(cfg, tmp_path / "one"), None,
+                          str(FLAGSHIP), 0, 32, device="cuda")
+    world = W.run_world(W.flagship_runs, 2, tmp_path, cfg, tcfg,
+                        str(FLAGSHIP), 0, 32, timeout=900, device="cuda")
+    assert W.world_equals_one(one, world, "play")
+    assert [r["play"]["result"] for r in world] == [one["play"]["result"]] * 2
+    assert one["play"]["result"]["unfinished"] == 0
+    for r in world:
+        for part in ("play", "train"):
+            assert all(r[part]["launches"][k.name] > 0 for k in kernels.ALL
+                       if k not in (kernels.SCRIPT_STEP, kernels.RANDOM_STEP))
+    trains = [r["train"] for r in world]
+    assert all(x["epochs"] == trains[0]["epochs"]
+               and x["verdicts"] == trains[0]["verdicts"] for x in trains)
+    assert len(trains[0]["epochs"]) == TRAIN["epochs"]
+    assert all(np.isfinite(e["pi_loss"]) for e in trains[0]["epochs"])
+    for rank, x in enumerate(trains):
+        assert x["replay"] == (f"training_samples.p{rank}.npz", True)
+        assert x["samples"] > 0
+    assert trains[0]["writes"] and not trains[1]["writes"]

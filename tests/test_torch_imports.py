@@ -9,7 +9,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "alphazero_risk_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "tests" / "torch_cases.py", ROOT / "tools" / "time_kernels.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "alphazero_risk_tpu")
 
 
@@ -172,27 +172,13 @@ def test_kernel_library_names_follow_their_headers(tmp_path, monkeypatch):
     assert kernels.MCTS_DESCEND.headers == ()
 
 
-def test_conv_ablation_parts_follow_the_header():
-    """``conv_ablation``'s part masks are those of ``enum Part`` in
-    ``conv_tc.cuh``, and each tensor-core conv exports the block-shape
-    query that ``fast_infer.conv_tile`` asks."""
-    import re
-    from alphazero_risk_tpu_torch import conv_ablation as CA
+def test_tensor_core_convs_export_the_tile_query():
+    """Each tensor-core conv exports the block-shape query that
+    ``fast_infer.conv_tile`` asks."""
     from alphazero_risk_tpu_torch import kernels
-    text = (kernels.CSRC / "conv_tc.cuh").read_text()
-    enum = text[text.index("enum Part"):]
-    enum = enum[:enum.index("};")]
-    assert dict(re.findall(r"k(\w+) = (\d+)", enum)) == {
-        "WeightCopy": str(CA.WEIGHT_COPY), "PlaneCopy": str(CA.PLANE_COPY),
-        "Ldmatrix": str(CA.LDMATRIX), "Wgmma": str(CA.WGMMA),
-        "Barrier": str(CA.BARRIER), "Fence": str(CA.FENCE)}
-    assert CA.VARIANTS["base"] == 0
     for k in (kernels.CONV3X3_I8, kernels.CONV3X3_BF16):
         assert f'extern "C" int {k.symbol}_boards(int B, int C' in \
             k.source.read_text()
-        v = CA.variant(k, CA.WGMMA)
-        assert v.flags == k.flags + ["-DAZ_CONV_ABLATE=8"]
-        assert v.library != k.library and k.flags[-1] != v.flags[-1]
 
 
 def test_rules_kernel_tables_follow_the_topology():

@@ -4,10 +4,10 @@ across a warp could pick another index than a sequential scan.
 
 On the card K2 takes its PUCT argmax and its attack source by butterflies
 over (value, index) pairs, and K8 builds its masks by ballots and OR and
-add reductions over the lanes; ``chip_smoke.py`` and
-``tests/test_torch_cuda.py`` hold both kernels bit for bit against the
-plain versions, on the same crafted trees (``chip_smoke.tie_tree``).  Here those plain versions are pinned to the JAX
-functions on crafted trees (every legal action tied, rows with no legal
+add reductions over the lanes; ``tests/test_torch_cuda.py`` holds both
+kernels bit for bit against the plain versions, on the same crafted trees
+(``torch_cases.tie_tree``).  Here those plain versions are pinned to the
+JAX functions on crafted trees (every legal action tied, rows with no legal
 action, attack sources with equal armies or none at all) and on ragged
 batches (1, 31, 33, 65 games) of every phase, feature versions 1-3 and a
 0/0 army share.
@@ -38,7 +38,7 @@ from alphazero_risk_tpu_torch.env import state as TS
 from alphazero_risk_tpu_torch.env.featurize import _featurize_plain
 from alphazero_risk_tpu_torch.mcts import search as TM
 
-from chip_smoke import TIE_CASES, tie_tree
+from torch_cases import TIE_CASES, tie_tree
 from test_torch_mcts import (_assert_tree_equals_jax, jax_eval, played_roots,
                              port_eval, search_gumbel, to_jax)
 

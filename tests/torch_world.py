@@ -262,3 +262,66 @@ def guards(rank, tmp):
     out["shared"] = sorted(os.listdir(os.path.join(tmp, "shared")))
     out["exists_shared"] = t.ckpt.exists("latest")
     return out
+
+
+def flagship_runs(rank, cfg, train_cfg, weights, seed, games, device="cpu"):
+    """From the network at ``weights`` (an npz), on the rank's device
+    (``device`` outside a world), fresh ``Trainer``s from ``seed``:
+    ``play(OPP_SCRIPT, games)`` under ``cfg``, and with ``train_cfg`` one
+    ``train`` iteration (then the benchmark, which a rejected gate
+    skips).  Returns the play's tally and waves, as ``trainer_runs`` does,
+    and of the iteration the epochs' losses, the gate's verdicts, the
+    checkpoint files this rank wrote, its replay file and rows; and each
+    part's kernel launches."""
+    from alphazero_risk_tpu_torch import kernels
+    from alphazero_risk_tpu_torch.parallel import distributed as D
+    from alphazero_risk_tpu_torch.training import actor as A
+    from alphazero_risk_tpu_torch.training import checkpoints as C
+    from alphazero_risk_tpu_torch.training.trainer import Trainer
+    device = D.device() or device
+    net = C.load_params_npz(weights, cfg, device=device)
+    t = Trainer(cfg.replace(log_dir=os.path.join(cfg.log_dir, str(rank))),
+                seed=seed, device=device)
+    t.net = net
+    waves = capture_waves(t)
+    kernels.reset_counts()
+    out = {"play": {"result": t.play(A.OPP_SCRIPT, games),
+                    "launches": kernels.counts(),
+                    "waves": [{k: _cpu(v) for k, v in w.items()}
+                              for w in waves]}}
+    if train_cfg is None:
+        return out
+    t = Trainer(train_cfg.replace(
+        log_dir=os.path.join(train_cfg.log_dir, str(rank))), seed=seed,
+        device=device)
+    t.load_weights(net)
+    verdicts, writes = [], []
+    gate, save = t.gate, C.torch.save
+
+    def recorded_gate(*a, **kw):
+        verdicts.append(bool(gate(*a, **kw)))
+        return verdicts[-1]
+
+    def recorded_save(obj, path):
+        writes.append(os.path.basename(str(path)))
+        save(obj, path)
+
+    t.gate = recorded_gate
+    C.torch.save = recorded_save
+    kernels.reset_counts()
+    try:
+        t.train(iterations=1, resume=False)
+        if not verdicts[-1]:
+            t.benchmark()
+    finally:
+        C.torch.save = save
+    path = t._replay_path()
+    out["train"] = {
+        "epochs": [{k: e[k] for k in ("epoch", "pi_loss", "v_loss",
+                                      "first_pi_loss")}
+                   for e in t.epoch_log],
+        "verdicts": verdicts, "writes": writes,
+        "launches": kernels.counts(),
+        "replay": (os.path.basename(path), os.path.exists(path)),
+        "samples": len(t.replay)}
+    return out
