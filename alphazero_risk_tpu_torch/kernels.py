@@ -134,7 +134,8 @@ class Kernel:
         self.launches += 1
 
 
-# The tensor-core convs K1 and K4 share csrc/conv_tc.cuh.
+# The tensor-core convs K1 and K4 (both of K4's designs) share
+# csrc/conv_tc.cuh.
 CONV_TC = ("conv_tc.cuh",)
 
 # q, packed w, ws, bias, s, residual, 1/s_next, h, q_next, acc, M, C; its
@@ -160,6 +161,13 @@ MCTS_BACKUP = Kernel(
 CONV3X3_BF16 = Kernel(
     "conv3x3_bf16", "conv_bf16.cu", "az_conv3x3_bf16",
     [P] * 8 + [I] * 4, fmad=True, headers=CONV_TC)
+
+# K4's stem design for batches that fill the card (fast_infer.stem_wide):
+# x (f32), w, bias, 1/s of the int8 output, out f32, out bf16, out int8, M,
+# Cin, Cout
+STEM_BF16 = Kernel(
+    "stem_bf16", "stem_bf16.cu", "az_stem_bf16",
+    [P] * 7 + [I] * 3, fmad=True, headers=CONV_TC)
 
 # h, the packed head weights, legal, probs, value, logits, B, C, V
 HEADS_EVAL = Kernel(
@@ -215,7 +223,7 @@ AGENT_STEPS = Kernel(
 
 ALL = (CONV3X3_I8, MCTS_DESCEND, MCTS_BACKUP, CONV3X3_BF16, HEADS_EVAL,
        TREE_WRITE, RULES_STEP, STATE_VIEWS, SCRIPT_STEP, RANDOM_STEP,
-       AGENT_STEPS)
+       AGENT_STEPS, STEM_BF16)
 
 
 def build_all() -> None:

@@ -24,6 +24,8 @@ ReLU fused.  K4 writes its output as f32, as bf16 (the next conv's input,
 which JAX rounds to bf16), as int8 codes at a given scale, or several of
 them, so the bf16 trunk hands bf16 from conv to conv, and the stem hands
 the int8 trunk its first input as K1 hands each conv the next one's.  The
+stem at batches that fill the card takes K4's stem design
+(``csrc/stem_bf16.cu``, ``stem_wide``) in place of its tiled one.  The
 heads and the legal-masked softmax run on kernel K5
 (``csrc/heads_softmax.cu``, ``heads_eval``), in float32, on the ten head
 tensors packed once at fold time into one buffer (``pack_heads``,
@@ -240,6 +242,24 @@ def k1_wide(boards: int, cout: int, device: torch.device) -> bool:
                                              cout))
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def stem_wide(boards: int, cin: int, cout: int,
+              device: torch.device) -> bool:
+    """Whether ``conv3x3_bf16`` runs a launch over ``boards`` boards with
+    ``cin`` input and ``cout`` output channels on ``device`` in K4's stem
+    design (``csrc/stem_bf16.cu``: whole-Cout tiles on persistent blocks,
+    the weight resident in shared memory), given an f32 input and no
+    residual: Cin <= 16, Cout = 256 and a tile of 64 rows for every SM of
+    the card, K1's rule for its wide design (B >= 200 on an H100).  False
+    off the card, where the plain version runs."""
+    return (device.type == "cuda" and cin <= 16 and cout == 256
+            and -(-boards * BOARD // 64) >= _sm_count(device.index))
+
+
 def _conv_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """3x3 SAME conv, NHWC f32 x HWIO bf16 -> NHWC f32, on bf16-rounded
     inputs with float32 accumulation."""
@@ -276,7 +296,8 @@ def conv3x3_bf16(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     ``out``) and q in place of new tensors.
 
     CPU tensors take the plain PyTorch version; CUDA tensors launch the
-    kernel (no fallback).
+    kernel (no fallback): the stem's design where ``stem_wide`` says so
+    for an f32 x without a residual, else the tiled one.
     """
     want_f32 = want_f32 or out is not None
     if not (want_f32 or want_bf16 or inv_s_next is not None):
@@ -324,12 +345,19 @@ def conv3x3_bf16(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
             else None)
     if inv_s_next is not None and out_q is None:
         out_q = torch.empty(shape, dtype=I8, device=x.device)
-    kernels.require_aligned(x, w, *(t for t in (out, out_q)
+    # the stem's design stores its outputs by TMA, from 16-byte bases
+    kernels.require_aligned(x, w, *(t for t in (out, outb, out_q)
                                     if t is not None))
     P = kernels.ptr
-    kernels.CONV3X3_BF16.launch(P(x), P(w), P(bias), P(residual),
-                                P(inv_s_next), P(out), P(outb), P(out_q),
-                                b * BOARD, cin, cout, int(x.dtype == BF16))
+    if x.dtype == F32 and residual is None and stem_wide(b, cin, cout,
+                                                         x.device):
+        kernels.STEM_BF16.launch(P(x), P(w), P(bias), P(inv_s_next), P(out),
+                                 P(outb), P(out_q), b * BOARD, cin, cout)
+    else:
+        kernels.CONV3X3_BF16.launch(P(x), P(w), P(bias), P(residual),
+                                    P(inv_s_next), P(out), P(outb),
+                                    P(out_q), b * BOARD, cin, cout,
+                                    int(x.dtype == BF16))
     return out, outb, out_q
 
 

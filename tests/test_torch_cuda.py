@@ -424,10 +424,12 @@ def test_play_launches_every_kernel(cuda):
     res = trainer.play(A.OPP_SCRIPT, 4)
     assert res["unfinished"] == 0
     # every kernel but the RandomPlayer's and K9's single step: the
-    # ScriptPlayer fast-forwards through K9's multi-step entry
+    # ScriptPlayer fast-forwards through K9's multi-step entry; and K4's
+    # stem design, which takes no stem of 64 channels
     counts = kernels.counts()
     assert counts.pop("random_step") == 0
     assert counts.pop("script_step") == 0
+    assert counts.pop("stem_bf16") == 0
     assert all(n > 0 for n in counts.values()), counts
 
 
@@ -437,7 +439,9 @@ def test_play_launches_every_kernel(cuda):
 def test_conv3x3_bf16_matches_plain(cuda, batch, cin, cout):
     """K4 against its plain version with f32 and bf16 inputs (bf16 only
     where Cin % 8 == 0), with and without the residual, on every output
-    combination: the f32 output within 1e-5 of the largest output (bf16 x
+    combination (the f32 stem to 256 channels without the residual at 512
+    and 1,024 in K4's stem design, ``stem_wide``): the f32 output within
+    1e-5 of the largest output (bf16 x
     bf16 products are exact in float32: only the order of the float32 sums
     differs), the bf16 output equal to ``.to(bfloat16)`` of the f32 one."""
     g = torch.Generator(device=cuda).manual_seed(batch * cin + cout)
@@ -477,9 +481,10 @@ def test_conv3x3_bf16_int8_output_matches_quantize(cuda, batch, cin):
     epilogue) against ``_quantize`` of its own f32 output, code for code:
     both round the same f32 product half to even, so any difference is a
     defect.  Either template (3 or 6 boards a block, as the batch
-    chooses), f32 and bf16 inputs, with and without the residual, alone or
-    beside the f32 and bf16 outputs, into destination tensors or new
-    ones."""
+    chooses) and, for the f32 stem without the residual at 1,024 and
+    4,096, K4's stem design; f32 and bf16 inputs, with and without the
+    residual, alone or beside the f32 and bf16 outputs, into destination
+    tensors or new ones."""
     g = torch.Generator(device=cuda).manual_seed(batch + cin)
     cout = 256
     x = torch.randn((batch, 7, 6, cin), generator=g, device=cuda)
@@ -510,6 +515,65 @@ def test_conv3x3_bf16_int8_output_matches_quantize(cuda, batch, cin):
             assert torch.equal(hb, full.to(torch.bfloat16))
 
 
+# K4's stem at either side of the batch from which its stem design takes
+# the launch (200 on an H100's 132 SMs), and at the cells' batches
+STEM_BATCHES = [199, 200, 201, 1024, 4096]
+
+
+@pytest.mark.parametrize("form", ["f32_int8_into", "f32_bf16", "f32"])
+@pytest.mark.parametrize("batch", STEM_BATCHES)
+def test_stem_matches_plain_on_either_design(cuda, batch, form):
+    """K4's stem (13 -> 256 channels, f32 in, no residual) against its
+    plain version in the forms the paths launch: f32 and int8 out into the
+    caller's buffers (the trunk graph's inputs), f32 and bf16 out (the
+    bf16 trunk and calibration), f32 alone.  One launch, of K4's stem
+    design where a tile of 64 rows falls to every SM (``stem_wide``), else
+    of its tiled design.  h within 1e-5 of the largest output (as K4's
+    other tests), the bf16 output h rounded, the int8 codes ``_quantize``
+    of h code for code and within one code of the plain output's (a sum
+    in another order can cross a rounding tie); the board past the batch
+    in the caller's buffers is not written."""
+    g = torch.Generator(device=cuda).manual_seed(batch)
+    x = torch.randn((batch, 7, 6, 13), generator=g, device=cuda)
+    w = (torch.randn((3, 3, 13, 256), generator=g, device=cuda)
+         / (9 * 13) ** 0.5).to(torch.bfloat16)
+    b = torch.randn(256, generator=g, device=cuda)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False    # the reference in full f32
+    try:
+        ref = FI._conv3x3_bf16_plain(x, w, b)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    # a scale that clips the largest outputs to 127
+    inv = (150.0 / ref.max()).reshape(())
+    wide = FI.stem_wide(batch, 13, 256, cuda)
+    assert wide == (-(-batch * 42 // 64) >= _sms(cuda))
+    hbuf = torch.full((batch + 1, 7, 6, 256), float("nan"), device=cuda)
+    qbuf = torch.full((batch + 1, 7, 6, 256), 99, dtype=torch.int8,
+                      device=cuda)
+    kw = {"f32_int8_into": dict(inv_s_next=inv, out=hbuf[:batch],
+                                out_q=qbuf[:batch]),
+          "f32_bf16": dict(want_bf16=True), "f32": {}}[form]
+    n0 = kernels.STEM_BF16.launches, kernels.CONV3X3_BF16.launches
+    h, hb, q = FI.conv3x3_bf16(x, w, b, **kw)
+    torch.cuda.synchronize()
+    assert (kernels.STEM_BF16.launches - n0[0],
+            kernels.CONV3X3_BF16.launches - n0[1]) == (
+                (1, 0) if wide else (0, 1))
+    assert float((h - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert (hb is None) == (form != "f32_bf16")
+    if hb is not None:
+        assert torch.equal(hb, h.to(torch.bfloat16))
+    assert (q is None) == (form != "f32_int8_into")
+    if q is not None:
+        assert h is kw["out"] and q is kw["out_q"]
+        assert torch.equal(q, FI._quantize(h, inv))
+        assert int((q.int() - FI._quantize(ref, inv).int()).abs().max()) <= 1
+        assert int(q.max()) == 127
+        assert bool(hbuf[batch].isnan().all())
+        assert bool((qbuf[batch] == 99).all())
+
+
 def _int8_fold(dev, blocks=2, seed=0):
     """A calibrated int8 fold of a random ``blocks`` x 256 net."""
     from alphazero_risk_tpu_torch.models.resnet import build_network
@@ -534,9 +598,9 @@ def test_trunk_replay_matches_eager(cuda, batch):
     wide design (1,024): the first evaluation (eager, then the capture),
     two successive inputs replayed, the first again, and after a re-fold
     (new scales: new graphs) while the old fold's graph still replays.
-    Each evaluation counts 2 x blocks K1 launches and one K4 launch; the
-    stem's int8 output in the graph's input is ``_quantize`` of its f32
-    one."""
+    Each evaluation counts 2 x blocks K1 launches and one K4 launch (in
+    K4's stem design at 1,024); the stem's int8 output in the graph's
+    input is ``_quantize`` of its f32 one."""
     blocks = 2
     folded = _int8_fold(cuda, blocks)
     gen = torch.Generator(device=cuda).manual_seed(batch)
@@ -544,11 +608,14 @@ def test_trunk_replay_matches_eager(cuda, batch):
           for _ in range(2)]
     refs = [_eager_trunk_out(folded, x) for x in xs]
 
+    stem = (kernels.STEM_BF16 if FI.stem_wide(batch, 13, 256, cuda)
+            else kernels.CONV3X3_BF16)
+
     def evaluate(f, x):
-        k1, k4 = kernels.CONV3X3_I8.launches, kernels.CONV3X3_BF16.launches
+        k1, k4 = kernels.CONV3X3_I8.launches, stem.launches
         out = FI._trunk_out(f, x, True).clone()
         assert kernels.CONV3X3_I8.launches - k1 == 2 * blocks
-        assert kernels.CONV3X3_BF16.launches - k4 == 1
+        assert stem.launches - k4 == 1
         return out
 
     for i in (0, 1, 0, 1):
@@ -744,10 +811,11 @@ def test_train_iteration_launches_every_kernel(cuda, tmp_path):
         # meets the ScriptPlayer and the RandomPlayer
         trainer.benchmark()
     # both opponents only fast-forward here: the multi-step entry, not
-    # their single steps
+    # their single steps; K4's stem design takes no stem of 64 channels
     counts = kernels.counts()
     assert counts.pop("script_step") == 0
     assert counts.pop("random_step") == 0
+    assert counts.pop("stem_bf16") == 0
     assert all(n > 0 for n in counts.values()), counts
     assert trainer.ckpt.exists("latest")
 
@@ -1135,6 +1203,8 @@ def test_train_on_data_launches_every_kernel(cuda, tmp_path):
     trainer.train_on_data(loops=1)
     counts = kernels.counts()
     multi = counts.pop("agent_steps")
+    # K4's stem design takes no stem of 64 channels
+    assert counts.pop("stem_bf16") == 0
     assert all(n > 0 for n in counts.values()), counts
     if multi == 0:
         # a rejected gate skips the benchmark, the one part of the loop
@@ -1146,7 +1216,7 @@ def test_train_on_data_launches_every_kernel(cuda, tmp_path):
     st = {k: trainer.play_stats[k] - s0[k]
           for k in ("steps", "paired_steps", "folds")}
     st["steps"] -= len(gen_counts) * cfg.actor_chunk_steps
-    want = expected_launches(st, cfg.mcts_simulations, cfg.blocks)
+    want = expected_launches(st, cfg)
     assert {k: kernels.counts()[k] for k in want} == want
     for kinds, c in gen_counts:
         assert c["script_step"] == cfg.actor_chunk_steps
@@ -1585,15 +1655,22 @@ def test_spans_time_the_play_path_on_the_card(cuda):
 
 # ------------------------------------------------ shared by the path tests
 
-def expected_launches(st, sims, blocks):
+def expected_launches(st, cfg):
     """Launches of the search kernels, the network kernels and K7 implied
     by a run's lockstep searches (``steps``, of which ``paired_steps`` ran
-    two nets) and folds: each search evaluates its root and one node per
-    simulation, expands (K7) once per simulation, and its move is one more
-    K7 launch; each int8 fold calibrates on K4 (the stem and every conv).
-    K8 and the opponents' K9/K10 depend on the run."""
+    two nets) and folds under ``cfg``: each search evaluates its root and
+    one node per simulation, expands (K7) once per simulation, and its
+    move is one more K7 launch; each int8 fold calibrates on K4 (the stem
+    and every conv), its stem at the 512 calibration features in K4's stem
+    design where ``stem_wide`` takes it (256 channels); the searches' stems
+    run below the switch, on the tiled design.  K8 and the opponents'
+    K9/K10 depend on the run."""
+    sims, blocks = cfg.mcts_simulations, cfg.blocks
     evals = (st["steps"] + st["paired_steps"]) * (sims + 1)
-    return {"conv3x3_bf16": evals + st["folds"] * (1 + 2 * blocks),
+    wide = FI.stem_wide(512, cfg.num_features, cfg.filters,
+                        torch.device("cuda"))
+    return {"conv3x3_bf16": evals + st["folds"] * (2 * blocks + (not wide)),
+            "stem_bf16": st["folds"] * wide,
             "heads_eval": evals, "conv3x3_i8": evals * 2 * blocks,
             "write_nodes": st["steps"] * (sims + 1),
             "mcts_descend": st["steps"] * sims,
@@ -2130,12 +2207,45 @@ def test_flagship_plays_the_script_player(flagship, tmp_path, monkeypatch,
     if mode == "bf16":
         return
     assert res["unfinished"] == 0
+    # 32 games: every stem on K4's tiled design (the fold, which ran the
+    # calibration's stem, came before the count)
+    assert counts["stem_bf16"] == 0
     for k in kernels.ALL:
-        if k not in (kernels.RANDOM_STEP, kernels.SCRIPT_STEP):
+        if k not in (kernels.RANDOM_STEP, kernels.SCRIPT_STEP,
+                     kernels.STEM_BF16):
             assert counts[k.name] > 0, k.name
     assert counts["agent_steps"] == w["blocks"]
     _hold_agent_steps(w["calls"])
     assert (int(sum(carried)) > 0) == (mode == "tree_reuse")
+
+
+@pytest.mark.parametrize("games", [64, 1024])
+def test_flagship_play_chunk_sends_its_stems_to_the_design_of_its_batch(
+        flagship, tmp_path, games):
+    """One chunk of 8 micro-steps of ``Trainer.play`` against the
+    ScriptPlayer with the flagship (int8, 32 simulations), the fold made
+    before the count: at 1,024 games every stem launch takes K4's stem
+    design and none its tiled one, at 64 the reverse; one stem an
+    evaluation (the root and each simulation of a lockstep step)."""
+    cfg, net = flagship
+    t = Trainer(_with_dirs(cfg.replace(actor_chunk_steps=8,
+                                       max_game_steps=8), tmp_path),
+                seed=0, device="cuda")
+    t.net = net
+    t.folded()
+    s0 = dict(t.play_stats)
+    kernels.reset_counts()
+    res = t.play(A.OPP_SCRIPT, games)
+    counts = kernels.counts()
+    steps = t.play_stats["steps"] - s0["steps"]
+    assert res["games"] == games and steps == 8
+    evals = steps * (cfg.mcts_simulations + 1)
+    assert counts["heads_eval"] == evals
+    assert counts["conv3x3_i8"] == evals * 2 * cfg.blocks
+    assert FI.stem_wide(games, cfg.num_features, cfg.filters,
+                        torch.device("cuda")) == (games == 1024)
+    assert (counts["stem_bf16"], counts["conv3x3_bf16"]) == (
+        (evals, 0) if games == 1024 else (0, evals))
 
 
 @pytest.mark.parametrize("ring", [False, True])
@@ -2239,7 +2349,7 @@ def test_flagship_train_iteration(flagship, tmp_path, monkeypatch, ring):
 
     st = {k: t.play_stats[k] - s0[k]
           for k in ("steps", "paired_steps", "folds")}
-    want = expected_launches(st, cfg.mcts_simulations, cfg.blocks)
+    want = expected_launches(st, cfg)
     assert {k: counts[k] for k in want} == want
     assert counts["script_step"] == counts["random_step"] == 0
     assert all(counts[k.name] > 0 for k in kernels.ALL
@@ -2337,7 +2447,7 @@ def test_flagship_train_on_data_iteration(flagship, tmp_path):
     st = {k: t.play_stats[k] - s0[k]
           for k in ("steps", "paired_steps", "folds")}
     st["steps"] -= steps
-    want = expected_launches(st, cfg.mcts_simulations, cfg.blocks)
+    want = expected_launches(st, cfg)
     assert {k: counts[k] for k in want} == want
     assert not reverts
     assert t.ckpt.exists("temp") and t.ckpt.exists("latest")

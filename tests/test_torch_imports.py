@@ -115,7 +115,7 @@ def test_import_builds_and_loads_nothing():
     assert [k.name for k in kernels.ALL] == [
         "conv3x3_i8", "mcts_descend", "mcts_backup", "conv3x3_bf16",
         "heads_eval", "write_nodes", "rules_step", "state_views",
-        "script_step", "random_step", "agent_steps"]
+        "script_step", "random_step", "agent_steps", "stem_bf16"]
     for k in kernels.ALL:
         assert k._fn is None and k.build_log == ""
         assert f'extern "C" int {k.symbol}(' in k.source.read_text()
@@ -147,8 +147,8 @@ def test_kernel_library_names_follow_their_headers(tmp_path, monkeypatch):
     """A rules kernel's library name hashes the shared headers too, so an
     edit of ``rules_dev.cuh`` or ``rules_warp.cuh`` rebuilds the five warp
     kernels (K7, K8, K9, K10 and their multi-step entry); the two convs
-    share ``conv_tc.cuh`` the same way, and K1 also hashes its wide
-    design's ``conv_i8_wide.cuh``."""
+    (K4 in both its designs) share ``conv_tc.cuh`` the same way, and K1
+    also hashes its wide design's ``conv_i8_wide.cuh``."""
     from alphazero_risk_tpu_torch import kernels
     warp = ["rules_dev.cuh", "rules_warp.cuh"]
     for k, shared in ((kernels.RULES_STEP, warp),
@@ -158,7 +158,8 @@ def test_kernel_library_names_follow_their_headers(tmp_path, monkeypatch):
                       (kernels.AGENT_STEPS, warp),
                       (kernels.CONV3X3_I8, ["conv_tc.cuh",
                                             "conv_i8_wide.cuh"]),
-                      (kernels.CONV3X3_BF16, ["conv_tc.cuh"])):
+                      (kernels.CONV3X3_BF16, ["conv_tc.cuh"]),
+                      (kernels.STEM_BF16, ["conv_tc.cuh"])):
         assert [h.name for h in k.headers] == shared
         for i, name in enumerate(shared):
             before = k.library

@@ -381,6 +381,20 @@ def test_conv3x3_bf16_outputs_agree(variant):
         TF.conv3x3_bf16(*args, out=out[:1])
 
 
+@pytest.mark.parametrize("boards,cin,cout,device,wide", [
+    (199, 13, 256, "cuda", False), (200, 13, 256, "cuda", True),
+    (4096, 13, 256, "cuda", True), (4096, 16, 256, "cuda", True),
+    (4096, 17, 256, "cuda", False), (4096, 13, 128, "cuda", False),
+    (4096, 13, 256, "cpu", False)])
+def test_stem_wide_takes_stems_that_fill_the_card(monkeypatch, boards, cin,
+                                                  cout, device, wide):
+    """``conv3x3_bf16`` takes K4's stem design for Cin <= 16, Cout = 256
+    and a tile of 64 rows for every SM (on 132 SMs: B >= 200, as K1's wide
+    design); never off the card."""
+    monkeypatch.setattr(TF, "_sm_count", lambda index: 132)
+    assert TF.stem_wide(boards, cin, cout, torch.device(device)) == wide
+
+
 def test_bf16_trunk_hand_off_matches_jax():
     """The 2-block bf16 trunk with the bf16 hand-off between convs against
     JAX ``_trunk_xla_bf16``, within the per-block bound of the test above

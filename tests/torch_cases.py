@@ -243,7 +243,7 @@ def watch_launches(steps, sims, opponent):
     simulation's features and the chunk's closing status; K6 for the root
     and each simulation; K2, K7's expand and K3 per simulation, K7 for the
     move; the opponent's single step (K9 or K10) once a step.  The plain
-    network launches no K1, K4 or K5."""
+    network launches no K1, K4 (in either design) or K5."""
     return {"mcts_descend": steps * sims, "mcts_backup": steps * sims,
             "write_nodes": steps * (sims + 1),
             "rules_step": steps * (sims + 1),
@@ -251,4 +251,4 @@ def watch_launches(steps, sims, opponent):
             "script_step": steps if opponent == "sp" else 0,
             "random_step": steps if opponent == "rp" else 0,
             "conv3x3_i8": 0, "conv3x3_bf16": 0, "heads_eval": 0,
-            "agent_steps": 0}
+            "agent_steps": 0, "stem_bf16": 0}

@@ -35,7 +35,12 @@ each input byte read and each output byte written once).
                   4,096: the stem (13 -> 256) with f32 out and with the int8
                   trunk input, conv_a (bf16 in and out) and conv_b (the
                   residual in, f32 and bf16 out) of a random 256-channel
-                  block; yardstick bf16 ``F.conv2d``
+                  block, each through ``conv3x3_bf16`` (which picks the
+                  stem's design); yardstick bf16 ``F.conv2d``; and at
+                  1,024 and 4,096 the stem with the int8 trunk input
+                  launched on each of K4's designs the checkout has (the
+                  tiled one; the stem design, ``kernels.STEM_BF16``), with
+                  its share of the bytes bound
     k5            heads_eval on the folded heads of a random 1x256 net
                   (value_hidden 256) at B = 64, 128, 512, 1,024
     k7            the rules step on the first 64 and all 1,024 mixed states
@@ -115,14 +120,17 @@ def _trace(fn, reps):
     return prof.key_averages()
 
 
-def device_ms(fn, kernel: str, reps: int = 20):
+def device_ms(fn, kernel, reps: int = 20):
     """Mean device ms of one launch of the CUDA kernel whose name contains
-    ``kernel``, over ``reps`` calls of ``fn``, from a profiler trace.
+    ``kernel`` (a name, or a tuple of names any of which may match), over
+    ``reps`` calls of ``fn``, from a profiler trace.
     ``time_ms`` times the wrapper's call back to back, so for a kernel of
     a few microseconds it reads the host's call cost; this reads the
     kernel alone.  None when the trace holds no such kernel."""
+    names = (kernel,) if isinstance(kernel, str) else kernel
     rows = [e for e in _trace(fn, reps)
-            if kernel in e.key and e.self_device_time_total > 0]
+            if any(n in e.key for n in names)
+            and e.self_device_time_total > 0]
     if not rows:
         return None
     return (sum(e.self_device_time_total for e in rows)
@@ -378,10 +386,14 @@ def k4(ctx):
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
-        return {f"k4_b{b}": _k4_forms(ctx, folded, inv, w, bias, b)
-                for b in (64, 1024, 4096)}
+        out = {f"k4_b{b}": _k4_forms(ctx, folded, inv, w, bias, b)
+               for b in (64, 1024, 4096)}
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
+    for b in (1024, 4096):
+        out[f"k4_b{b}"]["stem_i8_designs"] = _k4_stem_designs(ctx, folded,
+                                                              inv, b)
+    return out
 
 
 def _k4_forms(ctx, folded, inv, w, bias, b):
@@ -413,11 +425,40 @@ def _k4_forms(ctx, folded, inv, w, bias, b):
         xl = xin.to(torch.bfloat16).permute(0, 3, 1, 2)
         wl = wt.permute(3, 2, 0, 1).contiguous()
         e[name] = timed(lambda: FI.conv3x3_bf16(*args, **kw),
-                        "conv3x3_bf16_kernel", nbytes,
+                        ("conv3x3_bf16_kernel", "stem_bf16_kernel"), nbytes,
                         2.0 * m * 9 * cin * cout, BF16_OPS_PER_S,
                         plain=lambda: FI._conv3x3_bf16_plain(*args),
                         bf16_conv2d_ms=time_ms(
                             lambda: F.conv2d(xl, wl, padding=1), 50))
+    return e
+
+
+def _k4_stem_designs(ctx, folded, inv, b):
+    """The stem with f32 and int8 out (the int8 trunk's first input) at
+    batch ``b``, launched directly on each of K4's designs the checkout
+    has: the tiled one, and the stem design where the package has it
+    (``kernels.STEM_BF16``), each with its share of the bytes bound."""
+    import torch
+    from alphazero_risk_tpu_torch import kernels
+    m, x = b * 42, ctx.feats(b)
+    w, bias = folded["stem_w"], folded["stem_b"]
+    cin, cout = x.shape[-1], w.shape[-1]
+    out = torch.empty((b, 7, 6, cout), device=ctx.dev)
+    out_q = torch.empty((b, 7, 6, cout), dtype=torch.int8, device=ctx.dev)
+    P = kernels.ptr
+    designs = {"tiled": (lambda: kernels.CONV3X3_BF16.launch(
+        P(x), P(w), P(bias), None, P(inv), P(out), None, P(out_q), m, cin,
+        cout, 0), "conv3x3_bf16_kernel")}
+    if hasattr(kernels, "STEM_BF16"):
+        designs["stem"] = (lambda: kernels.STEM_BF16.launch(
+            P(x), P(w), P(bias), P(inv), P(out), None, P(out_q), m, cin,
+            cout), "stem_bf16_kernel")
+    nbytes = m * cin * 4 + 9 * cin * cout * 2 + cout * 4 + m * cout * 5
+    e = {}
+    for name, (run, kernel) in designs.items():
+        e[name] = timed(run, kernel, nbytes, 2.0 * m * 9 * cin * cout,
+                        BF16_OPS_PER_S)
+        e[name]["share_of_bound"] = e[name]["bound_ms"] / e[name]["device_ms"]
     return e
 
 
